@@ -1,0 +1,453 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (cvpce_tpu_torch) on one GPU.
+
+Builds the CUDA kernels with nvcc, holds each against its plain PyTorch
+version on the card, then serves the main path at full width: 832x1344
+shelf photos -> GLN (seeded random weights, head calibrated to the
+scenes' product density) -> hard-NMS kernel -> crops -> MACVGG ->
+fused-kNN kernel against an 8192-entry gallery -> planogram compliance,
+on 4 synthetic planogram scenes.
+
+Prints one JSON line per phase with its elapsed seconds, then the
+`{"kernels": [...]}` line, the card's name and power limit as nvidia-smi
+prints them, and last `{"ok": true, "device": {...}}`. Any failed check
+raises, so the script exits non-zero without that last line. Needs one
+CUDA card; fails without one.
+
+    python3 chip_smoke.py [--seed 0]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from cvpce_tpu_torch import _build
+from cvpce_tpu_torch.data import synthetic
+from cvpce_tpu_torch.data import transforms as T
+from cvpce_tpu_torch.models.embedders import EmbedFn, MACVGG, fold_bn_variables
+from cvpce_tpu_torch.models.gln import GLN, GLNConfig
+from cvpce_tpu_torch.ops import knn as knn_ops
+from cvpce_tpu_torch.ops import nms as nms_ops
+from cvpce_tpu_torch.pipeline.classifier import Classifier
+from cvpce_tpu_torch.pipeline.evaluator import (PlanogramComparator,
+                                                PlanogramEvaluator)
+from cvpce_tpu_torch.pipeline.proposals import ProposalGenerator
+
+# H100 SXM peaks from NVIDIA's data sheet: HBM bytes/s and
+# f32 FLOP/s outside the tensor cores, at the full 700 W power limit
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+NMS_FLOPS_PER_IOU = 12  # 4 min/max, 4 sub, 2 clamp, mul, add-sub, div
+KNN_TOL = 1e-5
+GALLERY_SIZE = 8192
+N_STYLES = 16
+N_SCENES = 4
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+class Timer:
+    """Median device time of a callable, by CUDA events around each
+    call. The 64 MB buffer is rewritten before every call so the 50 MB
+    L2 cache starts cold, as it does for the serving path. A spin of
+    SPIN_CYCLES (about 0.5 ms) on the card precedes the start event, so
+    the host has queued the call's launches before the card reaches
+    them: the time is the card's, not the host's launch overhead."""
+
+    SPIN_CYCLES = 1_000_000
+
+    def __init__(self):
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def ms(self, fn, iters: int = 20, warmup: int = 2) -> float:
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(iters):
+            self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------- kernels
+
+def random_boxes(rng, batch: int, n: int):
+    """Detection-like candidates on an 832x1344 canvas."""
+    cx = rng.uniform(0, 1344, (batch, n))
+    cy = rng.uniform(0, 832, (batch, n))
+    w = rng.uniform(8, 120, (batch, n))
+    h = rng.uniform(8, 160, (batch, n))
+    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    scores = rng.uniform(0.05, 1.0, (batch, n))
+    valid = rng.uniform(0, 1, (batch, n)) < 0.95
+    cuda = lambda a, t: torch.from_numpy(a.astype(t)).cuda()  # noqa: E731
+    return (cuda(boxes, np.float32), cuda(scores, np.float32),
+            torch.from_numpy(valid).cuda())
+
+
+def nms_cost(keep_sorted, n_walk):
+    """(bytes, flops) the sorted walk needs on these inputs: every live
+    candidate i tests the n - 1 - i boxes after it."""
+    b, n = keep_sorted.shape
+    idx = torch.arange(n, device=keep_sorted.device)
+    live = keep_sorted & (idx[None, :] < n_walk[:, None])
+    tests = ((n - 1 - idx)[None, :] * live).sum().item()
+    return b * n * (16 + 1) + b * 4, tests * NMS_FLOPS_PER_IOU
+
+
+def check_nms(timer, boxes, scores, valid, label):
+    t0 = time.perf_counter()
+    keep_k = nms_ops.nms_mask_fused(boxes, scores, valid, 0.5)
+    keep_p = nms_ops.nms_mask(boxes, scores, valid, 0.5)
+    torch.cuda.synchronize()
+    mismatches = int((keep_k != keep_p).sum())
+    max_abs_err = float((keep_k.int() - keep_p.int()).abs().max())
+    require(mismatches == 0, f"NMS kernel keep mask differs from plain "
+                             f"({label}: {mismatches} entries)")
+    boxes_s, _, n_walk, _ = nms_ops.sort_candidates(boxes, scores, valid)
+    ks = nms_ops.nms_keep_sorted(boxes_s, n_walk, 0.5)
+    ms = timer.ms(lambda: nms_ops.nms_keep_sorted(boxes_s, n_walk, 0.5))
+    plain_ms = timer.ms(
+        lambda: nms_ops.nms_keep_sorted_plain(boxes_s, n_walk, 0.5),
+        iters=3, warmup=1)
+    nbytes, flops = nms_cost(ks, n_walk)
+    bms, by = bound_ms(nbytes, flops)
+    row = {"name": "nms_hard", "shape": list(boxes.shape),
+           "valid": int(valid.sum()), "kept": int(keep_k.sum()),
+           "mismatches": mismatches, "max_abs_err": max_abs_err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "library_ms": None, "seconds": time.perf_counter() - t0}
+    emit({"phase": f"kernels.nms_hard.{label}", **row})
+    return row
+
+
+def knn_check(timer, gallery, inv_g, queries, k, label):
+    """K2 as the Classifier calls it: the resident gallery with its
+    inverse norms taken once (`inv_g`)."""
+    t0 = time.perf_counter()
+    d_k, i_k = knn_ops.nearest_neighbors_fused(gallery, queries, k, inv_g)
+    d_p, i_p = knn_ops.knn_plain(gallery, queries, k)
+    torch.cuda.synchronize()
+    err = float((d_k - d_p).abs().max())
+    require(err <= KNN_TOL, f"kNN distance error {err} > {KNN_TOL}")
+    # where indices differ, the two neighbours must tie in distance
+    dists = knn_ops.distance_matrix(queries, gallery)
+    diff = i_k != i_p
+    tie_gap = float((dists.gather(1, i_k) - dists.gather(1, i_p))
+                    .abs()[diff].max()) if diff.any() else 0.0
+    require(tie_gap <= KNN_TOL, f"kNN index differs off a tie "
+                                f"(distance gap {tie_gap})")
+    ms = timer.ms(lambda: knn_ops.nearest_neighbors_fused(
+        gallery, queries, k, inv_g))
+    # the same kernel with the gallery's norms taken anew in the call
+    ms_norms_per_call = timer.ms(
+        lambda: knn_ops.nearest_neighbors_fused(gallery, queries, k))
+    plain_ms = timer.ms(lambda: knn_ops.knn_plain(gallery, queries, k))
+
+    def library():
+        qn = knn_ops.l2_normalize(queries)
+        d = 1.0 - (qn @ gallery.T) * inv_g
+        return torch.topk(d, k, dim=1, largest=False)
+
+    library_ms = timer.ms(library)
+    (q, dim), a = queries.shape, gallery.shape[0]
+    nbytes = (q + a) * dim * 4 + a * 4 + q * k * 12
+    flops = 2 * q * a * dim + 3 * q * dim + 2 * q * a
+    bms, by = bound_ms(nbytes, flops)
+    row = {"name": "knn_fused", "shape": [q, a, dim], "k": k,
+           "index_mismatches": int(diff.sum()), "tie_gap": tie_gap,
+           "max_abs_err": err, "ms": ms,
+           "ms_norms_per_call": ms_norms_per_call, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": f"kernels.knn_fused.{label}", **row})
+    return row
+
+
+def phase_kernels(timer, rng):
+    t0 = time.perf_counter()
+    boxes, scores, valid = random_boxes(rng, 8, 5120)
+    check_nms(timer, boxes, scores, valid, "8x5120")
+    gen = torch.Generator(device="cuda").manual_seed(
+        int(rng.integers(1 << 31)))
+    gallery = torch.randn((GALLERY_SIZE, 1024), device="cuda", generator=gen)
+    queries = torch.randn((32, 1024), device="cuda", generator=gen)
+    inv_g = knn_ops.inverse_norms(gallery)
+    for k in (1, 5):
+        knn_check(timer, gallery, inv_g, queries, k, f"k{k}")
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
+
+
+# ------------------------------------------------------------------ serve
+
+class GallerySet:
+    """GALLERY_SIZE tanh-scale 256x256 views of the product archetypes,
+    made on the card: view 0 of a style is its canonical render, the
+    others carry a seeded gain and pixel noise."""
+
+    def __init__(self, styles, size: int, seed: int):
+        self.styles = styles
+        self.size = size
+        self.canon = [T.resize_for_classification(
+            synthetic.product_gallery_image(s), device="cuda")
+            for s in styles]
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, i):
+        sid, view = i % len(self.styles), i // len(self.styles)
+        img = self.canon[sid]
+        if view:
+            gain = 0.9 + 0.2 * torch.rand((), device="cuda",
+                                          generator=self.gen)
+            noise = 0.02 * torch.randn(img.shape, device="cuda",
+                                       generator=self.gen)
+            img = (img * gain + noise).clamp(0.0, 1.0)
+        label = self.styles[sid]["label"]
+        return T.scale_to_tanh(img), None, label, label
+
+
+def calibrate_head(pg, images, target):
+    """bench.py's calibration of a random head, on the port: widen the
+    logit spread by scaling the cls_logits kernel, then bisect a shift
+    of its bias until the detections per image above the serving
+    confidence threshold match the scenes' product count. As with a
+    trained detector (artifacts/gln_r5 serves at 0.48), most anchors
+    then clear the 0.05 postprocess floor, so thousands of candidates
+    enter NMS."""
+    head = pg.model.head.cls_logits
+    canvases, sizes = [], []
+    for img in images:
+        canvas, _, (ch, cw), _ = pg._canvas(img)
+        canvases.append(canvas)
+        sizes.append([ch, cw])
+    canvases = torch.stack(canvases)
+    sizes = torch.tensor(sizes, dtype=torch.float32, device="cuda")
+    thresh = pg.confidence_threshold
+    with torch.inference_mode():
+        sigma = float(pg.model(canvases[:1])["cls_logits"].std())
+        factor = float(np.clip(0.5 / max(sigma, 1e-6), 1.0, 1000.0))
+        head.weight.mul_(factor)
+        raw = pg.model(canvases[:1])["cls_logits"].flatten()
+    base = head.bias.detach().clone()
+
+    def count(shift):
+        with torch.no_grad():
+            head.bias.copy_(base + shift)
+        res = pg.infer(canvases, sizes)
+        return (res["valid"] & (res["scores"] > thresh)).sum(1).cpu().numpy()
+
+    hi = float(np.log(thresh / (1 - thresh))
+               - torch.quantile(raw, 0.999))
+    n_hi = count(hi)
+    tries = 0
+    while n_hi.mean() < target and tries < 6:
+        hi += 2.0
+        n_hi = count(hi)
+        tries += 1
+    best = (abs(n_hi.mean() - target), hi, n_hi)
+    lo = hi - 6.0
+    n_lo = count(lo)
+    tries = 0
+    while n_lo.mean() > target and tries < 6:
+        hi, lo = lo, lo - 4.0
+        n_lo = count(lo)
+        tries += 1
+    if abs(n_lo.mean() - target) < best[0]:
+        best = (abs(n_lo.mean() - target), lo, n_lo)
+    for _ in range(12):
+        mid = (lo + hi) / 2
+        n_mid = count(mid)
+        if abs(n_mid.mean() - target) < best[0]:
+            best = (abs(n_mid.mean() - target), mid, n_mid)
+        if n_mid.mean() > target:
+            hi = mid
+        else:
+            lo = mid
+        if best[0] < 0.15 * target:
+            break
+    _, shift, counts = best
+    with torch.no_grad():
+        head.bias.copy_(base + shift)
+    return {"kernel_scale": factor, "bias_shift": shift,
+            "dets_per_image": counts.tolist()}
+
+
+def phase_serve(timer, seed):
+    t0 = time.perf_counter()
+    config = GLNConfig()
+    gen = torch.Generator().manual_seed(seed)
+    state = GLN(config, generator=gen).state_dict()
+    pg = ProposalGenerator(state, config, confidence_threshold=0.5,
+                           input_norm="raw01", device="cuda")
+    styles = synthetic.product_styles(N_STYLES, seed=seed)
+    scenes = []
+    for i in range(N_SCENES):
+        rng = np.random.default_rng((seed, 31, i))
+        scenes.append(synthetic.planogram_scene(
+            config.canvas_h, config.canvas_w, styles, rng,
+            violation_rate=0.0 if i % 2 == 0 else 0.3))
+    gt_mean = float(np.mean([len(s[2]["boxes"]) for s in scenes]))
+    cal = calibrate_head(pg, [s[0] for s in scenes], gt_mean)
+    emit({"phase": "serve.calibrate", "gt_per_image": gt_mean, **cal,
+          "seconds": time.perf_counter() - t0})
+
+    t1 = time.perf_counter()
+    vgg = MACVGG(batch_norm=True, generator=gen).cuda()
+    encoder = EmbedFn(fold_bn_variables(vgg), device="cuda")
+    clf = Classifier(encoder, encoder.embedding_size,
+                     sample_set=GallerySet(styles, GALLERY_SIZE, seed),
+                     k=1, device="cuda")
+    torch.cuda.synchronize()
+    require(clf._use_fused, "gallery too small for the fused kNN path")
+    require(np.isfinite(clf.embedding).all(), "non-finite gallery")
+    emit({"phase": "serve.gallery", "entries": len(clf.embedding),
+          "seconds": time.perf_counter() - t1})
+
+    evaluator = PlanogramEvaluator(pg, clf, PlanogramComparator(device="cuda"))
+    nms_ops.nms_keep_sorted.launches = 0
+    knn_ops.nearest_neighbors_fused.launches = 0
+    per_scene = []
+    for i, (img, plano, actual, expected) in enumerate(scenes):
+        ts = time.perf_counter()
+        score, _, path = evaluator.evaluate_detailed(img, plano)
+        torch.cuda.synchronize()
+        per_scene.append({"scene": i, "compliance": score, "path": path,
+                          "expected": expected,
+                          "seconds": time.perf_counter() - ts})
+    launches = {"nms_hard": nms_ops.nms_keep_sorted.launches,
+                "knn_fused": knn_ops.nearest_neighbors_fused.launches}
+    serve_s = sum(r["seconds"] for r in per_scene)
+
+    # what the serve path produced, scene by scene, held against plain
+    nms_rows = []
+    for i, (img, *_rest) in enumerate(scenes):
+        canvas, _, (ch, cw), _ = pg._canvas(img)
+        sizes = torch.tensor([[ch, cw]], dtype=torch.float32, device="cuda")
+        res = pg.infer(canvas[None], sizes, return_candidates=True)
+        keep_p = nms_ops.nms_mask(res["cand_boxes"], res["cand_scores"],
+                                  res["cand_valid"], config.nms_thresh)
+        keep_mismatches = int((keep_p != res["keep"]).sum())
+        require(keep_mismatches == 0,
+                f"scene {i}: NMS kernel keep mask differs from plain "
+                f"({keep_mismatches} entries)")
+        boxes = res["boxes"][res["valid"]]
+        require(torch.isfinite(boxes).all(), "non-finite detections")
+        n_det = int((res["valid"] & (res["scores"] > pg.confidence_threshold))
+                    .sum())
+        crops = pg.crop_boxes(img, res["boxes"][0][:n_det].cpu().numpy())
+        require(tuple(crops.shape[1:]) == (256, 256, 3), "crop shape")
+        per_scene[i].update(candidates=int(res["num_candidates"][0]),
+                            detections=n_det, crops=int(crops.shape[0]),
+                            keep_mismatches=keep_mismatches)
+        if i == 0:
+            nms_rows.append(res)
+            require(n_det > 0, "no detections to embed")
+            emb = encoder(crops[:32])
+            knn_serve = knn_check(timer, clf._anchors_dev,
+                                  clf._anchor_inv_norms, emb, 1, "serve")
+    for r in per_scene:
+        require(0.0 <= r["compliance"] <= 1.0,
+                f"compliance {r['compliance']} outside [0, 1]")
+        emit({"phase": "serve.scene", **r})
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the serve path")
+    res0 = nms_rows[0]
+    nms_serve = check_nms(timer, res0["cand_boxes"], res0["cand_scores"],
+                          res0["cand_valid"], "serve")
+    emit({"phase": "serve", "scenes": N_SCENES, "launches": launches,
+          "serve_seconds": serve_s, "seconds": time.perf_counter() - t0})
+    return launches, nms_serve, knn_serve
+
+
+# ------------------------------------------------------------------- main
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "allow_tf32": False, "seed": args.seed,
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    info = _build.build_all()
+    emit({"phase": "build", "kernels": {
+        name: {"seconds": v["seconds"],
+               "ptxas": [ln.strip() for ln in v["log"].splitlines()
+                         if "registers" in ln or "spill" in ln]}
+        for name, v in info.items()}, "seconds": time.perf_counter() - t0})
+
+    timer = Timer()
+    rng = np.random.default_rng(args.seed)
+    phase_kernels(timer, rng)
+    launches, nms_serve, knn_serve = phase_serve(timer, args.seed)
+    rows = {"nms_hard": dict(nms_serve, launches=launches["nms_hard"]),
+            "knn_fused": dict(knn_serve, launches=launches["knn_fused"])}
+    replaces = {
+        "nms_hard": ("cvpce_tpu_torch/csrc/nms_hard.cu",
+                     "cvpce_tpu/ops/nms_pallas.py:31"),
+        "knn_fused": ("cvpce_tpu_torch/csrc/knn_fused.cu",
+                      "cvpce_tpu/ops/knn_pallas.py:29"),
+    }
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": replaces[name][0],
+         "replaces": replaces[name][1],
+         **{k: row[k] for k in keys}} for name, row in rows.items()]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

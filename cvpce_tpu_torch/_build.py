@@ -1,0 +1,112 @@
+"""Build the CUDA kernels in `csrc/` with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` compiles on its own into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds, not
+minutes). Libraries go into `build/cvpce_tpu_torch/` at the repository
+root (listed in .gitignore; `CVPCE_TORCH_BUILD_DIR` overrides it), named
+by a hash of the source and the flags, so a library is rebuilt only when
+either changes. Pointers and the stream pass as `ctypes.c_void_p`; every
+C launch entry point returns `cudaGetLastError()`, and the op modules
+raise on a non-zero code with the library's `*_error_string`.
+
+Nothing here runs at import time: the first call of `load(name)` builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+KERNELS = ("nms_hard", "knn_fused")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+BASE_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+# per-source extra flags: the NMS IoU must round exactly as the plain
+# torch version does, so no multiply-add contraction there
+EXTRA_FLAGS: Dict[str, List[str]] = {"nms_hard": ["-fmad=false"]}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# name -> {"seconds": build time (0.0 when cached), "log": nvcc output}
+BUILD_INFO: Dict[str, Dict] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("CVPCE_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return CSRC.parent.parent / "build" / "cvpce_tpu_torch"
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin)")
+
+
+def _flags(name: str) -> List[str]:
+    return ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(
+        src + " ".join(_flags(name)).encode()).hexdigest()[:16]
+    return build_dir() / f"lib{name}_{digest}.so"
+
+
+def _build(name: str) -> Path:
+    out = _lib_path(name)
+    if out.exists():
+        BUILD_INFO[name] = {"seconds": 0.0, "log": "cached"}
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} "
+                           f"(rc {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    BUILD_INFO[name] = {"seconds": seconds, "log": log}
+    return out
+
+
+def build_all() -> Dict[str, Dict]:
+    """Build every kernel library, one nvcc process per source, all
+    started together. Returns BUILD_INFO."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build, KERNELS))
+    return BUILD_INFO
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel `name`, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(_build(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def stream_ptr(tensor) -> ctypes.c_void_p:
+    """PyTorch's current stream on the tensor's device, as a pointer."""
+    import torch
+
+    return ctypes.c_void_p(
+        torch.cuda.current_stream(tensor.device).cuda_stream)

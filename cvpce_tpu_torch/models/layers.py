@@ -1,0 +1,44 @@
+"""Shared building blocks (torch, NCHW inside modules); counterpart of
+cvpce_tpu/models/layers.py."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm with frozen statistics and affine (torchvision's
+    FrozenBatchNorm2d). Buffers only; the statistics fold in f32 the way
+    cvpce_tpu/models/layers.py:FrozenBatchNorm folds them."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = self.weight / torch.sqrt(self.running_var + self.eps)
+        shift = self.bias - self.running_mean * inv
+        return x * inv[None, :, None, None] + shift[None, :, None, None]
+
+
+def conv(cin: int, cout: int, kernel: int, stride: int = 1,
+         bias: bool = False) -> nn.Conv2d:
+    """Conv with torch-style symmetric padding kernel // 2."""
+    return nn.Conv2d(cin, cout, kernel, stride=stride,
+                     padding=kernel // 2, bias=bias)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int,
+             padding: int = 0) -> torch.Tensor:
+    """Max pool with symmetric -inf padding."""
+    return F.max_pool2d(x, window, stride, padding)
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest-neighbour upsample of an NCHW tensor."""
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)

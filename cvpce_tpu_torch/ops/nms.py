@@ -1,0 +1,160 @@
+"""Greedy hard NMS: the plain torch version and the CUDA kernel's wrapper.
+
+Counterpart of cvpce_tpu/ops/nms.py:nms_mask (plain) and
+cvpce_tpu/ops/nms_pallas.py:nms_mask_pallas (kernel). Both take (N, 4)
+boxes or a batch (B, N, 4) and return keep masks in input order. They
+share the pad / mask / stable-sort / scatter steps; they differ only in
+the serial walk over the sorted candidates:
+
+- `nms_keep_sorted_plain`: torch ops on any device;
+- `nms_keep_sorted`: on a CUDA tensor, the kernel in csrc/nms_hard.cu;
+  on a CPU tensor, the plain walk. It counts its kernel launches in
+  `nms_keep_sorted.launches`.
+
+IoU is `inter / max(union, 1e-12)` with the kernel's expression order,
+so the kernel's keep masks are bit-equal to the plain version's.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+
+ALIGN = 256  # pad N like nms_mask_pallas does
+
+
+def _iou_rows(boxes: torch.Tensor) -> torch.Tensor:
+    """(B, N, 4) -> (B, N, N) IoU of row i against every box, computed
+    exactly as csrc/nms_hard.cu does it."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = (x2 - x1) * (y2 - y1)
+    ix1 = torch.maximum(x1[:, :, None], x1[:, None, :])
+    iy1 = torch.maximum(y1[:, :, None], y1[:, None, :])
+    ix2 = torch.minimum(x2[:, :, None], x2[:, None, :])
+    iy2 = torch.minimum(y2[:, :, None], y2[:, None, :])
+    inter = (ix2 - ix1).clamp(min=0.0) * (iy2 - iy1).clamp(min=0.0)
+    union = (area[:, :, None] + area[:, None, :]) - inter
+    return inter / union.clamp(min=1e-12)
+
+
+def nms_keep_sorted_plain(boxes_sorted: torch.Tensor, n_walk: torch.Tensor,
+                          iou_threshold: float) -> torch.Tensor:
+    """Keep flags (B, N) for score-sorted (B, N, 4) boxes: the plain
+    version of the kernel. Walks the first n_walk[b] candidates."""
+    b, n, _ = boxes_sorted.shape
+    iou = _iou_rows(boxes_sorted)
+    col = torch.arange(n, device=boxes_sorted.device)
+    supp = torch.zeros((b, n), dtype=torch.bool, device=boxes_sorted.device)
+    walk = int(n_walk.max()) if b else 0
+    for i in range(min(walk, n)):
+        alive = ~supp[:, i] & (i < n_walk)
+        row = (iou[:, i, :] > iou_threshold) & (col > i)
+        supp |= row & alive[:, None]
+    return ~supp
+
+
+def nms_keep_sorted(boxes_sorted: torch.Tensor, n_walk: torch.Tensor,
+                    iou_threshold: float) -> torch.Tensor:
+    """Keep flags (B, N) for score-sorted (B, N, 4) f32 boxes. A CUDA
+    tensor goes to the kernel; a CPU tensor to the plain version."""
+    if boxes_sorted.device.type == "cpu":
+        return nms_keep_sorted_plain(boxes_sorted, n_walk, iou_threshold)
+    if boxes_sorted.device.type != "cuda":
+        raise ValueError(f"unsupported device {boxes_sorted.device}")
+    if boxes_sorted.dtype != torch.float32 or boxes_sorted.dim() != 3 \
+            or boxes_sorted.shape[-1] != 4:
+        raise ValueError("boxes_sorted must be (B, N, 4) float32")
+    lib = _lib()
+    b, n, _ = boxes_sorted.shape
+    if n > lib.nms_hard_max_n():
+        raise ValueError(f"N={n} exceeds one block's shared memory "
+                         f"({lib.nms_hard_max_n()} boxes)")
+    boxes_c = boxes_sorted.contiguous()
+    walk = n_walk.to(device=boxes_c.device, dtype=torch.int32).contiguous()
+    keep = torch.empty((b, n), dtype=torch.uint8, device=boxes_c.device)
+    # the kernel runs after this returns; temporaries freed here stay
+    # safe because the caching allocator reuses memory in stream order
+    if b and n:
+        code = lib.nms_hard_launch(
+            ctypes.c_void_p(boxes_c.data_ptr()),
+            ctypes.c_void_p(walk.data_ptr()),
+            ctypes.c_void_p(keep.data_ptr()), b, n,
+            ctypes.c_float(iou_threshold), _build.stream_ptr(boxes_c))
+        if code:
+            raise RuntimeError("nms_hard launch failed: "
+                               + lib.nms_hard_error_string(code).decode())
+        nms_keep_sorted.launches += 1
+    return keep.bool()
+
+
+nms_keep_sorted.launches = 0
+
+
+def _lib():
+    lib = _build.load("nms_hard")
+    if not getattr(lib, "_typed", False):
+        lib.nms_hard_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        lib.nms_hard_launch.restype = ctypes.c_int
+        lib.nms_hard_max_n.restype = ctypes.c_int
+        lib.nms_hard_error_string.argtypes = [ctypes.c_int]
+        lib.nms_hard_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def sort_candidates(boxes: torch.Tensor, scores: torch.Tensor,
+                    valid: torch.Tensor):
+    """(B, N, ...) -> the sorted walk's inputs: boxes padded to an ALIGN
+    multiple with far-away invalid dummies and sorted stably by
+    descending masked score (B, Np, 4); the sorted valid flags (B, Np);
+    how many candidates to walk per image (B,), since those after the
+    last valid one cannot affect a valid one; and the sort order."""
+    b, n, _ = boxes.shape
+    pad = (-n) % ALIGN
+    if pad:
+        far = torch.full((b, pad, 4), -1e6, dtype=boxes.dtype,
+                         device=boxes.device)
+        far[..., 2:] += 1.0
+        boxes = torch.cat([boxes, far], 1)
+        scores = torch.cat([scores, torch.full(
+            (b, pad), float("-inf"), dtype=scores.dtype,
+            device=scores.device)], 1)
+        valid = torch.cat([valid, torch.zeros(
+            (b, pad), dtype=torch.bool, device=valid.device)], 1)
+    masked = torch.where(valid, scores,
+                         torch.full_like(scores, float("-inf")))
+    order = torch.sort(masked, dim=1, descending=True, stable=True).indices
+    boxes_s = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    valid_s = torch.gather(valid, 1, order)
+    pos = torch.arange(1, boxes.shape[1] + 1, device=boxes.device)
+    n_walk = torch.where(valid_s, pos, torch.zeros_like(pos)).amax(1)
+    return boxes_s.contiguous(), valid_s, n_walk, order
+
+
+def _nms(boxes, scores, valid, iou_threshold, walk_fn):
+    single = boxes.dim() == 2
+    if single:
+        boxes, scores, valid = boxes[None], scores[None], valid[None]
+    n = boxes.shape[1]
+    boxes_s, valid_s, n_walk, order = sort_candidates(boxes, scores, valid)
+    keep_s = walk_fn(boxes_s, n_walk, iou_threshold) & valid_s
+    keep = torch.zeros_like(keep_s).scatter_(1, order, keep_s)[:, :n]
+    return keep[0] if single else keep
+
+
+def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             iou_threshold: float = 0.5) -> torch.Tensor:
+    """Greedy hard-NMS keep mask, plain torch on any device. boxes
+    (N, 4) or (B, N, 4) xyxy; scores and valid (N,) or (B, N)."""
+    return _nms(boxes, scores, valid, iou_threshold, nms_keep_sorted_plain)
+
+
+def nms_mask_fused(boxes: torch.Tensor, scores: torch.Tensor,
+                   valid: torch.Tensor,
+                   iou_threshold: float = 0.5) -> torch.Tensor:
+    """`nms_mask` with the walk in the CUDA kernel for CUDA tensors."""
+    return _nms(boxes, scores, valid, iou_threshold, nms_keep_sorted)

@@ -1,0 +1,45 @@
+"""Import guard: the port and chip_smoke.py import no package that the
+GPU machine lacks. A subprocess refuses jax, flax, orbax, networkx, cv2,
+PIL, click, torchvision and the JAX package itself at import time, then
+imports every module of cvpce_tpu_torch and chip_smoke (without running
+it)."""
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+BANNED = {"jax", "jaxlib", "flax", "orbax", "networkx", "cv2", "PIL",
+          "click", "torchvision", "cvpce_tpu"}
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError(f"refused import of {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import cvpce_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    cvpce_tpu_torch.__path__, "cvpce_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert callable(chip_smoke.main)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not leaked, leaked
+print("imported", len(names) + 2)
+"""
+
+
+def test_port_imports_no_missing_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    count = int(proc.stdout.split()[-1])
+    assert count >= 20
