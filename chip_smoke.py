@@ -1,12 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (cvpce_tpu_torch) on one GPU.
 
-Builds the CUDA kernels with nvcc, holds each against its plain PyTorch
-version on the card, then serves the main path at full width: 832x1344
-shelf photos -> GLN (seeded random weights, head calibrated to the
-scenes' product density) -> hard-NMS kernel -> crops -> MACVGG ->
-fused-kNN kernel against an 8192-entry gallery -> planogram compliance,
-on 4 synthetic planogram scenes.
+Builds the four CUDA kernels with nvcc and holds each against its plain
+PyTorch version on the card: hard NMS (K1) and Soft-NMS (K3) on 8 x 5120
+seeded boxes, fused kNN (K2), and fused maxpool -> int8 conv (K4) at the
+three VGG block-boundary sites of scripts/profile_fused_pool.py (B=128),
+which is also the path K4 serves. Then it serves at full width, on 4
+synthetic planogram scenes of 832x1344:
+
+- serve (f32): GLN (seeded random weights, head calibrated to the
+  scenes' product density) -> hard-NMS kernel -> crops -> MACVGG ->
+  fused-kNN kernel against an 8192-entry gallery -> compliance;
+- serve.soft: the same detector and gallery with GLNConfig(nms_mode=
+  'soft'), through the Soft-NMS kernel;
+- serve.int8: the int8-static preset -- bf16 GLN with int8='static'
+  (scales calibrated on the scenes) and its backbone folded, an int8_all
+  static bf16 MACVGG on folded BN calibrated on a 4096-entry gallery,
+  the index saved with its scales and loaded back -- then the same
+  scenes, and the detector alone on a batch of 8 photos.
 
 Prints one JSON line per phase with its elapsed seconds, then the
 `{"kernels": [...]}` line, the card's name and power limit as nvidia-smi
@@ -19,11 +30,13 @@ CUDA card; fails without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,7 +45,8 @@ from cvpce_tpu_torch import _build
 from cvpce_tpu_torch.data import synthetic
 from cvpce_tpu_torch.data import transforms as T
 from cvpce_tpu_torch.models.embedders import EmbedFn, MACVGG, fold_bn_variables
-from cvpce_tpu_torch.models.gln import GLN, GLNConfig
+from cvpce_tpu_torch.models.gln import GLN, GLNConfig, fold_gln_backbone
+from cvpce_tpu_torch.ops import conv_fused
 from cvpce_tpu_torch.ops import knn as knn_ops
 from cvpce_tpu_torch.ops import nms as nms_ops
 from cvpce_tpu_torch.pipeline.classifier import Classifier
@@ -40,15 +54,29 @@ from cvpce_tpu_torch.pipeline.evaluator import (PlanogramComparator,
                                                 PlanogramEvaluator)
 from cvpce_tpu_torch.pipeline.proposals import ProposalGenerator
 
-# H100 SXM peaks from NVIDIA's data sheet: HBM bytes/s and
-# f32 FLOP/s outside the tensor cores, at the full 700 W power limit
+# H100 SXM peaks from NVIDIA's data sheet: HBM bytes/s, f32 FLOP/s
+# outside the tensor cores and dense int8 tensor-core OP/s, at the full
+# 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 NMS_FLOPS_PER_IOU = 12  # 4 min/max, 4 sub, 2 clamp, mul, add-sub, div
+# a Soft-NMS pair: the IoU, 4 for the decay (square, negate, divide,
+# exp), the multiply, and the next round's argmax compare
+SOFT_FLOPS_PER_PAIR = NMS_FLOPS_PER_IOU + 6
 KNN_TOL = 1e-5
+SOFT_TOL = 1e-6
 GALLERY_SIZE = 8192
+INT8_GALLERY_SIZE = 4096  # still >= 4096, so K2 serves it
 N_STYLES = 16
 N_SCENES = 4
+DETECT_BATCH = 8  # bench.py's detector batch
+# scripts/profile_fused_pool.py: (site, H = W, Cin, Cout), B = 128
+POOL_SITES = (("pool1_conv2_1", 256, 64, 128),
+              ("pool2_conv3_1", 128, 128, 256),
+              ("pool3_conv4_1", 64, 256, 512))
+POOL_BATCH = 128
+BUILD = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
 def emit(obj) -> None:
@@ -60,9 +88,9 @@ def require(cond, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_ops: float = PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -200,10 +228,138 @@ def knn_check(timer, gallery, inv_g, queries, k, label):
     return row
 
 
+def soft_cost(valid):
+    """(bytes, flops) Soft-NMS needs on these inputs: an image with v
+    valid candidates runs v rounds, round r decaying the v - 1 - r
+    unprocessed ones."""
+    b, n = valid.shape
+    v = valid.sum(1).double()
+    pairs = float((v * (v - 1) / 2).sum())
+    return b * n * (16 + 4 + 1 + 4), pairs * SOFT_FLOPS_PER_PAIR
+
+
+def check_soft(timer, boxes, scores, valid, method, label, time_it=True):
+    """K3 against its plain version: the largest score difference and
+    the keep-set (> score_thresh) mismatches; timed when `time_it`."""
+    t0 = time.perf_counter()
+    thresh = GLNConfig.score_thresh
+    got = nms_ops.soft_nms_scores_fused(boxes, scores, valid, 0.5, 0.5,
+                                        method)
+    want = nms_ops.soft_nms_scores(boxes, scores, valid, 0.5, 0.5, method)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    keep_mismatches = int(((got > thresh) != (want > thresh)).sum())
+    require(err <= SOFT_TOL, f"Soft-NMS kernel differs from plain by {err} "
+                             f"({label}, {method})")
+    require(keep_mismatches == 0, f"Soft-NMS keep sets differ ({label}, "
+                                  f"{method}: {keep_mismatches})")
+    row = {"name": "soft_nms", "method": method, "shape": list(boxes.shape),
+           "valid": int(valid.sum()), "kept": int((got > thresh).sum()),
+           "bit_equal": bool(torch.equal(got, want)), "max_abs_err": err,
+           "keep_mismatches": keep_mismatches}
+    if time_it:
+        row["ms"] = timer.ms(lambda: nms_ops.soft_nms_scores_fused(
+            boxes, scores, valid, 0.5, 0.5, method))
+        row["plain_ms"] = timer.ms(lambda: nms_ops.soft_nms_scores(
+            boxes, scores, valid, 0.5, 0.5, method), iters=3, warmup=1)
+        nbytes, flops = soft_cost(valid)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        row["library_ms"] = None  # no torch op computes Soft-NMS
+    row["seconds"] = time.perf_counter() - t0
+    emit({"phase": f"kernels.soft_nms.{label}.{method}", **row})
+    return row
+
+
+def pool_site_inputs(rng, hw, cin, cout):
+    """scripts/profile_fused_pool.py's inputs for one site: bf16
+    activations in [0, 3), a random int8 kernel, per-channel dequant
+    scales and biases, made on the card from a seeded generator."""
+    gen = torch.Generator(device="cuda").manual_seed(
+        int(rng.integers(1 << 31)))
+    x = (torch.rand((POOL_BATCH, hw, hw, cin), device="cuda", generator=gen)
+         * 3.0).to(torch.bfloat16)
+    kq = torch.randint(-127, 128, (3, 3, cin, cout), device="cuda",
+                       generator=gen, dtype=torch.int8)
+    scale = 1e-4 + 9e-4 * torch.rand(cout, device="cuda", generator=gen)
+    bias = torch.randn(cout, device="cuda", generator=gen)
+    return x, kq, 3.0 / 127.0, scale, bias
+
+
+def fused_pool_path(sites):
+    """The port's twin of scripts/profile_fused_pool.py's fused run: each
+    block-boundary site once through fused_pool_int8_conv, bf16 out with
+    the ReLU fused."""
+    return [conv_fused.fused_pool_int8_conv(*args, fuse_relu=True)
+            for args in sites]
+
+
+def bf16_ulp(v):
+    """The spacing of bf16 numbers at |v| (f32 tensor of bf16 values):
+    2**(floor(log2|v|) - 7), and the subnormal step 2**-133 at 0 and
+    below the normal range."""
+    exp = torch.frexp(v).exponent  # v = m * 2**exp with 0.5 <= |m| < 1
+    ulp = torch.ldexp(torch.ones_like(v), exp - 8)
+    return torch.where(v == 0, 2.0 ** -133, ulp.clamp_min(2.0 ** -133))
+
+
+def pool_cost(x, cout):
+    b, h, w, cin = x.shape
+    p, q = h // 2, w // 2
+    nbytes = (x.numel() * x.element_size() + 9 * cin * cout + 8 * cout
+              + b * p * q * cout * 2)
+    return nbytes, 2.0 * 9 * cin * cout * b * p * q
+
+
+def check_pool(timer, name, args, out):
+    """K4 against its plain version at one site: int32 accumulators bit
+    for bit, the bf16 output within 1 bf16 ulp; times the kernel, the
+    plain version and the library composition."""
+    t0 = time.perf_counter()
+    x, kq, a_scale, scale, bias = args
+    acc_k = conv_fused.fused_pool_int8_conv(x, kq, a_scale, scale, bias,
+                                            out_dtype=torch.int32)
+    acc_p = conv_fused.pool_int8_conv_plain(x, kq, a_scale, scale, bias,
+                                            out_dtype=torch.int32)
+    acc_mismatches = int((acc_k != acc_p).sum())
+    del acc_k, acc_p
+    want = conv_fused.pool_int8_conv_plain(*args, fuse_relu=True).float()
+    got = out.float()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    beyond_ulp = int((err > bf16_ulp(want)).sum())
+    require(acc_mismatches == 0, f"{name}: {acc_mismatches} int32 "
+                                 f"accumulators differ from plain")
+    require(beyond_ulp == 0, f"{name}: {beyond_ulp} outputs beyond 1 bf16 "
+                             f"ulp of plain")
+    row = {"name": "pool_int8_conv", "site": name, "shape": list(x.shape),
+           "cout": kq.shape[3], "acc_mismatches": acc_mismatches,
+           "beyond_1ulp": beyond_ulp,
+           "equal_fraction": float((got == want).float().mean()),
+           "max_abs_err": float(err.max())}
+    del got, want, err
+    row["ms"] = timer.ms(lambda: conv_fused.fused_pool_int8_conv(
+        *args, fuse_relu=True), iters=10)
+    row["plain_ms"] = timer.ms(lambda: conv_fused.pool_int8_conv_plain(
+        *args, fuse_relu=True), iters=5, warmup=1)
+    # no single torch call pools and convolves in int8: the yardstick is
+    # the library composition max_pool2d + quantize + im2col +
+    # torch._int_mm + dequant, which is the plain version itself, so its
+    # one timing stands for both
+    row["library_ms"] = row["plain_ms"]
+    row["library"] = "composition (= plain version)"
+    nbytes, ops = pool_cost(x, kq.shape[3])
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, PEAK_INT8_OPS)
+    row["seconds"] = time.perf_counter() - t0
+    emit({"phase": f"kernels.pool_int8_conv.{name}", **row})
+    return row
+
+
 def phase_kernels(timer, rng):
     t0 = time.perf_counter()
     boxes, scores, valid = random_boxes(rng, 8, 5120)
     check_nms(timer, boxes, scores, valid, "8x5120")
+    for method in ("gaussian", "linear"):
+        check_soft(timer, boxes, scores, valid, method, "8x5120")
     gen = torch.Generator(device="cuda").manual_seed(
         int(rng.integers(1 << 31)))
     gallery = torch.randn((GALLERY_SIZE, 1024), device="cuda", generator=gen)
@@ -211,7 +367,31 @@ def phase_kernels(timer, rng):
     inv_g = knn_ops.inverse_norms(gallery)
     for k in (1, 5):
         knn_check(timer, gallery, inv_g, queries, k, f"k{k}")
+    del gallery, queries, inv_g
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
+
+
+def phase_fused_pool(timer, rng):
+    """K4 on its path: the three block-boundary sites at B = 128 driven
+    once, with the launch count at 0 before and read after; then each
+    site held against its plain version and timed."""
+    t0 = time.perf_counter()
+    sites = [pool_site_inputs(rng, hw, cin, cout)
+             for _, hw, cin, cout in POOL_SITES]
+    conv_fused.fused_pool_int8_conv.launches = 0
+    outs = fused_pool_path(sites)
+    torch.cuda.synchronize()
+    launches = conv_fused.fused_pool_int8_conv.launches
+    require(launches == len(POOL_SITES),
+            f"K4 launched {launches} times on its path")
+    path_s = time.perf_counter() - t0
+    rows = [check_pool(timer, name, args, out)
+            for (name, *_), args, out in zip(POOL_SITES, sites, outs)]
+    del sites, outs
+    torch.cuda.empty_cache()
+    emit({"phase": "fused_pool", "sites": len(rows), "launches": launches,
+          "path_seconds": path_s, "seconds": time.perf_counter() - t0})
+    return rows, launches
 
 
 # ------------------------------------------------------------------ serve
@@ -345,14 +525,7 @@ def phase_serve(timer, seed):
     evaluator = PlanogramEvaluator(pg, clf, PlanogramComparator(device="cuda"))
     nms_ops.nms_keep_sorted.launches = 0
     knn_ops.nearest_neighbors_fused.launches = 0
-    per_scene = []
-    for i, (img, plano, actual, expected) in enumerate(scenes):
-        ts = time.perf_counter()
-        score, _, path = evaluator.evaluate_detailed(img, plano)
-        torch.cuda.synchronize()
-        per_scene.append({"scene": i, "compliance": score, "path": path,
-                          "expected": expected,
-                          "seconds": time.perf_counter() - ts})
+    per_scene = serve_scenes(evaluator, scenes)
     launches = {"nms_hard": nms_ops.nms_keep_sorted.launches,
                 "knn_fused": knn_ops.nearest_neighbors_fused.launches}
     serve_s = sum(r["seconds"] for r in per_scene)
@@ -385,8 +558,6 @@ def phase_serve(timer, seed):
             knn_serve = knn_check(timer, clf._anchors_dev,
                                   clf._anchor_inv_norms, emb, 1, "serve")
     for r in per_scene:
-        require(0.0 <= r["compliance"] <= 1.0,
-                f"compliance {r['compliance']} outside [0, 1]")
         emit({"phase": "serve.scene", **r})
     for name, n in launches.items():
         require(n > 0, f"{name} was not launched on the serve path")
@@ -395,7 +566,159 @@ def phase_serve(timer, seed):
                           res0["cand_valid"], "serve")
     emit({"phase": "serve", "scenes": N_SCENES, "launches": launches,
           "serve_seconds": serve_s, "seconds": time.perf_counter() - t0})
-    return launches, nms_serve, knn_serve
+    ctx = {"pg": pg, "clf": clf, "vgg": vgg, "styles": styles,
+           "scenes": scenes, "compliance": [r["compliance"]
+                                            for r in per_scene]}
+    return launches, nms_serve, knn_serve, ctx
+
+
+def serve_scenes(evaluator, scenes):
+    """Compliance and host seconds (ending in a synchronise) per scene."""
+    rows = []
+    for i, (img, plano, _actual, expected) in enumerate(scenes):
+        ts = time.perf_counter()
+        score, _, path = evaluator.evaluate_detailed(img, plano)
+        torch.cuda.synchronize()
+        require(0.0 <= score <= 1.0, f"compliance {score} outside [0, 1]")
+        rows.append({"scene": i, "compliance": score, "path": path,
+                     "expected": expected,
+                     "seconds": time.perf_counter() - ts})
+    return rows
+
+
+def phase_serve_soft(timer, ctx):
+    """The f32 detector and gallery of the serve phase with Soft-NMS in
+    place of hard NMS; K3 held against its plain version on each scene's
+    real candidates, for both methods."""
+    t0 = time.perf_counter()
+    pg0, clf = ctx["pg"], ctx["clf"]
+    config = dataclasses.replace(pg0.config, nms_mode="soft")
+    pg = ProposalGenerator(pg0.model.state_dict(), config,
+                           confidence_threshold=pg0.confidence_threshold,
+                           input_norm="raw01", device="cuda")
+    evaluator = PlanogramEvaluator(pg, clf, PlanogramComparator(device="cuda"))
+    nms_ops.nms_keep_sorted.launches = 0
+    nms_ops.soft_nms_scores_fused.launches = 0
+    knn_ops.nearest_neighbors_fused.launches = 0
+    per_scene = serve_scenes(evaluator, ctx["scenes"])
+    launches = {"soft_nms": nms_ops.soft_nms_scores_fused.launches,
+                "knn_fused": knn_ops.nearest_neighbors_fused.launches,
+                "nms_hard": nms_ops.nms_keep_sorted.launches}
+    require(launches["soft_nms"] > 0, "soft_nms was not launched")
+    require(launches["knn_fused"] > 0, "knn_fused was not launched")
+    require(launches["nms_hard"] == 0, "hard NMS ran on the soft path")
+    serve_s = sum(r["seconds"] for r in per_scene)
+    rows = []
+    for i, (img, *_rest) in enumerate(ctx["scenes"]):
+        canvas, _, (ch, cw), _ = pg._canvas(img)
+        sizes = torch.tensor([[ch, cw]], dtype=torch.float32, device="cuda")
+        res = pg.infer(canvas[None], sizes, return_candidates=True)
+        cand = (res["cand_boxes"], res["cand_scores"], res["cand_valid"])
+        for method in ("gaussian", "linear"):
+            rows.append(check_soft(timer, *cand, method, f"scene{i}",
+                                   time_it=i == 0 and method == "gaussian"))
+        n_det = int((res["valid"] & (res["scores"]
+                                     > pg.confidence_threshold)).sum())
+        per_scene[i].update(candidates=int(res["num_candidates"][0]),
+                            survivors=int(res["keep"].sum()),
+                            detections=n_det,
+                            f32_hard_compliance=ctx["compliance"][i])
+    for r in per_scene:
+        emit({"phase": "serve.soft.scene", **r})
+    serve_row = dict(rows[0])
+    serve_row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    serve_row["keep_mismatches"] = sum(r["keep_mismatches"] for r in rows)
+    emit({"phase": "serve.soft", "scenes": N_SCENES, "launches": launches,
+          "serve_seconds": serve_s, "seconds": time.perf_counter() - t0})
+    return launches, serve_row
+
+
+def phase_serve_int8(ctx, seed):
+    """The int8-static preset at 832x1344 and full width: bf16 GLN with
+    int8='static' and its backbone folded, calibrated on the scenes; an
+    int8_all static bf16 MACVGG on folded BN calibrated on the gallery;
+    the index saved with its scales and loaded back; the 4 scenes."""
+    t0 = time.perf_counter()
+    scenes, pg0 = ctx["scenes"], ctx["pg"]
+    config = dataclasses.replace(pg0.config, compute_dtype="bfloat16",
+                                 int8="static", fold_backbone_fbn=True)
+    pg = ProposalGenerator(fold_gln_backbone(pg0.model.state_dict()), config,
+                           confidence_threshold=pg0.confidence_threshold,
+                           input_norm="raw01", device="cuda")
+    gln_scales = pg.calibrate([s[0] for s in scenes])
+    n_scales = sum(1 for _ in _leaves(gln_scales))
+    require(n_scales == 68, f"{n_scales} GLN act scales, expected 68")
+    emit({"phase": "serve.int8.calibrate", "gln_scales": n_scales,
+          "seconds": time.perf_counter() - t0})
+
+    # the detector alone on a batch of 8 photos, as bench.py serves it
+    photos = [s[0] for s in scenes]
+    for i in range(DETECT_BATCH - len(photos)):
+        rng = np.random.default_rng((seed, 37, i))
+        photos.append(synthetic.planogram_scene(
+            config.canvas_h, config.canvas_w, ctx["styles"], rng)[0])
+    pg.detect_batch(photos)  # warm-up
+    torch.cuda.synchronize()
+    td = time.perf_counter()
+    dets = pg.detect_batch(photos)
+    torch.cuda.synchronize()
+    detect_s = time.perf_counter() - td
+    for d in dets:
+        require(np.isfinite(d["boxes"][d["valid"]]).all(),
+                "non-finite int8 detections")
+    n_dets = [int((d["valid"] & (d["scores"] > pg.confidence_threshold))
+                  .sum()) for d in dets]
+    emit({"phase": "serve.int8.detect_batch", "batch": len(photos),
+          "detections": n_dets, "seconds": detect_s})
+
+    t1 = time.perf_counter()
+    encoder = EmbedFn(fold_bn_variables(
+        ctx["vgg"], int8_all=True, int8_static=True, dtype=torch.bfloat16),
+        device="cuda")
+    require(encoder.needs_calibration, "int8 encoder needs no calibration")
+    clf = Classifier(encoder, encoder.embedding_size,
+                     sample_set=GallerySet(ctx["styles"], INT8_GALLERY_SIZE,
+                                           seed), k=1, device="cuda")
+    torch.cuda.synchronize()
+    scales = encoder.get_scales()
+    require(scales is not None and len(scales) == 12,
+            "int8 MACVGG not calibrated on the gallery")
+    BUILD.mkdir(parents=True, exist_ok=True)
+    index = str(BUILD / "int8_index.npz")
+    clf.save_index(index)
+    encoder2 = EmbedFn(fold_bn_variables(
+        ctx["vgg"], int8_all=True, int8_static=True, dtype=torch.bfloat16),
+        device="cuda")
+    clf2 = Classifier(encoder2, encoder2.embedding_size, load=index, k=1,
+                      device="cuda")
+    require(encoder2.get_scales() == scales, "saved scales not restored")
+    require(clf2._use_fused, "int8 gallery too small for the fused kNN")
+    require(np.isfinite(clf2.embedding).all(), "non-finite int8 gallery")
+    emit({"phase": "serve.int8.gallery", "entries": len(clf2.embedding),
+          "mac_scales": len(scales), "seconds": time.perf_counter() - t1})
+
+    evaluator = PlanogramEvaluator(pg, clf2, PlanogramComparator(device="cuda"))
+    nms_ops.nms_keep_sorted.launches = 0
+    knn_ops.nearest_neighbors_fused.launches = 0
+    per_scene = serve_scenes(evaluator, scenes)
+    launches = {"nms_hard": nms_ops.nms_keep_sorted.launches,
+                "knn_fused": knn_ops.nearest_neighbors_fused.launches}
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the int8 path")
+    for r in per_scene:
+        r["f32_compliance"] = ctx["compliance"][r["scene"]]
+        emit({"phase": "serve.int8.scene", **r})
+    emit({"phase": "serve.int8", "scenes": N_SCENES, "launches": launches,
+          "serve_seconds": sum(r["seconds"] for r in per_scene),
+          "seconds": time.perf_counter() - t0})
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 # ------------------------------------------------------------------- main
@@ -427,14 +750,26 @@ def main(argv=None) -> int:
     timer = Timer()
     rng = np.random.default_rng(args.seed)
     phase_kernels(timer, rng)
-    launches, nms_serve, knn_serve = phase_serve(timer, args.seed)
+    pool_rows, pool_launches = phase_fused_pool(timer, rng)
+    launches, nms_serve, knn_serve, ctx = phase_serve(timer, args.seed)
+    soft_launches, soft_serve = phase_serve_soft(timer, ctx)
+    phase_serve_int8(ctx, args.seed)
+    pool_row = dict(pool_rows[0])
+    pool_row["max_abs_err"] = max(r["max_abs_err"] for r in pool_rows)
     rows = {"nms_hard": dict(nms_serve, launches=launches["nms_hard"]),
-            "knn_fused": dict(knn_serve, launches=launches["knn_fused"])}
+            "knn_fused": dict(knn_serve, launches=launches["knn_fused"]),
+            "soft_nms": dict(soft_serve,
+                             launches=soft_launches["soft_nms"]),
+            "pool_int8_conv": dict(pool_row, launches=pool_launches)}
     replaces = {
         "nms_hard": ("cvpce_tpu_torch/csrc/nms_hard.cu",
                      "cvpce_tpu/ops/nms_pallas.py:31"),
         "knn_fused": ("cvpce_tpu_torch/csrc/knn_fused.cu",
                       "cvpce_tpu/ops/knn_pallas.py:29"),
+        "soft_nms": ("cvpce_tpu_torch/csrc/soft_nms.cu",
+                     "cvpce_tpu/ops/nms_pallas.py:99"),
+        "pool_int8_conv": ("cvpce_tpu_torch/csrc/pool_int8_conv.cu",
+                           "cvpce_tpu/ops/conv_pallas.py:73"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -24,13 +24,14 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("nms_hard", "knn_fused")
+KERNELS = ("nms_hard", "knn_fused", "soft_nms", "pool_int8_conv")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-# per-source extra flags: the NMS IoU must round exactly as the plain
-# torch version does, so no multiply-add contraction there
-EXTRA_FLAGS: Dict[str, List[str]] = {"nms_hard": ["-fmad=false"]}
+# per-source extra flags: the NMS IoUs and Soft-NMS decays must round
+# exactly as the plain torch versions do, so no multiply-add contraction
+EXTRA_FLAGS: Dict[str, List[str]] = {"nms_hard": ["-fmad=false"],
+                                     "soft_nms": ["-fmad=false"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time (0.0 when cached), "log": nvcc output}

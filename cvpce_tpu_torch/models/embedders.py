@@ -5,11 +5,18 @@ last ReLU of block 5. The descriptor is the concat of the spatial max
 (MAC) after the last ReLU of block 4 and of block 5 -> 1024-d,
 L2-normalized with an eps-clamped norm. Input: NHWC images in tanh scale
 ([-1, 1]); ImageNet normalization (rescaled to that range) happens in
-the forward, as in the JAX module. f32 only.
+the forward, as in the JAX module.
+
+`dtype` is the conv stack's compute dtype (f32 or bf16). The int8
+serving path (models/quant.py) runs the INT8_FAVORED_CONVS (`int8`) or
+INT8_ALL_CONVS (`int8_all`) as int8 convs: dynamic scales by default,
+calibrated static scales with `int8_static`, recording them with
+`int8_calibrate`. Their act scales are keyed by the JAX module names
+`f{idx}` (`MACVGG.scale_key`), so one scale tree serves both packages.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,9 +24,18 @@ from torch import nn
 
 from ..ops.image import normalize_tanh_imagenet
 from ..utils import resolve_device
+from .layers import cast_float_convs_, conv
+from .quant import (Int8Conv, act_scale_tree, calibrate_act_scales,
+                    int8_convs, load_act_scales)
 
 VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
              512, 512, 512, "M", 512, 512, 512, "M")
+
+# conv ordinals (1-based through VGG16's 13 convs) run as int8 convs by
+# `int8` and by `int8_all` (cvpce_tpu/models/embedders.py:57-66); conv1_1,
+# with its 3 input channels, always stays in the compute dtype
+INT8_FAVORED_CONVS = frozenset({2, 4, 5, 6, 7, 9, 10, 11, 12, 13})
+INT8_ALL_CONVS = frozenset(range(2, 14))
 
 
 def _vgg_plan(batch_norm: bool):
@@ -46,14 +62,27 @@ class MACVGG(nn.Module):
     EPS = 1e-8  # descriptor norm clamp
 
     def __init__(self, batch_norm: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 int8: bool = False, int8_all: bool = False,
+                 int8_static: bool = False, int8_calibrate: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.batch_norm = batch_norm
+        self.int8_static = int8_static
+        self.dtype = dtype
+        int8_set = (INT8_ALL_CONVS if int8_all else INT8_FAVORED_CONVS
+                    if int8 else frozenset())
+        mode = ("calibrate" if int8_calibrate else
+                "static" if int8_static else "dynamic")
         layers = []
         cin = 3
+        ordinal = 0
         for kind, _, ch in _vgg_plan(batch_norm):
             if kind == "conv":
-                layers.append(nn.Conv2d(cin, ch, 3, padding=1))
+                ordinal += 1
+                layers.append(
+                    Int8Conv(cin, ch, 3, dtype=dtype, mode=mode)
+                    if ordinal in int8_set else conv(cin, ch, 3, bias=True))
                 cin = ch
             elif kind == "bn":
                 layers.append(nn.BatchNorm2d(ch, eps=1e-5))
@@ -64,15 +93,21 @@ class MACVGG(nn.Module):
         self.features = nn.Sequential(*layers)
         with torch.no_grad():
             for m in self.features:
-                if isinstance(m, nn.Conv2d):
+                if isinstance(m, (nn.Conv2d, Int8Conv)):
                     fan_in = m.weight[0].numel()
                     nn.init.normal_(m.weight, 0.0, fan_in ** -0.5,
                                     generator=generator)
                     nn.init.zeros_(m.bias)
+        cast_float_convs_(self, dtype)
         self.eval()
 
+    @staticmethod
+    def scale_key(path: str) -> Tuple[str, ...]:
+        """Module path 'features.{idx}' -> the JAX layer name ('f{idx}',)."""
+        return ("f" + path.split(".")[1],)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = normalize_tanh_imagenet(x).permute(0, 3, 1, 2)
+        x = normalize_tanh_imagenet(x).to(self.dtype).permute(0, 3, 1, 2)
         pools = 0
         descs = []
         for layer in self.features:
@@ -82,7 +117,11 @@ class MACVGG(nn.Module):
                     descs.append(torch.amax(x, dim=(2, 3)))
                 if pools == 5:
                     break
-            x = layer(x)
+            if isinstance(layer, nn.BatchNorm2d):
+                # in f32, cast back to the compute dtype (as flax's)
+                x = layer(x.float()).to(self.dtype)
+            else:
+                x = layer(x)
         desc = torch.cat(descs, 1).float()
         norm = torch.linalg.vector_norm(desc, dim=1, keepdim=True)
         return desc / norm.clamp(min=self.EPS)
@@ -111,29 +150,67 @@ def fold_bn_state_dict(state: Dict[str, torch.Tensor]
     return out
 
 
-def fold_bn_variables(model: MACVGG) -> MACVGG:
+def fold_bn_variables(model: MACVGG, **kwargs) -> MACVGG:
     """A BN-free MACVGG computing what `model` (batch_norm=True, eval)
-    computes, on the same device."""
-    folded = MACVGG(batch_norm=False)
+    computes, on the same device; `kwargs` choose its serving options
+    (`int8_all`, `int8_static`, `dtype`, ...)."""
+    folded = MACVGG(batch_norm=False, **kwargs)
     folded.load_state_dict(fold_bn_state_dict(model.state_dict()))
     return folded.to(next(model.parameters()).device)
 
 
+# the JAX package's name for the shared calibration helper
+calibrate_int8_scales = calibrate_act_scales
+
+
 class EmbedFn:
     """Serving wrapper: `(B, 256, 256, 3)` tanh-scale images (numpy or
-    tensor) -> `(B, D)` f32 embeddings on the model's device."""
+    tensor) -> `(B, D)` f32 embeddings on the model's device.
+
+    It carries the int8 static-scale lifecycle of
+    cvpce_tpu/models/embedders.py:EmbedFn: an `int8_static` model needs
+    calibrated activation scales. The Classifier calibrates them on the
+    gallery when it builds the index and saves them with it; an encoder
+    that starts serving uncalibrated calibrates on its first batch, and
+    its scales then stay fixed."""
 
     def __init__(self, model: nn.Module, device="cuda"):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.needs_calibration = bool(getattr(model, "int8_static", False))
+        self._calibrated = not self.needs_calibration
 
     @property
     def embedding_size(self) -> int:
         return self.model.embedding_size
 
-    def __call__(self, imgs) -> torch.Tensor:
+    def _input(self, imgs) -> torch.Tensor:
         if isinstance(imgs, np.ndarray):
             imgs = torch.from_numpy(imgs)
-        x = imgs.to(self.device, torch.float32)
+        return imgs.to(self.device, torch.float32)
+
+    def __call__(self, imgs) -> torch.Tensor:
+        x = self._input(imgs)
+        if not self._calibrated:
+            self.calibrate([x])
         with torch.inference_mode():
             return self.model(x)
+
+    def calibrate(self, batches) -> None:
+        """Record the int8 activation scales: the running max over
+        `batches`, on top of the scales the model holds already."""
+        calibrate_act_scales(self.model, (self._input(b) for b in batches))
+        self._calibrated = True
+
+    def get_scales(self) -> Optional[Dict]:
+        """Per-layer act scales as a plain float tree keyed like the JAX
+        `act_scales` collection ({'f2': {'scale': s}, ...}); None while
+        the model has no calibrated static int8 convs."""
+        if not (self.needs_calibration and self._calibrated
+                and int8_convs(self.model)):
+            return None
+        return act_scale_tree(self.model)
+
+    def set_scales(self, scales) -> None:
+        load_act_scales(self.model, scales)
+        self._calibrated = True

@@ -21,16 +21,30 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # fold in f32, apply in the activation's dtype
         inv = self.weight / torch.sqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * inv
-        return x * inv[None, :, None, None] + shift[None, :, None, None]
+        return (x * inv.to(x.dtype)[None, :, None, None]
+                + shift.to(x.dtype)[None, :, None, None])
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that, stored in a reduced dtype (bf16), rounds the
+    convolution to that dtype before it adds the bias, as a flax nn.Conv
+    with that compute dtype does; in f32 it is nn.Conv2d."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bias is None or self.weight.dtype == torch.float32:
+            return super().forward(x)
+        return (self._conv_forward(x, self.weight, None)
+                + self.bias[None, :, None, None])
 
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1,
          bias: bool = False) -> nn.Conv2d:
     """Conv with torch-style symmetric padding kernel // 2."""
-    return nn.Conv2d(cin, cout, kernel, stride=stride,
-                     padding=kernel // 2, bias=bias)
+    return Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
+                  bias=bias)
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int,
@@ -42,3 +56,13 @@ def max_pool(x: torch.Tensor, window: int, stride: int,
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """2x nearest-neighbour upsample of an NCHW tensor."""
     return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
+def cast_float_convs_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Run every nn.Conv2d of `module` in `dtype` (its weight and bias
+    are stored in it, as a JAX conv casts its f32 parameters at apply
+    time). Int8 convs, norms and their statistics stay f32."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            m.to(dtype)
+    return module

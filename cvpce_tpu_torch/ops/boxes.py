@@ -12,15 +12,15 @@ def box_area(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
-    """IoU matrix between (N, 4) and (M, 4) xyxy boxes -> (N, M); zero
-    where the union is not positive."""
+    """IoU matrix between (..., N, 4) and (..., M, 4) xyxy boxes ->
+    (..., N, M); zero where the union is not positive."""
     area_a = box_area(boxes_a)
     area_b = box_area(boxes_b)
-    lt = torch.maximum(boxes_a[:, None, :2], boxes_b[None, :, :2])
-    rb = torch.minimum(boxes_a[:, None, 2:], boxes_b[None, :, 2:])
+    lt = torch.maximum(boxes_a[..., :, None, :2], boxes_b[..., None, :, :2])
+    rb = torch.minimum(boxes_a[..., :, None, 2:], boxes_b[..., None, :, 2:])
     wh = (rb - lt).clamp(min=0.0)
     inter = wh[..., 0] * wh[..., 1]
-    union = area_a[:, None] + area_b[None, :] - inter
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
     pos = union > 0
     safe = torch.where(pos, union, torch.ones_like(union))
     return torch.where(pos, inter / safe, torch.zeros_like(inter))

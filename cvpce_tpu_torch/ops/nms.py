@@ -1,18 +1,29 @@
-"""Greedy hard NMS: the plain torch version and the CUDA kernel's wrapper.
+"""Greedy hard NMS, Soft-NMS and box merging: the plain torch versions
+and the CUDA kernels' wrappers.
 
-Counterpart of cvpce_tpu/ops/nms.py:nms_mask (plain) and
-cvpce_tpu/ops/nms_pallas.py:nms_mask_pallas (kernel). Both take (N, 4)
-boxes or a batch (B, N, 4) and return keep masks in input order. They
-share the pad / mask / stable-sort / scatter steps; they differ only in
-the serial walk over the sorted candidates:
+Counterpart of cvpce_tpu/ops/nms.py (`nms_mask`, `soft_nms_scores`,
+`merge_boxes`) and cvpce_tpu/ops/nms_pallas.py (`nms_mask_pallas`,
+`soft_nms_scores_pallas`). Every function takes (N, 4) boxes or a batch
+(B, N, 4) and answers in input order.
+
+Hard NMS: `nms_mask` and `nms_mask_fused` share the pad / mask /
+stable-sort / scatter steps; they differ only in the serial walk over
+the sorted candidates:
 
 - `nms_keep_sorted_plain`: torch ops on any device;
 - `nms_keep_sorted`: on a CUDA tensor, the kernel in csrc/nms_hard.cu;
   on a CPU tensor, the plain walk. It counts its kernel launches in
   `nms_keep_sorted.launches`.
 
-IoU is `inter / max(union, 1e-12)` with the kernel's expression order,
-so the kernel's keep masks are bit-equal to the plain version's.
+Soft-NMS: `soft_nms_scores` is the plain version; `soft_nms_scores_fused`
+launches csrc/soft_nms.cu for a CUDA tensor (counted in
+`soft_nms_scores_fused.launches`) and runs the plain version for a CPU
+tensor.
+
+IoU in both NMS walks is `inter / max(union, 1e-12)` with the kernels'
+expression order, so the kernels' results are bit-equal to the plain
+versions'. `merge_boxes` is plain torch (an IoU matrix and one matmul),
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,6 +32,7 @@ import ctypes
 import torch
 
 from .. import _build
+from .boxes import pairwise_iou
 
 ALIGN = 256  # pad N like nms_mask_pallas does
 
@@ -158,3 +170,121 @@ def nms_mask_fused(boxes: torch.Tensor, scores: torch.Tensor,
                    iou_threshold: float = 0.5) -> torch.Tensor:
     """`nms_mask` with the walk in the CUDA kernel for CUDA tensors."""
     return _nms(boxes, scores, valid, iou_threshold, nms_keep_sorted)
+
+
+def soft_nms_scores(boxes: torch.Tensor, scores: torch.Tensor,
+                    valid: torch.Tensor, sigma: float = 0.5,
+                    iou_threshold: float = 0.5,
+                    method: str = "gaussian") -> torch.Tensor:
+    """Soft-NMS re-scoring, plain torch on any device: each round picks
+    the unprocessed maximum (lowest index on ties) and decays the other
+    unprocessed scores by exp(-iou^2 / sigma) (gaussian) or, above
+    `iou_threshold`, by 1 - iou (linear). Returns the re-scored (N,) or
+    (B, N) scores, 0 at invalid entries. Runs one round per valid
+    candidate of the fullest image."""
+    if method not in ("gaussian", "linear"):
+        raise ValueError(f"unknown Soft-NMS method {method!r}")
+    single = boxes.dim() == 2
+    if single:
+        boxes, scores, valid = boxes[None], scores[None], valid[None]
+    b, n, _ = boxes.shape
+    iou = _iou_rows(boxes)
+    col = torch.arange(n, device=boxes.device)
+    # a 0-dim device tensor, so torch divides as the kernel does (a
+    # Python scalar divisor becomes a reciprocal multiply on CUDA)
+    sig = torch.tensor(sigma, dtype=scores.dtype, device=scores.device)
+    neg = torch.full_like(scores, float("-inf"))
+    cur = scores.clone()
+    proc = ~valid
+    rounds = int(valid.sum(1).max()) if b else 0
+    for _ in range(rounds):
+        cand = torch.where(proc, neg, cur)
+        m = cand.amax(1, keepdim=True)
+        live = m > float("-inf")
+        i = torch.where(cand == m, col, n).amin(1)
+        row = torch.gather(iou, 1, i[:, None, None].expand(-1, 1, n))[:, 0]
+        if method == "gaussian":
+            decay = torch.exp(-(row * row) / sig)
+        else:
+            decay = torch.where(row > iou_threshold, 1.0 - row,
+                                torch.ones_like(row))
+        sel = (col == i[:, None]) & live
+        decay = torch.where(proc | sel, torch.ones_like(decay), decay)
+        cur = cur * decay
+        proc = proc | sel
+    out = torch.where(valid, cur, torch.zeros_like(cur))
+    return out[0] if single else out
+
+
+def soft_nms_scores_fused(boxes: torch.Tensor, scores: torch.Tensor,
+                          valid: torch.Tensor, sigma: float = 0.5,
+                          iou_threshold: float = 0.5,
+                          method: str = "gaussian") -> torch.Tensor:
+    """`soft_nms_scores` in the CUDA kernel for CUDA tensors (one block
+    per image, no sort); a CPU tensor takes the plain version."""
+    if boxes.device.type == "cpu":
+        return soft_nms_scores(boxes, scores, valid, sigma, iou_threshold,
+                               method)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"unsupported device {boxes.device}")
+    if method not in ("gaussian", "linear"):
+        raise ValueError(f"unknown Soft-NMS method {method!r}")
+    single = boxes.dim() == 2
+    if single:
+        boxes, scores, valid = boxes[None], scores[None], valid[None]
+    if boxes.dtype != torch.float32 or boxes.dim() != 3 \
+            or boxes.shape[-1] != 4:
+        raise ValueError("boxes must be (B, N, 4) float32")
+    b, n, _ = boxes.shape
+    lib = _soft_lib()
+    if n > lib.soft_nms_max_n():
+        raise ValueError(f"N={n} exceeds one block's shared memory "
+                         f"({lib.soft_nms_max_n()} boxes)")
+    boxes_c = boxes.contiguous()
+    scores_c = scores.to(boxes_c.device, torch.float32).contiguous()
+    valid_c = valid.to(boxes_c.device, torch.uint8).contiguous()
+    out = torch.empty((b, n), dtype=torch.float32, device=boxes_c.device)
+    if b and n:
+        code = lib.soft_nms_launch(
+            *(ctypes.c_void_p(t.data_ptr())
+              for t in (boxes_c, scores_c, valid_c, out)), b, n,
+            ctypes.c_float(sigma), ctypes.c_float(iou_threshold),
+            int(method == "linear"), _build.stream_ptr(boxes_c))
+        if code:
+            raise RuntimeError("soft_nms launch failed: "
+                               + lib.soft_nms_error_string(code).decode())
+        soft_nms_scores_fused.launches += 1
+    return out[0] if single else out
+
+
+soft_nms_scores_fused.launches = 0
+
+
+def _soft_lib():
+    lib = _build.load("soft_nms")
+    if not getattr(lib, "_typed", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.soft_nms_launch.argtypes = [vp, vp, vp, vp, ci, ci, cf, cf, ci,
+                                        vp]
+        lib.soft_nms_launch.restype = ci
+        lib.soft_nms_max_n.restype = ci
+        lib.soft_nms_error_string.argtypes = [ci]
+        lib.soft_nms_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def merge_boxes(boxes: torch.Tensor, scores: torch.Tensor,
+                valid: torch.Tensor, keep: torch.Tensor,
+                iou_threshold: float = 0.5) -> torch.Tensor:
+    """Score-weighted box merging of NMS survivors: each kept box becomes
+    the score-weighted mean of the valid boxes overlapping it above
+    `iou_threshold` (itself included, IoU 1); the others are returned
+    unchanged. (N, 4) or (B, N, 4)."""
+    iou = pairwise_iou(boxes, boxes)
+    w = torch.where(keep[..., :, None] & valid[..., None, :]
+                    & (iou > iou_threshold),
+                    iou * scores[..., None, :], torch.zeros_like(iou))
+    total = w.sum(-1, keepdim=True).clamp(min=1e-12)
+    merged = (w @ boxes) / total
+    return torch.where(keep[..., None], merged, boxes)

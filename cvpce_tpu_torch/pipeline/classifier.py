@@ -5,8 +5,10 @@ The gallery stays resident on the device. Galleries of >= 4096 entries
 with k <= 8 search through the fused CUDA kernel
 (ops/knn.py:nearest_neighbors_fused), smaller ones through the plain
 distance matrix, as in the JAX package. The saved index is the same
-`np.savez` file (`embedding`, `annotations`), so an index saved by
-either package loads in the other.
+`np.savez` file (`embedding`, `annotations` and, for an int8
+static-scale encoder, `act_scales`: a one-element object array holding
+the plain float tree `{'f2': {'scale': s}, ...}`), so an index saved by
+either package loads in the other and restores the encoder's scales.
 """
 from __future__ import annotations
 
@@ -36,7 +38,11 @@ class Classifier:
         self.batch_size = batch_size
         self.k = k
         if load is not None:
-            self.embedding, self.annotations = self.load_index(load)
+            self.embedding, self.annotations, scales = self._load_index(
+                load)
+            if scales is not None and hasattr(encoder_fn, "set_scales"):
+                # queries embed in the numerics the gallery was built in
+                encoder_fn.set_scales(scales)
         elif sample_set is None:
             raise ValueError("pass a sample_set to index, or load=")
         else:
@@ -52,13 +58,25 @@ class Classifier:
     def _embed(self, imgs) -> torch.Tensor:
         return self.encoder_fn(imgs).to(self.device, torch.float32)
 
+    def _batch(self, sample_set, start: int, n: int) -> List:
+        return [sample_set[i]
+                for i in range(start, min(start + self.batch_size, n))]
+
     def build_index(self, sample_set):
         embeddings: List[np.ndarray] = []
         annotations: List = []
         n = len(sample_set)
+        if getattr(self.encoder_fn, "needs_calibration", False) and n:
+            # an int8 static-scale encoder calibrates on the first four
+            # batches of the gallery itself; the scales persist with the
+            # index (save_index)
+            self.encoder_fn.calibrate([
+                torch.stack([torch.as_tensor(it[0])
+                             for it in self._batch(sample_set, start, n)])
+                for start in range(0, min(n, 4 * self.batch_size),
+                                   self.batch_size)])
         for start in range(0, n, self.batch_size):
-            items = [sample_set[i]
-                     for i in range(start, min(start + self.batch_size, n))]
+            items = self._batch(sample_set, start, n)
             imgs = torch.stack([torch.as_tensor(it[0]) for it in items])
             embeddings.append(self._embed(imgs).cpu().numpy())
             annotations += [it[3] if len(it) > 3 else it[2] for it in items]
@@ -67,13 +85,25 @@ class Classifier:
         return embedding, annotations
 
     def save_index(self, path: str) -> None:
+        extra = {}
+        scales = getattr(self.encoder_fn, "get_scales", lambda: None)()
+        if scales is not None:
+            extra["act_scales"] = np.array([scales], dtype=object)
         np.savez(path, embedding=self.embedding,
-                 annotations=np.array(self.annotations, dtype=object))
+                 annotations=np.array(self.annotations, dtype=object),
+                 **extra)
 
     @staticmethod
     def load_index(path: str):
+        emb, anns, _ = Classifier._load_index(path)
+        return emb, anns
+
+    @staticmethod
+    def _load_index(path: str):
         data = np.load(path, allow_pickle=True)
-        return data["embedding"], list(data["annotations"])
+        scales = (data["act_scales"][0] if "act_scales" in data.files
+                  else None)
+        return data["embedding"], list(data["annotations"]), scales
 
     def search(self, emb: torch.Tensor) -> torch.Tensor:
         """(Q, k) gallery indices for (Q, D) embeddings on the device."""

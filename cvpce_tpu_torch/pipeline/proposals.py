@@ -4,6 +4,12 @@ counterpart of cvpce_tpu/pipeline/proposals.py.
 `input_norm` is the preprocessing the checkpoint was trained with:
 "imagenet" or "raw01". The heatmap is returned only when the config
 computes it (`with_gaussians`).
+
+The config's serving options reach the model as they are: the int8
+preset is `GLNConfig(compute_dtype='bfloat16', int8='static',
+fold_backbone_fbn=True)` with a `fold_gln_backbone` state_dict and act
+scales recorded on the photos to serve (`calibrate`), as bench.py
+calibrates on its batch of 8.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import torch
 
 from ..data import transforms as T
 from ..models.gln import GLN, GLNConfig, postprocess_detections
+from ..models.quant import calibrate_act_scales
 from ..ops.image import crop_resize_square, scale_to_tanh
 from ..utils import resolve_device
 
@@ -43,6 +50,22 @@ class ProposalGenerator:
             image, None, self.config.canvas_h, self.config.canvas_w,
             normalize=self.input_norm == "imagenet", device=self.device)
 
+    def _canvases(self, images: List[np.ndarray]):
+        canvases, sizes, scales = [], [], []
+        for image in images:
+            canvas, _, (ch, cw), scale = self._canvas(image)
+            canvases.append(canvas)
+            sizes.append([ch, cw])
+            scales.append(scale)
+        return (torch.stack(canvases),
+                torch.tensor(sizes, dtype=torch.float32, device=self.device),
+                scales)
+
+    def calibrate(self, images: List[np.ndarray]) -> Dict:
+        """Record the int8 act scales on `images` (HWC [0, 1]) in one
+        batch; returns the scale tree."""
+        return calibrate_act_scales(self.model, [self._canvases(images)[0]])
+
     @torch.inference_mode()
     def infer(self, canvases: torch.Tensor, sizes: torch.Tensor,
               return_candidates: bool = False) -> Dict[str, torch.Tensor]:
@@ -54,16 +77,10 @@ class ProposalGenerator:
             return_candidates=return_candidates)
 
     def detect_batch(self, images: List[np.ndarray]) -> List[Dict]:
-        """Detections per image (HWC [0, 1]) in image coordinates."""
-        canvases, sizes, scales = [], [], []
-        for image in images:
-            canvas, _, (ch, cw), scale = self._canvas(image)
-            canvases.append(canvas)
-            sizes.append([ch, cw])
-            scales.append(scale)
-        res = self.infer(torch.stack(canvases),
-                         torch.tensor(sizes, dtype=torch.float32,
-                                      device=self.device))
+        """Detections per image (HWC [0, 1]) in image coordinates, the
+        images forward in one batch."""
+        canvases, sizes, scales = self._canvases(images)
+        res = self.infer(canvases, sizes)
         out = []
         for i, scale in enumerate(scales):
             item = {"boxes": (res["boxes"][i] / scale).cpu().numpy(),

@@ -10,6 +10,12 @@ BatchNorm likewise plus a `num_batches_tracked` counter. Module paths
 keep the JAX names (`body.layer2_0.conv1`), and the detector head needs
 no reordering: the port flattens its NCHW outputs in the same
 (y, x, anchor) order the JAX head uses.
+
+The int8 path's `act_scales` collection is not part of a state_dict: the
+port keeps each scale in its Int8Conv's buffer, and `load_act_scales`
+copies a JAX tree of them there (same module paths for GLN, `f{idx}` ->
+`features.{idx}` for MACVGG). Int8Conv keeps nn.Conv's parameter names,
+so int8 models take the same state_dicts.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from ..models import quant
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
@@ -71,3 +79,8 @@ def macvgg_state_dict(params: Mapping, batch_stats: Mapping
 
     return _convert([("params", params), ("batch_stats", batch_stats)],
                     rename)
+
+
+# a JAX `act_scales` tree (numpy or float leaves) -> the Int8Conv buffers
+# of a port GLN or MACVGG; a layer without a scale in the tree raises
+load_act_scales = quant.load_act_scales
