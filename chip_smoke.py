@@ -3,14 +3,20 @@
 
 Builds the four CUDA kernels with nvcc and holds each against its plain
 PyTorch version on the card: hard NMS (K1) and Soft-NMS (K3) on 8 x 5120
-seeded boxes, fused kNN (K2), and fused maxpool -> int8 conv (K4) at the
-three VGG block-boundary sites of scripts/profile_fused_pool.py (B=128),
-which is also the path K4 serves. Then it serves at full width, on 4
-synthetic planogram scenes of 832x1344:
+seeded boxes, K1 also on adversarial boxes (all identical, invalid boxes
+past n_walk, N = 4693, ragged walks, IoUs exactly at the threshold);
+fused kNN (K2) at the serving shape and over Q in {1, 17, 32, 67}, A in
+{4096, 4097, 8192}, k in {1, 5, 8}, on a gallery of exact ties, and a
+misaligned query tensor it must refuse; and fused maxpool -> int8 conv
+(K4) at the three VGG block-boundary sites of
+scripts/profile_fused_pool.py (B=128), which is also the path K4
+serves. Then it serves at full width, on 4 synthetic planogram scenes
+of 832x1344:
 
 - serve (f32): GLN (seeded random weights, head calibrated to the
   scenes' product density) -> hard-NMS kernel -> crops -> MACVGG ->
-  fused-kNN kernel against an 8192-entry gallery -> compliance;
+  fused-kNN kernel against an 8192-entry gallery -> compliance; then the
+  same scenes with the plain kNN, whose compliance must match;
 - serve.soft: the same detector and gallery with GLNConfig(nms_mode=
   'soft'), through the Soft-NMS kernel;
 - serve.int8: the int8-static preset -- bf16 GLN with int8='static'
@@ -41,7 +47,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cvpce_tpu_torch import _build
+from cvpce_tpu_torch import _build, testing
 from cvpce_tpu_torch.data import synthetic
 from cvpce_tpu_torch.data import transforms as T
 from cvpce_tpu_torch.models.embedders import EmbedFn, MACVGG, fold_bn_variables
@@ -191,16 +197,8 @@ def knn_check(timer, gallery, inv_g, queries, k, label):
     t0 = time.perf_counter()
     d_k, i_k = knn_ops.nearest_neighbors_fused(gallery, queries, k, inv_g)
     d_p, i_p = knn_ops.knn_plain(gallery, queries, k)
-    torch.cuda.synchronize()
-    err = float((d_k - d_p).abs().max())
-    require(err <= KNN_TOL, f"kNN distance error {err} > {KNN_TOL}")
-    # where indices differ, the two neighbours must tie in distance
-    dists = knn_ops.distance_matrix(queries, gallery)
-    diff = i_k != i_p
-    tie_gap = float((dists.gather(1, i_k) - dists.gather(1, i_p))
-                    .abs()[diff].max()) if diff.any() else 0.0
-    require(tie_gap <= KNN_TOL, f"kNN index differs off a tie "
-                                f"(distance gap {tie_gap})")
+    err, n_diff, tie_gap = knn_index_check(
+        d_k, i_k, d_p, i_p, knn_ops.distance_matrix(queries, gallery), label)
     ms = timer.ms(lambda: knn_ops.nearest_neighbors_fused(
         gallery, queries, k, inv_g))
     # the same kernel with the gallery's norms taken anew in the call
@@ -214,18 +212,132 @@ def knn_check(timer, gallery, inv_g, queries, k, label):
         return torch.topk(d, k, dim=1, largest=False)
 
     library_ms = timer.ms(library)
+    # reading the gallery once, by one torch reduction, under this timer
+    read_ms = timer.ms(lambda: gallery.sum())
     (q, dim), a = queries.shape, gallery.shape[0]
     nbytes = (q + a) * dim * 4 + a * 4 + q * k * 12
     flops = 2 * q * a * dim + 3 * q * dim + 2 * q * a
     bms, by = bound_ms(nbytes, flops)
     row = {"name": "knn_fused", "shape": [q, a, dim], "k": k,
-           "index_mismatches": int(diff.sum()), "tie_gap": tie_gap,
+           "index_mismatches": n_diff, "tie_gap": tie_gap,
            "max_abs_err": err, "ms": ms,
            "ms_norms_per_call": ms_norms_per_call, "plain_ms": plain_ms,
            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-           "seconds": time.perf_counter() - t0}
+           "gallery_read_ms": read_ms, "seconds": time.perf_counter() - t0}
     emit({"phase": f"kernels.knn_fused.{label}", **row})
     return row
+
+
+def phase_nms_edges(rng):
+    """K1 bit-equal to its plain version on the adversarial inputs of
+    cvpce_tpu_torch.testing (which tests/test_torch_cuda.py holds it to
+    as well), called through nms_keep_sorted directly."""
+    t0 = time.perf_counter()
+    rows = {}
+    for label in testing.NMS_EDGE_CASES:
+        boxes, walk = (torch.from_numpy(a).cuda()
+                       for a in testing.nms_sorted_case(label, rng))
+        got = nms_ops.nms_keep_sorted(boxes, walk, 0.5)
+        want = nms_ops.nms_keep_sorted_plain(boxes, walk.long(), 0.5)
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum())
+        require(mismatches == 0, f"NMS kernel differs from plain on "
+                                 f"{label} ({mismatches} entries)")
+        rows[label] = {"shape": list(boxes.shape), "kept": got.sum(1).tolist(),
+                       "mismatches": mismatches}
+        if label == "identical":
+            require(got.sum().item() == 1 and bool(got[0, 0]),
+                    "identical boxes: exactly the first one kept")
+    emit({"phase": "kernels.nms_hard.edges", "cases": rows,
+          "seconds": time.perf_counter() - t0})
+
+
+def knn_index_check(d_k, i_k, d_p, i_p, dists, label):
+    """(largest distance error, index mismatches, largest distance gap
+    at a mismatch) of K2 against knn_plain; where indices differ, the two
+    neighbours must tie within KNN_TOL."""
+    err = float((d_k - d_p).abs().max())
+    require(err <= KNN_TOL, f"kNN {label}: distance error {err} > {KNN_TOL}")
+    diff = i_k != i_p
+    tie_gap = float((dists.gather(1, i_k) - dists.gather(1, i_p))
+                    .abs()[diff].max()) if diff.any() else 0.0
+    require(tie_gap <= KNN_TOL, f"kNN {label}: index differs off a tie "
+                                f"(distance gap {tie_gap})")
+    return err, int(diff.sum()), tie_gap
+
+
+def phase_knn_edges(gen):
+    """K2 against knn_plain over the query counts, ragged galleries and
+    k of cvpce_tpu_torch.testing (which tests/test_torch_cuda.py holds it
+    to as well); exact ties on a duplicated gallery; a misaligned query
+    slice refused, an aligned one served."""
+    t0 = time.perf_counter()
+    worst, mismatched, shapes = 0.0, 0, 0
+    base = torch.randn((max(testing.KNN_GALLERIES), 1024), device="cuda",
+                       generator=gen)
+    for a in testing.KNN_GALLERIES:
+        g = base[:a]
+        inv_g = knn_ops.inverse_norms(g)
+        for nq in testing.KNN_QUERIES:
+            q = torch.randn((nq, 1024), device="cuda", generator=gen)
+            dists = knn_ops.distance_matrix(q, g)
+            for k in testing.KNN_KS:
+                shapes += 1
+                d_k, i_k = knn_ops.nearest_neighbors_fused(g, q, k, inv_g)
+                d_p, i_p = knn_ops.knn_plain(g, q, k)
+                err, n_diff, _ = knn_index_check(d_k, i_k, d_p, i_p, dists,
+                                                 f"Q={nq} A={a} k={k}")
+                worst, mismatched = max(worst, err), mismatched + n_diff
+    rows = testing.KNN_DUP_ROWS
+    dup = base[:rows].repeat(testing.KNN_DUP_COPIES, 1)
+    q = torch.randn((32, 1024), device="cuda", generator=gen)
+    dup_rows = {}
+    for k in testing.KNN_KS:
+        d_k, i_k = knn_ops.nearest_neighbors_fused(dup, q, k)
+        d_p, i_p = knn_ops.knn_plain(dup, q, k)
+        torch.cuda.synchronize()
+        require(torch.equal(i_k, i_p), f"duplicated gallery, k={k}: "
+                                       f"indices differ from plain")
+        require(bool((i_k[:, 0] < rows).all()), "a tie went to a higher "
+                                                "index")
+        dup_rows[k] = float((d_k - d_p).abs().max())
+    # rows of a (33, 1024) tensor from the second on start 4096 bytes in;
+    # a flat slice one float in is misaligned and must be refused
+    q33 = torch.randn((33, 1024), device="cuda", generator=gen)
+    d_k, i_k = knn_ops.nearest_neighbors_fused(base, q33[1:], 1)
+    d_p, i_p = knn_ops.knn_plain(base, q33[1:], 1)
+    knn_index_check(d_k, i_k, d_p, i_p,
+                    knn_ops.distance_matrix(q33[1:], base), "row slice")
+    flat = q33.flatten()[1:1 + 32 * 1024].view(32, 1024)
+    try:
+        knn_ops.nearest_neighbors_fused(base, flat, 1)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "a query tensor 4 bytes off 16-byte alignment was "
+                     "not refused")
+    emit({"phase": "kernels.knn_fused.edges", "shapes": shapes,
+          "max_abs_err": worst, "index_mismatches": mismatched,
+          "duplicated_max_abs_err": dup_rows, "misaligned_refused": refused,
+          "seconds": time.perf_counter() - t0})
+
+
+def launches_per_call(fn):
+    """(kernels csrc/knn_fused.cu launches in one call of fn, kernels
+    the profiler sees in it or None when it sees no device activity at
+    all, their names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    before = knn_ops.kernels_launched()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counted = knn_ops.kernels_launched() - before
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return counted, len(names) if names else None, sorted(set(names))
 
 
 def soft_cost(valid):
@@ -367,7 +479,26 @@ def phase_kernels(timer, rng):
     inv_g = knn_ops.inverse_norms(gallery)
     for k in (1, 5):
         knn_check(timer, gallery, inv_g, queries, k, f"k{k}")
+    # kernels in one search, for each of K2's two template widths (k = 1,
+    # and k up to 8): counted where the .cu file launches them, and by the
+    # profiler where it sees the card; at most 2 by either
+    per_call = {}
+    for k in (1, 5):
+        n, seen, names = launches_per_call(
+            lambda: knn_ops.nearest_neighbors_fused(gallery, queries, k,
+                                                    inv_g))
+        require(n <= 2, f"K2 launched {n} kernels in one call")
+        require(seen is None or seen <= 2, f"the profiler saw {seen} "
+                                           f"kernels in one K2 call: "
+                                           f"{names}")
+        per_call[k] = {"kernels": n, "profiler_kernels": seen,
+                       "names": names}
+    emit({"phase": "kernels.knn_fused.launches_per_call", **per_call})
     del gallery, queries, inv_g
+    # the edge cases draw from their own seeds, so the later phases' inputs
+    # stay those of earlier runs
+    phase_nms_edges(np.random.default_rng(41))
+    phase_knn_edges(torch.Generator(device="cuda").manual_seed(43))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
 
 
@@ -548,15 +679,38 @@ def phase_serve(timer, seed):
                     .sum())
         crops = pg.crop_boxes(img, res["boxes"][0][:n_det].cpu().numpy())
         require(tuple(crops.shape[1:]) == (256, 256, 3), "crop shape")
+        # K2 against knn_plain on every scene's crops, 32 at a time as
+        # the Classifier searches
+        knn_mismatches = 0
+        for s0 in range(0, n_det, clf.batch_size):
+            emb = clf._embed(crops[s0:s0 + clf.batch_size])
+            d_k, i_k = knn_ops.nearest_neighbors_fused(
+                clf._anchors_dev, emb, 1, clf._anchor_inv_norms)
+            d_p, i_p = knn_ops.knn_plain(clf._anchors_dev, emb, 1)
+            knn_mismatches += knn_index_check(
+                d_k, i_k, d_p, i_p,
+                knn_ops.distance_matrix(emb, clf._anchors_dev),
+                f"scene {i} crops")[1]
         per_scene[i].update(candidates=int(res["num_candidates"][0]),
                             detections=n_det, crops=int(crops.shape[0]),
-                            keep_mismatches=keep_mismatches)
+                            keep_mismatches=keep_mismatches,
+                            knn_index_mismatches=knn_mismatches)
         if i == 0:
             nms_rows.append(res)
             require(n_det > 0, "no detections to embed")
             emb = encoder(crops[:32])
             knn_serve = knn_check(timer, clf._anchors_dev,
                                   clf._anchor_inv_norms, emb, 1, "serve")
+    # the same scenes with the plain kNN in place of K2: the compliance
+    # must not move
+    clf._use_fused = False
+    plain_rows = serve_scenes(evaluator, scenes)
+    clf._use_fused = True
+    for r, p in zip(per_scene, plain_rows):
+        r["plain_knn_compliance"] = p["compliance"]
+        require(r["compliance"] == p["compliance"],
+                f"scene {r['scene']}: compliance {r['compliance']} with K2, "
+                f"{p['compliance']} with the plain kNN")
     for r in per_scene:
         emit({"phase": "serve.scene", **r})
     for name, n in launches.items():

@@ -7,7 +7,8 @@ the lowest gallery index in both: the plain version takes a stable sort,
 never `torch.topk`, whose tie order is unspecified.
 
 `nearest_neighbors_fused` launches csrc/knn_fused.cu for CUDA tensors
-and counts those launches in `nearest_neighbors_fused.launches`; for CPU
+(a one-pass gallery scan and a merge of its partial top-k lists) and
+counts those calls in `nearest_neighbors_fused.launches`; for CPU
 tensors it returns the plain version's result. Rows past the gallery's
 end are masked in the kernel, never ranked. A gallery that stays
 resident takes its inverse norms once, from `inverse_norms` (the same
@@ -78,8 +79,10 @@ def nearest_neighbors_fused(anchors: torch.Tensor, queries: torch.Tensor,
     """Fused kNN: (distances (Q, k) f32, indices (Q, k) int64). A CUDA
     tensor goes to the kernel; a CPU tensor to `knn_plain`.
     `anchor_inv_norms` is `inverse_norms(anchors)`, kept by a caller that
-    searches one gallery many times; without it the gallery's norms are
-    taken anew in this call."""
+    searches one gallery many times (two launches a search); without it
+    the gallery's norms are taken anew in this call (one launch more).
+    The kernel loads rows 16 bytes at a time: it refuses D % 4 != 0 and
+    rows that do not start 16-byte aligned, and does not copy them."""
     if anchors.device.type == "cpu" and queries.device.type == "cpu":
         return knn_plain(anchors, queries, k)
     if anchors.device.type != "cuda" or queries.device != anchors.device:
@@ -92,8 +95,14 @@ def nearest_neighbors_fused(anchors: torch.Tensor, queries: torch.Tensor,
     if not 1 <= k <= MAX_K or k > na:
         raise ValueError(f"k={k} must be in [1, {MAX_K}] and <= A={na}")
     lib = _lib()
+    if dim % 4 or dim > lib.knn_fused_max_dim():
+        raise ValueError(f"D={dim} must be a multiple of 4 and at most "
+                         f"{lib.knn_fused_max_dim()}")
     a = anchors.float().contiguous()
     q = queries.float().contiguous()
+    for name, t in (("anchors", a), ("queries", q)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned")
     if anchor_inv_norms is None:
         anchor_inv_norms = inverse_norms(a)
     inv_g = anchor_inv_norms.float().contiguous()
@@ -101,10 +110,13 @@ def nearest_neighbors_fused(anchors: torch.Tensor, queries: torch.Tensor,
         raise ValueError("anchor_inv_norms must be (A,) on the anchors' "
                          "device")
     dev = a.device
-    nparts = lib.knn_fused_parts(na)
-    inv_q = torch.empty(nq, dtype=torch.float32, device=dev)
-    part_d = torch.empty(nq * nparts * k, dtype=torch.float32, device=dev)
-    part_i = torch.empty(nq * nparts * k, dtype=torch.int32, device=dev)
+    nparts = lib.knn_fused_parts(na, dim, k)
+    if nparts <= 0:
+        _check(lib, -nparts)
+    slots = 1 if k == 1 else MAX_K
+    part_d = torch.empty(nq * nparts * slots, dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty(nq * nparts * slots, dtype=torch.int32, device=dev)
     out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int64, device=dev)
     # the scratch tensors die here while the kernels may still run: the
@@ -114,13 +126,20 @@ def nearest_neighbors_fused(anchors: torch.Tensor, queries: torch.Tensor,
             *(ctypes.c_void_p(t.data_ptr()) for t in (q, a, inv_g)),
             nq, na, dim, k,
             *(ctypes.c_void_p(t.data_ptr())
-              for t in (inv_q, part_d, part_i, out_d, out_i)),
+              for t in (part_d, part_i, out_d, out_i)),
             _build.stream_ptr(a)))
         nearest_neighbors_fused.launches += 1
     return out_d, out_i
 
 
 nearest_neighbors_fused.launches = 0
+
+
+def kernels_launched() -> int:
+    """Kernels csrc/knn_fused.cu has launched in this process (its norm
+    pass, scan and merge each count one): the difference across a call
+    is that call's launches."""
+    return _lib().knn_fused_kernels_launched()
 
 
 def _check(lib, code: int) -> None:
@@ -136,10 +155,12 @@ def _lib():
         lib.knn_inv_norm_launch.argtypes = [vp, ci, ci, vp, vp]
         lib.knn_inv_norm_launch.restype = ci
         lib.knn_fused_launch.argtypes = [
-            vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp]
+            vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]
         lib.knn_fused_launch.restype = ci
-        lib.knn_fused_parts.argtypes = [ctypes.c_int]
-        lib.knn_fused_parts.restype = ctypes.c_int
+        lib.knn_fused_parts.argtypes = [ci, ci, ci]
+        lib.knn_fused_parts.restype = ci
+        lib.knn_fused_max_dim.restype = ci
+        lib.knn_fused_kernels_launched.restype = ctypes.c_ulonglong
         lib.knn_fused_error_string.argtypes = [ctypes.c_int]
         lib.knn_fused_error_string.restype = ctypes.c_char_p
         lib._typed = True

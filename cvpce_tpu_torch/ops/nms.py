@@ -11,8 +11,9 @@ stable-sort / scatter steps; they differ only in the serial walk over
 the sorted candidates:
 
 - `nms_keep_sorted_plain`: torch ops on any device;
-- `nms_keep_sorted`: on a CUDA tensor, the kernel in csrc/nms_hard.cu;
-  on a CPU tensor, the plain walk. It counts its kernel launches in
+- `nms_keep_sorted`: on a CUDA tensor, the kernels in csrc/nms_hard.cu
+  (an IoU bitmask on all SMs, then a one-warp walk per image); on a CPU
+  tensor, the plain walk. It counts its calls of the kernels in
   `nms_keep_sorted.launches`.
 
 Soft-NMS: `soft_nms_scores` is the plain version; `soft_nms_scores_fused`
@@ -78,21 +79,27 @@ def nms_keep_sorted(boxes_sorted: torch.Tensor, n_walk: torch.Tensor,
     if boxes_sorted.dtype != torch.float32 or boxes_sorted.dim() != 3 \
             or boxes_sorted.shape[-1] != 4:
         raise ValueError("boxes_sorted must be (B, N, 4) float32")
+    if n_walk.shape != boxes_sorted.shape[:1]:
+        raise ValueError("n_walk must be (B,)")
     lib = _lib()
     b, n, _ = boxes_sorted.shape
     if n > lib.nms_hard_max_n():
-        raise ValueError(f"N={n} exceeds one block's shared memory "
-                         f"({lib.nms_hard_max_n()} boxes)")
+        raise ValueError(f"N={n} exceeds the walk's removed-bit registers "
+                         f"and staged mask rows ({lib.nms_hard_max_n()} "
+                         f"boxes)")
     boxes_c = boxes_sorted.contiguous()
     walk = n_walk.to(device=boxes_c.device, dtype=torch.int32).contiguous()
     keep = torch.empty((b, n), dtype=torch.uint8, device=boxes_c.device)
-    # the kernel runs after this returns; temporaries freed here stay
+    # the IoU bitmask: bit t of word w in row i says that box i suppresses
+    # box 64w + t
+    mask = torch.empty((b, n, lib.nms_hard_mask_words(n)), dtype=torch.int64,
+                       device=boxes_c.device)
+    # the kernels run after this returns; temporaries freed here stay
     # safe because the caching allocator reuses memory in stream order
     if b and n:
         code = lib.nms_hard_launch(
-            ctypes.c_void_p(boxes_c.data_ptr()),
-            ctypes.c_void_p(walk.data_ptr()),
-            ctypes.c_void_p(keep.data_ptr()), b, n,
+            *(ctypes.c_void_p(t.data_ptr())
+              for t in (boxes_c, walk, mask, keep)), b, n,
             ctypes.c_float(iou_threshold), _build.stream_ptr(boxes_c))
         if code:
             raise RuntimeError("nms_hard launch failed: "
@@ -107,11 +114,13 @@ nms_keep_sorted.launches = 0
 def _lib():
     lib = _build.load("nms_hard")
     if not getattr(lib, "_typed", False):
-        lib.nms_hard_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        lib.nms_hard_launch.restype = ctypes.c_int
-        lib.nms_hard_max_n.restype = ctypes.c_int
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.nms_hard_launch.argtypes = [vp, vp, vp, vp, ci, ci,
+                                        ctypes.c_float, vp]
+        lib.nms_hard_launch.restype = ci
+        lib.nms_hard_max_n.restype = ci
+        lib.nms_hard_mask_words.argtypes = [ci]
+        lib.nms_hard_mask_words.restype = ci
         lib.nms_hard_error_string.argtypes = [ctypes.c_int]
         lib.nms_hard_error_string.restype = ctypes.c_char_p
         lib._typed = True

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from cvpce_tpu_torch import testing
 from cvpce_tpu_torch.ops import conv_fused, knn, nms
 
 pytestmark = pytest.mark.cuda
@@ -21,36 +22,97 @@ def cuda():
     return torch.device("cuda")
 
 
-def test_nms_kernel_bit_equal_to_plain(cuda):
+@pytest.mark.parametrize("case", ("random",) + testing.NMS_EDGE_CASES)
+def test_nms_kernel_bit_equal_to_plain(cuda, case):
     rng = np.random.default_rng(9)
-    n = 5120
-    cx, cy = rng.uniform(0, 1300, (2, n)), rng.uniform(0, 800, (2, n))
-    w, h = rng.uniform(4, 120, (2, n)), rng.uniform(4, 160, (2, n))
-    boxes = torch.from_numpy(np.stack(
-        [cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
-        .astype(np.float32)).to(cuda)
-    scores = torch.from_numpy(rng.uniform(0, 1, (2, n)).astype(
-        np.float32)).to(cuda)
-    valid = torch.from_numpy(rng.uniform(0, 1, (2, n)) < 0.95).to(cuda)
-    before = nms.nms_keep_sorted.launches
-    fused = nms.nms_mask_fused(boxes, scores, valid, 0.5)
-    assert nms.nms_keep_sorted.launches == before + 1
-    assert torch.equal(fused, nms.nms_mask(boxes, scores, valid, 0.5))
+    if case == "random":
+        n = 5120
+        boxes = torch.from_numpy(testing.random_boxes(rng, 2, n)).to(cuda)
+        scores = torch.from_numpy(rng.uniform(0, 1, (2, n)).astype(
+            np.float32)).to(cuda)
+        valid = torch.from_numpy(rng.uniform(0, 1, (2, n)) < 0.95).to(cuda)
+        before = nms.nms_keep_sorted.launches
+        fused = nms.nms_mask_fused(boxes, scores, valid, 0.5)
+        assert nms.nms_keep_sorted.launches == before + 1
+        assert torch.equal(fused, nms.nms_mask(boxes, scores, valid, 0.5))
+        return
+    boxes, walk = testing.nms_sorted_case(case, rng)
+    boxes = torch.from_numpy(boxes).to(cuda)
+    walk = torch.from_numpy(walk).to(cuda)
+    got = nms.nms_keep_sorted(boxes, walk, 0.5)
+    want = nms.nms_keep_sorted_plain(boxes, walk, 0.5)
+    assert torch.equal(got, want)
+    if case == "identical":
+        assert got.sum() == 1 and got[0, 0]
 
 
-@pytest.mark.parametrize("cached_norms", [False, True])
-@pytest.mark.parametrize("k", [1, 8])
-def test_knn_kernel_matches_plain(cuda, k, cached_norms):
+def test_kernel_wrappers_refuse_what_kernels_cannot_take(cuda):
+    g = torch.randn((4096, 1024), device=cuda)
+    q = torch.randn((33, 1024), device=cuda)
+    misaligned = q.flatten()[1:1 + 32 * 1024].view(32, 1024)
+    with pytest.raises(ValueError, match="aligned"):
+        knn.nearest_neighbors_fused(g, misaligned, 1)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        knn.nearest_neighbors_fused(g[:, :1022], q[:, :1022], 1)
+    wide = knn._lib().knn_fused_max_dim() + 4
+    with pytest.raises(ValueError, match="at most"):
+        knn.nearest_neighbors_fused(torch.zeros((4096, wide), device=cuda),
+                                    torch.zeros((2, wide), device=cuda), 1)
+    for k in (0, 9):
+        with pytest.raises(ValueError, match="k="):
+            knn.nearest_neighbors_fused(g, q, k)
+    with pytest.raises(ValueError, match="k="):
+        knn.nearest_neighbors_fused(g[:4], q, 5)
+    boxes = torch.zeros((1, 64, 4), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        nms.nms_keep_sorted(boxes.double(), torch.ones(1, device=cuda), 0.5)
+    with pytest.raises(ValueError, match="float32"):
+        nms.nms_keep_sorted(boxes[0], torch.ones(1, device=cuda), 0.5)
+    big = torch.zeros((1, nms._lib().nms_hard_max_n() + 64, 4), device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        nms.nms_keep_sorted(big, torch.ones(1, device=cuda), 0.5)
+
+
+# D = 1000 ends in a partial depth stage; D = 256 is a single one; Q = 200
+# runs 7 query tiles through one block's ring at the serving gallery
+@pytest.mark.parametrize("nq,na,k,cached_norms,dim", [
+    (40, 5000, 1, False, 1024), (40, 5000, 1, True, 1024),
+    (200, 8192, 8, True, 1024),
+    (40, 5000, 8, False, 1024), (40, 5000, 8, True, 1024),
+    (67, 4097, 5, True, 1000), (5, 20000, 8, True, 256)] + [
+    (nq, na, k, True, 1024) for nq in testing.KNN_QUERIES
+    for na in testing.KNN_GALLERIES for k in testing.KNN_KS])
+def test_knn_kernel_matches_plain(cuda, nq, na, k, cached_norms, dim):
     gen = torch.Generator(device=cuda).manual_seed(k)
-    g = torch.randn((5000, 1024), device=cuda, generator=gen)
-    q = torch.randn((40, 1024), device=cuda, generator=gen)
+    g = torch.randn((na, dim), device=cuda, generator=gen)
+    q = torch.randn((nq, dim), device=cuda, generator=gen)
     inv = knn.inverse_norms(g) if cached_norms else None
     before = knn.nearest_neighbors_fused.launches
+    kernels = knn.kernels_launched()
     d, i = knn.nearest_neighbors_fused(g, q, k, inv)
     assert knn.nearest_neighbors_fused.launches == before + 1
+    # the scan and the merge, and the gallery's norms when not cached
+    assert knn.kernels_launched() - kernels == (2 if cached_norms else 3)
     pd, pi = knn.knn_plain(g, q, k)
     assert (d - pd).abs().max() <= 1e-5  # f32 dots summed in another order
     assert torch.equal(i, pi)
+    # the sums run in a fixed order: a second search is bit-equal
+    d2, i2 = knn.nearest_neighbors_fused(g, q, k, inv)
+    assert torch.equal(d2, d) and torch.equal(i2, i)
+
+
+@pytest.mark.parametrize("k", testing.KNN_KS)
+def test_knn_kernel_ties_to_lowest_index(cuda, k):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    rows = testing.KNN_DUP_ROWS
+    g = torch.randn((rows, 1024), device=cuda, generator=gen).repeat(
+        testing.KNN_DUP_COPIES, 1)
+    q = torch.randn((32, 1024), device=cuda, generator=gen)
+    d, i = knn.nearest_neighbors_fused(g, q, k)
+    pd, pi = knn.knn_plain(g, q, k)
+    assert torch.equal(i, pi)
+    assert (i[:, 0] < rows).all()
+    assert (d - pd).abs().max() <= 1e-5
 
 
 def soft_case(cuda, b, n, seed):
