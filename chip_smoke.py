@@ -4,7 +4,10 @@
 Builds the four CUDA kernels with nvcc and holds each against its plain
 PyTorch version on the card: hard NMS (K1) and Soft-NMS (K3) on 8 x 5120
 seeded boxes, K1 also on adversarial boxes (all identical, invalid boxes
-past n_walk, N = 4693, ragged walks, IoUs exactly at the threshold);
+past n_walk, N = 4693, ragged walks, IoUs exactly at the threshold), K3
+bit for bit on its own (identical, disjoint, exact score ties, N in {1,
+31, 33, 1000, 4693}, an image with no valid entry, ragged valid counts,
+IoUs exactly at the threshold) with at most 2 kernels a call;
 fused kNN (K2) at the serving shape and over Q in {1, 17, 32, 67}, A in
 {4096, 4097, 8192}, k in {1, 5, 8}, on a gallery of exact ties, and a
 misaligned query tensor it must refuse; and fused maxpool -> int8 conv
@@ -350,28 +353,50 @@ def soft_cost(valid):
     return b * n * (16 + 4 + 1 + 4), pairs * SOFT_FLOPS_PER_PAIR
 
 
-def check_soft(timer, boxes, scores, valid, method, label, time_it=True):
-    """K3 against its plain version: the largest score difference and
-    the keep-set (> score_thresh) mismatches; timed when `time_it`."""
-    t0 = time.perf_counter()
-    thresh = GLNConfig.score_thresh
+def soft_against_plain(boxes, scores, valid, method, label):
+    """K3 and its plain version on the same inputs, required bit-equal
+    (same rounds, same IoU and decay expressions, no FMA contraction),
+    with at most 2 kernels in the call by csrc/soft_nms.cu's own count.
+    Returns (kernel scores, plain scores, kernels in the call)."""
+    before = nms_ops.soft_nms_kernels_launched()
     got = nms_ops.soft_nms_scores_fused(boxes, scores, valid, 0.5, 0.5,
                                         method)
+    kernels = nms_ops.soft_nms_kernels_launched() - before
     want = nms_ops.soft_nms_scores(boxes, scores, valid, 0.5, 0.5, method)
     torch.cuda.synchronize()
+    require(kernels <= 2, f"K3 launched {kernels} kernels in one call "
+                          f"({label}, {method})")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    require(torch.equal(got, want), f"Soft-NMS kernel not bit-equal to "
+                                    f"plain ({label}, {method}: max "
+                                    f"difference {err})")
+    return got, want, kernels
+
+
+def check_soft(timer, boxes, scores, valid, method, label, time_it=True):
+    """K3 against its plain version: bit-equal, the keep-set
+    (> score_thresh) mismatches, the rounds of the fullest image; timed
+    when `time_it`."""
+    t0 = time.perf_counter()
+    thresh = GLNConfig.score_thresh
+    got, want, kernels = soft_against_plain(boxes, scores, valid, method,
+                                            label)
     err = float((got - want).abs().max())
     keep_mismatches = int(((got > thresh) != (want > thresh)).sum())
     require(err <= SOFT_TOL, f"Soft-NMS kernel differs from plain by {err} "
                              f"({label}, {method})")
     require(keep_mismatches == 0, f"Soft-NMS keep sets differ ({label}, "
                                   f"{method}: {keep_mismatches})")
+    rounds = int(valid.sum(1).max())
     row = {"name": "soft_nms", "method": method, "shape": list(boxes.shape),
-           "valid": int(valid.sum()), "kept": int((got > thresh).sum()),
-           "bit_equal": bool(torch.equal(got, want)), "max_abs_err": err,
-           "keep_mismatches": keep_mismatches}
+           "valid": int(valid.sum()), "rounds": rounds,
+           "kept": int((got > thresh).sum()), "bit_equal": True,
+           "max_abs_err": err, "keep_mismatches": keep_mismatches,
+           "kernels_per_call": kernels}
     if time_it:
         row["ms"] = timer.ms(lambda: nms_ops.soft_nms_scores_fused(
             boxes, scores, valid, 0.5, 0.5, method))
+        row["us_per_round"] = row["ms"] * 1000 / rounds
         row["plain_ms"] = timer.ms(lambda: nms_ops.soft_nms_scores(
             boxes, scores, valid, 0.5, 0.5, method), iters=3, warmup=1)
         nbytes, flops = soft_cost(valid)
@@ -380,6 +405,26 @@ def check_soft(timer, boxes, scores, valid, method, label, time_it=True):
     row["seconds"] = time.perf_counter() - t0
     emit({"phase": f"kernels.soft_nms.{label}.{method}", **row})
     return row
+
+
+def phase_soft_edges(rng):
+    """K3 bit-equal to its plain version, both methods, on the
+    adversarial inputs of cvpce_tpu_torch.testing (which
+    tests/test_torch_cuda.py holds it to as well)."""
+    t0 = time.perf_counter()
+    rows = {}
+    for label in testing.SOFT_EDGE_CASES:
+        boxes, scores, valid = (torch.from_numpy(a).cuda() for a in
+                                testing.soft_nms_case(label, rng))
+        for method in ("gaussian", "linear"):
+            got, _, kernels = soft_against_plain(boxes, scores, valid,
+                                                 method, label)
+            rows[f"{label}.{method}"] = {
+                "shape": list(boxes.shape), "valid": valid.sum(1).tolist(),
+                "kept": (got > GLNConfig.score_thresh).sum(1).tolist(),
+                "kernels_per_call": kernels}
+    emit({"phase": "kernels.soft_nms.edges", "bit_equal": True,
+          "cases": rows, "seconds": time.perf_counter() - t0})
 
 
 def pool_site_inputs(rng, hw, cin, cout):
@@ -498,6 +543,7 @@ def phase_kernels(timer, rng):
     # the edge cases draw from their own seeds, so the later phases' inputs
     # stay those of earlier runs
     phase_nms_edges(np.random.default_rng(41))
+    phase_soft_edges(np.random.default_rng(47))
     phase_knn_edges(torch.Generator(device="cuda").manual_seed(43))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
 

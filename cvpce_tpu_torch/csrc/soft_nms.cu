@@ -1,4 +1,6 @@
-// Sequential Soft-NMS re-scoring (Bodla et al. 2017): one block per image.
+// Sequential Soft-NMS re-scoring (Bodla et al. 2017): an overlap bitmask
+// on all SMs, then one chain of rounds per image that touches only the
+// winner's overlaps.
 //
 // Replaces the TPU kernel cvpce_tpu/ops/nms_pallas.py:_soft_nms_kernel
 // (driven by soft_nms_scores_pallas). The wrapper is
@@ -10,163 +12,349 @@
 // lowest index on ties), marks it processed, and multiplies every other
 // unprocessed score by exp(-iou^2 / sigma) (gaussian) or, where
 // iou > thresh, by 1 - iou (linear). It stops when no unprocessed entry
-// is left (the round's maximum is <= -1e37). The output is the current
-// score of each valid entry and 0 at invalid ones. The IoU is
+// above -inf is left. The output is the current score of each valid
+// entry and 0 at invalid ones. The IoU is
 // inter / max((area_w + area_j) - inter, 1e-12) with the plain version's
 // expression order; the file is built with -fmad=false, and expf is the
-// CUDA math library's, so each decay rounds as torch's does.
+// CUDA math library's, so each decay rounds as torch's does and the
+// scores are bit-equal to the plain version's.
 //
-// Bound: N dependent rounds (one per valid candidate, up to 5120 per
-// image on the serving path), each an argmax over N scores followed by
-// an IoU row and N decays: ~N^2 IoUs, microseconds of work for the card,
-// on 100 KB of input per image. The kernel is bound by the latency of
-// the dependent rounds. Design: boxes, areas, current scores and
-// processed flags live in dynamic shared memory (28 B per entry, 140 KB
-// at N = 5120); each thread owns the entries j = tid mod 1024, so the
-// decay and the next round's scan touch only its own entries and need no
-// barrier. One block holds one SM, so a round's cost is the SM's
-// instruction throughput over N entries: the divisions and expf run only
-// for boxes that overlap the winner (the others' decay is exactly 1). A
-// round pays two barriers: one after each warp's shuffle-reduced
-// (score, index) maximum, one after warp 0 combines the 32 partial
-// maxima into the winner. Images of a batch run as independent blocks.
+// What bounds it: the latency of the dependent rounds, one per valid
+// candidate (4693 on a serve photo, up to 5120). The arithmetic (~N^2 / 2
+// IoUs) is microseconds of the card's and the input is 100 KB an image;
+// neither bytes nor operations limit it. A round's budget is what one
+// warp can do in about 1000 cycles (~0.6 us at 1.7 GHz).
+//
+// Two facts make the rounds short and exact. A pair's decay does not
+// depend on which box of the pair wins (inter uses symmetric min/max and
+// f32 addition commutes), so it can be tested once, in parallel, before
+// the chain. And a score whose decay is exactly 1 does not change, so
+// skipping it changes no bit: a round need only touch the winner's
+// overlaps, and the groups whose best entry they were.
+//   1. soft_mask_kernel, all SMs: a grid over (column word, row block,
+//      image) writes mask[b][i][w], a 64-bit word whose bit t says that
+//      valid box i and valid box 64w + t != i have a decay other than
+//      exactly 1 when either wins, computed with the chain's own
+//      expression (decay_of). Full rows, both triangles: the order of the
+//      rounds follows the scores, not the indices. Bits of invalid boxes
+//      and of the ragged edge past n stay clear.
+//   2. soft_chain_kernel, one block per image: boxes, areas, current
+//      scores, the unprocessed bits and the best (score, index) of each
+//      group of 32 entries live in shared memory (28.5 B an entry,
+//      146 KB at N = 5120). The block loads them and writes the output;
+//      between one __syncthreads() and the next, warp 0 alone runs the
+//      rounds, with __syncwarp() only:
+//      - the winner is the argmax over the group maxima (a few a lane,
+//        then a shuffle reduction of 64-bit keys that order by score,
+//        then by lowest index);
+//      - its mask row (ceil(N/64) words, L2-resident after phase 1),
+//        ANDed with the unprocessed bits, lists its neighbours, which a
+//        popc prefix compacts so that the lanes take them 32 at a time
+//        and decay each once, with the plain version's expressions;
+//      - only the dirty groups are rescanned, one lane each: the
+//        winner's, and those whose best entry was just decayed. Decays
+//        only lower scores, so no other group's best can change.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr float kNeg = -3.0e38f;
-constexpr int kNoIndex = 0x7fffffff;
+typedef unsigned long long u64;
 
-__device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+constexpr int kBits = 64;          // boxes per mask word and row block
+constexpr int kGroup = 32;         // entries per argmax group
+constexpr int kThreads = 256;      // chain block: all load, warp 0 chains
+constexpr int kMaxWords = 128;     // N <= 8192: 4 mask words a lane
+constexpr int kSlots = kMaxWords / 32;
+constexpr unsigned kFull = 0xffffffffu;
+// the high half of the key of -inf: a round whose best key is at or
+// below it (an empty group's key is 0) has no live entry left
+constexpr unsigned kNegInfKey = 0x007fffffu;
+
+// kernels this file has launched, read by soft_nms_kernels_launched
+unsigned long long kernels_launched = 0;
+
+__device__ __forceinline__ float area_of(float4 b) {
+  return (b.z - b.x) * (b.w - b.y);
 }
 
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    better(v, i, ov, oi);
+// the factor winner r (area ra) applies to box c (area ca): 1 when they
+// are disjoint (IoU +0: exp(-0) or the linear rule's 1), else the plain
+// version's expression
+__device__ __forceinline__ float decay_of(float4 r, float ra, float4 c,
+                                          float ca, float sigma,
+                                          float thresh, int linear) {
+  const float ix1 = fmaxf(r.x, c.x);
+  const float iy1 = fmaxf(r.y, c.y);
+  const float ix2 = fminf(r.z, c.z);
+  const float iy2 = fminf(r.w, c.w);
+  const float inter = fmaxf(ix2 - ix1, 0.0f) * fmaxf(iy2 - iy1, 0.0f);
+  if (inter == 0.0f) return 1.0f;
+  const float uni = (ra + ca) - inter;
+  const float iou = inter / fmaxf(uni, 1e-12f);
+  return linear ? (iou > thresh ? 1.0f - iou : 1.0f)
+                : expf(-(iou * iou) / sigma);
+}
+
+// a 64-bit key that orders by score, then by the lower index; -0 ranks
+// as +0, as the plain version's comparisons do. 0 is below every key.
+__device__ __forceinline__ u64 key_of(float s, int j) {
+  unsigned u = __float_as_uint(s == 0.0f ? 0.0f : s);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<u64>(u) << 32) | (kFull - static_cast<unsigned>(j));
+}
+
+__device__ __forceinline__ int index_of(u64 key) {
+  return static_cast<int>(kFull - static_cast<unsigned>(key));
+}
+
+__device__ __forceinline__ u64 max_key(u64 a, u64 b) { return a > b ? a : b; }
+
+// the best key of group g, whose unprocessed entries are `bits`; the
+// scan starts at entry `rot`, so lanes rescanning different groups at
+// once read different banks
+__device__ __forceinline__ u64 group_best(const float* scur, int g,
+                                          unsigned bits, int rot) {
+  u64 best = 0;
+  for (unsigned m = __funnelshift_r(bits, bits, rot); m; m &= m - 1) {
+    const int j = g * kGroup + ((__ffs(m) - 1 + rot) & (kGroup - 1));
+    best = max_key(best, key_of(scur[j], j));
   }
+  return best;
+}
+
+__host__ __device__ inline int mask_words(int n) {
+  return (n + kBits - 1) / kBits;
+}
+
+__host__ __device__ inline int groups(int n) {
+  return (n + kGroup - 1) / kGroup;
+}
+
+__global__ void __launch_bounds__(kBits)
+soft_mask_kernel(const float4* __restrict__ boxes,
+                 const uint8_t* __restrict__ valid, int n, float sigma,
+                 float thresh, int linear, u64* __restrict__ mask) {
+  const int cb = blockIdx.x, rb = blockIdx.y, b = blockIdx.z;
+  const int nw = mask_words(n);
+  __shared__ float4 cbox[kBits];
+  __shared__ float carea[kBits];
+  __shared__ unsigned cvalid[2];
+  const size_t base = static_cast<size_t>(b) * n;
+  const int t = threadIdx.x;
+  const int j = cb * kBits + t;
+  bool vj = false;
+  if (j < n) {
+    const float4 v = boxes[base + j];
+    cbox[t] = v;
+    carea[t] = area_of(v);
+    vj = valid[base + j] != 0;
+  }
+  const unsigned vb = __ballot_sync(kFull, vj);
+  if (t % 32 == 0) cvalid[t / 32] = vb;
+  __syncthreads();
+  const int i = rb * kBits + t;
+  if (i >= n) return;
+  u64 bits = 0;
+  if (valid[base + i]) {
+    u64 cols = (static_cast<u64>(cvalid[1]) << 32) | cvalid[0];
+    if (cb == rb) cols &= ~(1ull << t);
+    const float4 r = boxes[base + i];
+    const float ra = area_of(r);
+    // cols is the same in every lane but the diagonal's: no divergence
+    for (u64 m = cols; m; m &= m - 1) {
+      const int c = __ffsll(static_cast<long long>(m)) - 1;
+      if (decay_of(r, ra, cbox[c], carea[c], sigma, thresh, linear) != 1.0f)
+        bits |= 1ull << c;
+    }
+  }
+  mask[(base + i) * nw + cb] = bits;
+}
+
+size_t chain_smem(int n) {
+  // boxes, group keys, unprocessed bits, areas, scores, neighbour list,
+  // dirty-group list
+  return static_cast<size_t>(n) * (16 + 4 + 4 + 4) +
+         static_cast<size_t>(groups(n)) * (8 + 4) +
+         static_cast<size_t>(mask_words(n)) * 8;
 }
 
 __global__ void __launch_bounds__(kThreads)
-soft_nms_kernel(const float4* __restrict__ boxes,
-                const float* __restrict__ scores,
-                const uint8_t* __restrict__ valid, int n, float sigma,
-                float thresh, int linear, float* __restrict__ out) {
-  extern __shared__ float4 smem[];
-  float4* sbox = smem;
-  float* sarea = reinterpret_cast<float*>(sbox + n);
+soft_chain_kernel(const float4* __restrict__ boxes,
+                  const float* __restrict__ scores,
+                  const uint8_t* __restrict__ valid,
+                  const u64* __restrict__ mask, int n, float sigma,
+                  float thresh, int linear, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nw = mask_words(n), ng = groups(n);
+  float4* sbox = reinterpret_cast<float4*>(smem);
+  u64* gkey = reinterpret_cast<u64*>(sbox + n);  // best key per group
+  u64* live = gkey + ng;                         // unprocessed bits
+  float* sarea = reinterpret_cast<float*>(live + nw);
   float* scur = sarea + n;
-  int* sproc = reinterpret_cast<int*>(scur + n);
-  __shared__ float part_v[kWarps];
-  __shared__ int part_i[kWarps];
-  __shared__ int winner;
+  int* nbr = reinterpret_cast<int*>(scur + n);   // a round's neighbours
+  int* dirty = nbr + n;                          // a round's dirty groups
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const size_t base = static_cast<size_t>(b) * n;
   for (int j = tid; j < n; j += kThreads) {
     const float4 v = boxes[base + j];
     sbox[j] = v;
-    sarea[j] = (v.z - v.x) * (v.w - v.y);
+    sarea[j] = area_of(v);
     scur[j] = scores[base + j];
-    sproc[j] = valid[base + j] ? 0 : 1;
+  }
+  for (int w = warp; w < nw; w += kThreads / 32) {
+    const int j = w * kBits + lane;
+    const unsigned lo = __ballot_sync(kFull, j < n && valid[base + j]);
+    const unsigned hi =
+        __ballot_sync(kFull, j + 32 < n && valid[base + j + 32]);
+    if (lane == 0) live[w] = (static_cast<u64>(hi) << 32) | lo;
+  }
+  __syncthreads();
+  for (int g = tid; g < ng; g += kThreads)
+    gkey[g] = group_best(scur, g,
+                         static_cast<unsigned>(live[g / 2] >> (g % 2 * 32)),
+                         0);
+  __syncthreads();
+
+  if (warp == 0) {
+    const u64* img = mask + base * nw;
+    const unsigned below = (1u << lane) - 1;
+    for (;;) {
+      // the winner: the best of the group maxima
+      u64 best = 0;
+      for (int g = lane; g < ng; g += 32) best = max_key(best, gkey[g]);
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        best = max_key(best, __shfl_xor_sync(kFull, best, off));
+      if (static_cast<unsigned>(best >> 32) <= kNegInfKey) break;
+      const int w = index_of(best);
+
+      // its neighbours: its mask row (no bit of its own) AND the
+      // unprocessed bits, compacted into nbr by a prefix of the counts
+      const u64* row = img + static_cast<size_t>(w) * nw;
+      u64 words[kSlots];
+      int cnt = 0;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int wi = lane + 32 * s;
+        words[s] = wi < nw ? row[wi] & live[wi] : 0ull;
+        cnt += __popcll(words[s]);
+      }
+      int pos = cnt;
+#pragma unroll
+      for (int off = 1; off < 32; off *= 2) {
+        const int o = __shfl_up_sync(kFull, pos, off);
+        if (lane >= off) pos += o;
+      }
+      const int total = __shfl_sync(kFull, pos, 31);
+      pos -= cnt;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+        for (u64 m = words[s]; m; m &= m - 1)
+          nbr[pos++] = (lane + 32 * s) * kBits +
+                       __ffsll(static_cast<long long>(m)) - 1;
+      __syncwarp();
+
+      // the decays, one per neighbour; a neighbour that was its group's
+      // best makes the group dirty (the winner's group is dirty first)
+      const float4 r = sbox[w];
+      const float ra = sarea[w];
+      int nd = 1;
+      for (int k0 = 0; k0 < total; k0 += 32) {
+        const int k = k0 + lane;
+        bool was_best = false;
+        int g = 0;
+        if (k < total) {
+          const int j = nbr[k];
+          scur[j] = scur[j] *
+                    decay_of(r, ra, sbox[j], sarea[j], sigma, thresh, linear);
+          g = j / kGroup;
+          was_best = index_of(gkey[g]) == j;
+        }
+        const unsigned m = __ballot_sync(kFull, was_best);
+        if (was_best) dirty[nd + __popc(m & below)] = g;
+        nd += __popc(m);
+      }
+      if (lane == 0) {
+        dirty[0] = w / kGroup;
+        live[w / kBits] &= ~(1ull << (w % kBits));
+      }
+      __syncwarp();
+
+      // the dirty groups' maxima anew, one lane a group
+      for (int d = lane; d < nd; d += 32) {
+        const int g = dirty[d];
+        gkey[g] = group_best(
+            scur, g, static_cast<unsigned>(live[g / 2] >> (g % 2 * 32)),
+            lane);
+      }
+      __syncwarp();
+    }
   }
   __syncthreads();
 
-  for (;;) {
-    float best = kNeg;
-    int bi = kNoIndex;
-    for (int j = tid; j < n; j += kThreads) {
-      // j rises, so a later equal score never replaces an earlier one
-      if (!sproc[j] && scur[j] > best) {
-        best = scur[j];
-        bi = j;
-      }
-    }
-    warp_argmax(best, bi);
-    if (lane == 0) {
-      part_v[warp] = best;
-      part_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      best = part_v[lane];
-      bi = part_i[lane];
-      warp_argmax(best, bi);
-      if (lane == 0) winner = best > -1.0e37f ? bi : -1;
-    }
-    __syncthreads();
-    const int w = winner;
-    if (w < 0) break;
-    const float4 r = sbox[w];
-    const float ra = sarea[w];
-    for (int j = tid; j < n; j += kThreads) {
-      if (sproc[j]) continue;
-      if (j == w) {
-        sproc[j] = 1;
-        continue;
-      }
-      const float4 c = sbox[j];
-      const float ix1 = fmaxf(r.x, c.x);
-      const float iy1 = fmaxf(r.y, c.y);
-      const float ix2 = fminf(r.z, c.z);
-      const float iy2 = fminf(r.w, c.w);
-      const float inter = fmaxf(ix2 - ix1, 0.0f) * fmaxf(iy2 - iy1, 0.0f);
-      // a disjoint box has IoU +0, so its decay is exactly 1 (exp(-0) or
-      // the linear rule's 1) and its score stays as it is: skip it
-      if (inter == 0.0f) continue;
-      const float uni = (ra + sarea[j]) - inter;
-      const float iou = inter / fmaxf(uni, 1e-12f);
-      const float decay = linear ? (iou > thresh ? 1.0f - iou : 1.0f)
-                                 : expf(-(iou * iou) / sigma);
-      scur[j] = scur[j] * decay;
-    }
-  }
-
-  for (int j = tid; j < n; j += kThreads) {
+  for (int j = tid; j < n; j += kThreads)
     out[base + j] = valid[base + j] ? scur[j] : 0.0f;
-  }
+}
+
+int smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return bytes;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest N one block can hold in shared memory.
+// Largest N: one image's chain state fits one block's shared memory and
+// a lane holds at most kSlots mask words (8128 on an H100).
 int soft_nms_max_n() {
-  int dev = 0, bytes = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  return (bytes - 1024) / 28;
+  int n = kMaxWords * kBits;
+  while (n > 0 && chain_smem(n) > static_cast<size_t>(smem_optin()))
+    n -= kBits;
+  return n;
 }
 
+// Words per row of the mask scratch: the caller allocates
+// batch * n * soft_nms_mask_words(n) 64-bit words.
+int soft_nms_mask_words(int n) { return mask_words(n); }
+
+unsigned long long soft_nms_kernels_launched() { return kernels_launched; }
+
 // boxes: (batch, n, 4) f32; scores: (batch, n) f32; valid: (batch, n)
-// uint8; out: (batch, n) f32. All contiguous, in input order (no sort).
+// uint8; mask: scratch, see soft_nms_mask_words; out: (batch, n) f32.
+// All contiguous, in input order (no sort). Two launches.
 int soft_nms_launch(const void* boxes, const void* scores, const void* valid,
-                    void* out, int batch, int n, float sigma, float thresh,
-                    int linear, void* stream) {
-  const size_t smem = static_cast<size_t>(n) * 28;
+                    void* mask, void* out, int batch, int n, float sigma,
+                    float thresh, int linear, void* stream) {
+  if (n <= 0 || batch <= 0) return static_cast<int>(cudaSuccess);
+  if (n > soft_nms_max_n()) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = chain_smem(n);
   cudaError_t err = cudaFuncSetAttribute(
-      soft_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      soft_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  soft_nms_kernel<<<batch, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  const int nw = mask_words(n);
+  soft_mask_kernel<<<dim3(nw, nw, batch), kBits, 0, s>>>(
+      static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
+      n, sigma, thresh, linear, static_cast<u64*>(mask));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++kernels_launched;
+  soft_chain_kernel<<<batch, kThreads, smem, s>>>(
       static_cast<const float4*>(boxes), static_cast<const float*>(scores),
-      static_cast<const uint8_t*>(valid), n, sigma, thresh, linear,
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const uint8_t*>(valid), static_cast<const u64*>(mask), n,
+      sigma, thresh, linear, static_cast<float*>(out));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++kernels_launched;
+  return static_cast<int>(cudaSuccess);
 }
 
 const char* soft_nms_error_string(int code) {

@@ -17,8 +17,10 @@ the sorted candidates:
   `nms_keep_sorted.launches`.
 
 Soft-NMS: `soft_nms_scores` is the plain version; `soft_nms_scores_fused`
-launches csrc/soft_nms.cu for a CUDA tensor (counted in
-`soft_nms_scores_fused.launches`) and runs the plain version for a CPU
+launches csrc/soft_nms.cu for a CUDA tensor (an overlap bitmask on all
+SMs, then one chain of rounds per image; its calls counted in
+`soft_nms_scores_fused.launches`, the kernels in
+`soft_nms_kernels_launched()`) and runs the plain version for a CPU
 tensor.
 
 IoU in both NMS walks is `inter / max(union, 1e-12)` with the kernels'
@@ -229,8 +231,9 @@ def soft_nms_scores_fused(boxes: torch.Tensor, scores: torch.Tensor,
                           valid: torch.Tensor, sigma: float = 0.5,
                           iou_threshold: float = 0.5,
                           method: str = "gaussian") -> torch.Tensor:
-    """`soft_nms_scores` in the CUDA kernel for CUDA tensors (one block
-    per image, no sort); a CPU tensor takes the plain version."""
+    """`soft_nms_scores` in the CUDA kernels for CUDA tensors (no sort;
+    two launches: the overlap bitmask, then one chain block per image); a
+    CPU tensor takes the plain version."""
     if boxes.device.type == "cpu":
         return soft_nms_scores(boxes, scores, valid, sigma, iou_threshold,
                                method)
@@ -253,10 +256,14 @@ def soft_nms_scores_fused(boxes: torch.Tensor, scores: torch.Tensor,
     scores_c = scores.to(boxes_c.device, torch.float32).contiguous()
     valid_c = valid.to(boxes_c.device, torch.uint8).contiguous()
     out = torch.empty((b, n), dtype=torch.float32, device=boxes_c.device)
+    # the overlap bitmask: bit t of word w in row i says that the decay
+    # between boxes i and 64w + t is not exactly 1
+    mask = torch.empty((b, n, lib.soft_nms_mask_words(n)), dtype=torch.int64,
+                       device=boxes_c.device)
     if b and n:
         code = lib.soft_nms_launch(
             *(ctypes.c_void_p(t.data_ptr())
-              for t in (boxes_c, scores_c, valid_c, out)), b, n,
+              for t in (boxes_c, scores_c, valid_c, mask, out)), b, n,
             ctypes.c_float(sigma), ctypes.c_float(iou_threshold),
             int(method == "linear"), _build.stream_ptr(boxes_c))
         if code:
@@ -269,14 +276,24 @@ def soft_nms_scores_fused(boxes: torch.Tensor, scores: torch.Tensor,
 soft_nms_scores_fused.launches = 0
 
 
+def soft_nms_kernels_launched() -> int:
+    """Kernels csrc/soft_nms.cu has launched in this process, counted
+    where it launches them (two a call). Builds the library on first
+    use."""
+    return _soft_lib().soft_nms_kernels_launched()
+
+
 def _soft_lib():
     lib = _build.load("soft_nms")
     if not getattr(lib, "_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.soft_nms_launch.argtypes = [vp, vp, vp, vp, ci, ci, cf, cf, ci,
-                                        vp]
+        lib.soft_nms_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, cf, cf,
+                                        ci, vp]
         lib.soft_nms_launch.restype = ci
         lib.soft_nms_max_n.restype = ci
+        lib.soft_nms_mask_words.argtypes = [ci]
+        lib.soft_nms_mask_words.restype = ci
+        lib.soft_nms_kernels_launched.restype = ctypes.c_ulonglong
         lib.soft_nms_error_string.argtypes = [ci]
         lib.soft_nms_error_string.restype = ctypes.c_char_p
         lib._typed = True

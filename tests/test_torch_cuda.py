@@ -127,21 +127,48 @@ def soft_case(cuda, b, n, seed):
     return boxes, scores, valid
 
 
-# n = 1000 is no multiple of any tile; 5120 fills the block's shared memory
-@pytest.mark.parametrize("n", [1000, 5120])
+# n = 1000 is no multiple of any tile; 5120 is the serve path's most;
+# then the adversarial cases of cvpce_tpu_torch.testing
+@pytest.mark.parametrize("case", ("random1000", "random5120")
+                         + testing.SOFT_EDGE_CASES)
 @pytest.mark.parametrize("method", ["gaussian", "linear"])
-def test_soft_nms_kernel_matches_plain(cuda, method, n):
-    boxes, scores, valid = soft_case(cuda, 2, n, n)
+def test_soft_nms_kernel_matches_plain(cuda, method, case):
+    if case.startswith("random"):
+        n = int(case[len("random"):])
+        boxes, scores, valid = soft_case(cuda, 2, n, n)
+    else:
+        boxes, scores, valid = (torch.from_numpy(a).to(cuda) for a in
+                                testing.soft_nms_case(
+                                    case, np.random.default_rng(13)))
     before = nms.soft_nms_scores_fused.launches
+    kernels = nms.soft_nms_kernels_launched()
     got = nms.soft_nms_scores_fused(boxes, scores, valid, 0.5, 0.5, method)
     assert nms.soft_nms_scores_fused.launches == before + 1
+    # the overlap bitmask, then the chain
+    assert nms.soft_nms_kernels_launched() - kernels == 2
     want = nms.soft_nms_scores(boxes, scores, valid, 0.5, 0.5, method)
     torch.cuda.synchronize()
-    # same IoU expression and expf, no FMA contraction: equal up to the
-    # exp of the CUDA math library against torch's
-    assert (got - want).abs().max() <= 1e-6
-    assert torch.equal(got > 0.05, want > 0.05)
+    # same rounds, IoU and decay expressions, expf, no FMA contraction
+    assert torch.equal(got, want)
     assert (got[~valid] == 0).all()
+
+
+def test_soft_nms_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    boxes = torch.zeros((1, 64, 4), device=cuda)
+    scores = torch.zeros((1, 64), device=cuda)
+    valid = torch.ones((1, 64), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        nms.soft_nms_scores_fused(boxes.double(), scores, valid)
+    with pytest.raises(ValueError, match="float32"):
+        nms.soft_nms_scores_fused(boxes[..., :3], scores, valid)
+    with pytest.raises(ValueError, match="method"):
+        nms.soft_nms_scores_fused(boxes, scores, valid, method="box")
+    n = nms._soft_lib().soft_nms_max_n() + 1
+    with pytest.raises(ValueError, match="exceeds"):
+        nms.soft_nms_scores_fused(torch.zeros((1, n, 4), device=cuda),
+                                  torch.zeros((1, n), device=cuda),
+                                  torch.ones((1, n), dtype=torch.bool,
+                                             device=cuda))
 
 
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])

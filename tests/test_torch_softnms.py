@@ -1,7 +1,9 @@
 """The port's Soft-NMS, box merging and soft/merge postprocess against
 the JAX package on the same seeded inputs: ops/nms.py:soft_nms_scores
 (both methods) against the JAX plain version and the Pallas kernel in
-interpret mode, merge_boxes, and postprocess_detections with
+interpret mode (on seeded boxes and on the edge cases of
+cvpce_tpu_torch.testing that pin what the CUDA kernel's chain must keep),
+merge_boxes, and postprocess_detections with
 nms_mode='soft' and merge_boxes on and off fed the same head outputs."""
 import dataclasses
 
@@ -17,6 +19,7 @@ from cvpce_tpu.ops.nms import merge_boxes as j_merge
 from cvpce_tpu.ops.nms import nms_mask as j_nms
 from cvpce_tpu.ops.nms import soft_nms_scores as j_soft
 from cvpce_tpu.ops.nms_pallas import soft_nms_scores_pallas as j_soft_pallas
+from cvpce_tpu_torch import testing
 from cvpce_tpu_torch.models.gln import GLNConfig, postprocess_detections
 from cvpce_tpu_torch.ops import nms
 
@@ -51,6 +54,44 @@ def test_soft_nms_matches_jax(method, n, seed):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(got.numpy(), want_k, rtol=1e-4, atol=1e-6)
     assert (got.numpy()[~valid] == 0).all()
+
+
+# identical boxes (every round decays all the others, the linear rule to
+# exactly 0, so later rounds pick among equal zeros); exact score ties,
+# initial and after decays that meet, where the lowest index must win; a
+# batch whose middle image has no valid entry; N = 33, one past a
+# 32-entry group. JAX runs one image at a time.
+@pytest.mark.parametrize("method", ["gaussian", "linear"])
+@pytest.mark.parametrize("case,n", [("identical", 40), ("ties", 150),
+                                    ("empty_image", 60), ("n33", None)])
+def test_soft_nms_edge_cases_match_jax(method, case, n):
+    boxes, scores, valid = testing.soft_nms_case(
+        case, np.random.default_rng(17), n)
+    got = nms.soft_nms_scores(torch.from_numpy(boxes),
+                              torch.from_numpy(scores),
+                              torch.from_numpy(valid), 0.5, 0.5,
+                              method).numpy()
+    for b in range(boxes.shape[0]):
+        args = (boxes[b], scores[b], valid[b], 0.5, 0.5, method)
+        want = np.asarray(j_soft(*args))
+        want_k = np.asarray(j_soft_pallas(*args, interpret=True))
+        np.testing.assert_allclose(got[b], want, rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(got[b], want_k, rtol=1e-4, atol=1e-6)
+    assert (got[~valid] == 0).all()
+    if case == "empty_image":
+        assert not valid[1].any() and (got[1] == 0).all()
+    if case == "identical" and method == "linear":
+        # the first winner keeps its score, every other one falls to 0
+        first = int(np.argmax(scores[0]))
+        assert got[0, first] == scores[0, first]
+        assert np.count_nonzero(got[0]) == 1
+    if case == "ties" and method == "linear":
+        # _tie_triples: A decays to exactly B's score, the lower index of
+        # the two wins and decays the other by 1 - 0.6
+        tie = scores[0, 2]
+        lose = tie * (np.float32(1) - np.float32(12) / np.float32(20))
+        np.testing.assert_array_equal(
+            got[0, :6], np.float32([1.0, tie, lose, 1.0, tie, lose]))
 
 
 def test_soft_nms_batch_and_fused_wrapper_on_cpu():
