@@ -56,6 +56,7 @@
 //        only lower scores, so no other group's best can change.
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -63,10 +64,10 @@ typedef unsigned long long u64;
 
 constexpr int kBits = 64;          // boxes per mask word and row block
 constexpr int kGroup = 32;         // entries per argmax group
-constexpr int kThreads = 256;      // chain block: all load, warp 0 chains
-constexpr int kMaxWords = 128;     // N <= 8192: 4 mask words a lane
-constexpr int kSlots = kMaxWords / 32;
+constexpr int kThreads = 512;      // chain block: all load and store
+constexpr int kMaxChainWarps = kThreads / 32;  // of which these chain
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNoIndex = 0x7fffffff;
 // the high half of the key of -inf: a round whose best key is at or
 // below it (an empty group's key is 0) has no live entry left
 constexpr unsigned kNegInfKey = 0x007fffffu;
@@ -78,49 +79,47 @@ __device__ __forceinline__ float area_of(float4 b) {
   return (b.z - b.x) * (b.w - b.y);
 }
 
-// the factor winner r (area ra) applies to box c (area ca): 1 when they
-// are disjoint (IoU +0: exp(-0) or the linear rule's 1), else the plain
-// version's expression
-__device__ __forceinline__ float decay_of(float4 r, float ra, float4 c,
-                                          float ca, float sigma,
-                                          float thresh, int linear) {
+__device__ __forceinline__ float inter_of(float4 r, float4 c) {
   const float ix1 = fmaxf(r.x, c.x);
   const float iy1 = fmaxf(r.y, c.y);
   const float ix2 = fminf(r.z, c.z);
   const float iy2 = fminf(r.w, c.w);
-  const float inter = fmaxf(ix2 - ix1, 0.0f) * fmaxf(iy2 - iy1, 0.0f);
-  if (inter == 0.0f) return 1.0f;
+  return fmaxf(ix2 - ix1, 0.0f) * fmaxf(iy2 - iy1, 0.0f);
+}
+
+// the decay rule. When sigma is a power of two, x / sigma and
+// x * (1 / sigma) round the same exact value, so the division becomes a
+// multiply.
+struct Rule {
+  float sigma, inv_sigma, thresh;
+  int linear, pow2;
+};
+
+// the factor winner r (area ra) applies to box c (area ca) given their
+// intersection, with the plain version's expressions
+__device__ __forceinline__ float decay_from(float inter, float ra, float ca,
+                                            const Rule& rule) {
   const float uni = (ra + ca) - inter;
   const float iou = inter / fmaxf(uni, 1e-12f);
-  return linear ? (iou > thresh ? 1.0f - iou : 1.0f)
-                : expf(-(iou * iou) / sigma);
+  if (rule.linear) return iou > rule.thresh ? 1.0f - iou : 1.0f;
+  const float x = -(iou * iou);
+  return expf(rule.pow2 ? x * rule.inv_sigma : x / rule.sigma);
 }
 
-// a 64-bit key that orders by score, then by the lower index; -0 ranks
-// as +0, as the plain version's comparisons do. 0 is below every key.
-__device__ __forceinline__ u64 key_of(float s, int j) {
-  unsigned u = __float_as_uint(s == 0.0f ? 0.0f : s);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<u64>(u) << 32) | (kFull - static_cast<unsigned>(j));
+// the same, exactly 1 for disjoint boxes (IoU +0: exp(-0), or the linear
+// rule's 1) without the divisions
+__device__ __forceinline__ float decay_of(float4 r, float ra, float4 c,
+                                          float ca, const Rule& rule) {
+  const float inter = inter_of(r, c);
+  return inter == 0.0f ? 1.0f : decay_from(inter, ra, ca, rule);
 }
 
+// A key is 64 bits that order by score, then by the lower index: the
+// score's order bits (order_of; -0 ranks as +0, as the plain version's
+// comparisons do) above the complement of the index. 0 is below every
+// key.
 __device__ __forceinline__ int index_of(u64 key) {
   return static_cast<int>(kFull - static_cast<unsigned>(key));
-}
-
-__device__ __forceinline__ u64 max_key(u64 a, u64 b) { return a > b ? a : b; }
-
-// the best key of group g, whose unprocessed entries are `bits`; the
-// scan starts at entry `rot`, so lanes rescanning different groups at
-// once read different banks
-__device__ __forceinline__ u64 group_best(const float* scur, int g,
-                                          unsigned bits, int rot) {
-  u64 best = 0;
-  for (unsigned m = __funnelshift_r(bits, bits, rot); m; m &= m - 1) {
-    const int j = g * kGroup + ((__ffs(m) - 1 + rot) & (kGroup - 1));
-    best = max_key(best, key_of(scur[j], j));
-  }
-  return best;
 }
 
 __host__ __device__ inline int mask_words(int n) {
@@ -133,8 +132,8 @@ __host__ __device__ inline int groups(int n) {
 
 __global__ void __launch_bounds__(kBits)
 soft_mask_kernel(const float4* __restrict__ boxes,
-                 const uint8_t* __restrict__ valid, int n, float sigma,
-                 float thresh, int linear, u64* __restrict__ mask) {
+                 const uint8_t* __restrict__ valid, int n, Rule rule,
+                 u64* __restrict__ mask) {
   const int cb = blockIdx.x, rb = blockIdx.y, b = blockIdx.z;
   const int nw = mask_words(n);
   __shared__ float4 cbox[kBits];
@@ -164,36 +163,86 @@ soft_mask_kernel(const float4* __restrict__ boxes,
     // cols is the same in every lane but the diagonal's: no divergence
     for (u64 m = cols; m; m &= m - 1) {
       const int c = __ffsll(static_cast<long long>(m)) - 1;
-      if (decay_of(r, ra, cbox[c], carea[c], sigma, thresh, linear) != 1.0f)
+      if (decay_of(r, ra, cbox[c], carea[c], rule) != 1.0f)
         bits |= 1ull << c;
     }
   }
   mask[(base + i) * nw + cb] = bits;
 }
 
-size_t chain_smem(int n) {
-  // boxes, group keys, unprocessed bits, areas, scores, neighbour list,
-  // dirty-group list
-  return static_cast<size_t>(n) * (16 + 4 + 4 + 4) +
-         static_cast<size_t>(groups(n)) * (8 + 4) +
-         static_cast<size_t>(mask_words(n)) * 8;
+// chain warps a launch uses: at least `requested`, and enough that each
+// lane owns at most one group
+__host__ __device__ inline int chain_warps_for(int n, int requested) {
+  const int least = (groups(n) + 31) / 32;
+  return requested > least ? requested : least;
+}
+
+// room in a chain warp's neighbour list: every entry of its groups
+__host__ __device__ inline int list_len(int n, int nwarps) {
+  return (groups(n) + nwarps - 1) / nwarps * kGroup;
+}
+
+// the chain's shared memory: boxes, areas, scores (padded to whole
+// groups, so a group's scan never leaves them), the valid bits of each
+// group, each chain warp's best key in two buffers and its neighbour list
+size_t chain_smem(int n, int nwarps) {
+  return static_cast<size_t>(n) * (16 + 4) +
+         static_cast<size_t>(groups(n)) * (kGroup * 4 + 4) +
+         2 * kMaxChainWarps * 8 +
+         static_cast<size_t>(nwarps) * list_len(n, nwarps) * 4;
+}
+
+// the order bits of a score: the high half of key_of
+__device__ __forceinline__ unsigned order_of(float s) {
+  unsigned u = __float_as_uint(s == 0.0f ? 0.0f : s);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// the largest key held by any lane of the warp
+__device__ __forceinline__ u64 warp_max_key(u64 k) {
+  const unsigned hi = __reduce_max_sync(kFull, static_cast<unsigned>(k >> 32));
+  const unsigned lo = __reduce_max_sync(
+      kFull, static_cast<unsigned>(k >> 32) == hi ? static_cast<unsigned>(k)
+                                                  : 0u);
+  return (static_cast<u64>(hi) << 32) | lo;
+}
+
+// the best entry of group g, by the whole warp (lane e reads entry e):
+// the highest score among the unprocessed entries `bits`, the lowest
+// index on ties. Returns its key, 0 when no entry is above -inf; `bs`
+// gets its score in every lane.
+__device__ __forceinline__ u64 group_best(const float* scur, int g,
+                                          unsigned bits, int lane,
+                                          float& bs) {
+  const float x = scur[g * kGroup + lane];
+  const unsigned o = (bits >> lane) & 1u ? order_of(x) : 0u;
+  const unsigned top = __reduce_max_sync(kFull, o);
+  const int e = __ffs(__ballot_sync(kFull, o == top)) - 1;
+  bs = __shfl_sync(kFull, x, e);
+  return top > kNegInfKey
+             ? (static_cast<u64>(top) << 32) |
+                   (kFull - static_cast<unsigned>(g * kGroup + e))
+             : 0ull;
+}
+
+__device__ __forceinline__ void chain_barrier(int nthreads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nthreads) : "memory");
 }
 
 __global__ void __launch_bounds__(kThreads)
 soft_chain_kernel(const float4* __restrict__ boxes,
                   const float* __restrict__ scores,
                   const uint8_t* __restrict__ valid,
-                  const u64* __restrict__ mask, int n, float sigma,
-                  float thresh, int linear, float* __restrict__ out) {
+                  const u64* __restrict__ mask, int n, Rule rule,
+                  int nwarps, int prefetch, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nw = mask_words(n), ng = groups(n);
   float4* sbox = reinterpret_cast<float4*>(smem);
-  u64* gkey = reinterpret_cast<u64*>(sbox + n);  // best key per group
-  u64* live = gkey + ng;                         // unprocessed bits
-  float* sarea = reinterpret_cast<float*>(live + nw);
-  float* scur = sarea + n;
-  int* nbr = reinterpret_cast<int*>(scur + n);   // a round's neighbours
-  int* dirty = nbr + n;                          // a round's dirty groups
+  u64* wkey = reinterpret_cast<u64*>(sbox + n);  // [2][kMaxChainWarps]
+  float* sarea = reinterpret_cast<float*>(wkey + 2 * kMaxChainWarps);
+  float* scur = sarea + n;                        // [ng * kGroup]
+  unsigned* vbits = reinterpret_cast<unsigned*>(scur + ng * kGroup);
+  int* nbr = reinterpret_cast<int*>(vbits + ng);  // [nwarps][list_len]
 
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -204,93 +253,126 @@ soft_chain_kernel(const float4* __restrict__ boxes,
     sarea[j] = area_of(v);
     scur[j] = scores[base + j];
   }
-  for (int w = warp; w < nw; w += kThreads / 32) {
-    const int j = w * kBits + lane;
-    const unsigned lo = __ballot_sync(kFull, j < n && valid[base + j]);
-    const unsigned hi =
-        __ballot_sync(kFull, j + 32 < n && valid[base + j + 32]);
-    if (lane == 0) live[w] = (static_cast<u64>(hi) << 32) | lo;
+  for (int g = warp; g < ng; g += kThreads / 32) {
+    const int j = g * kGroup + lane;
+    const unsigned vb = __ballot_sync(kFull, j < n && valid[base + j]);
+    if (lane == 0) vbits[g] = vb;
   }
   __syncthreads();
-  for (int g = tid; g < ng; g += kThreads)
-    gkey[g] = group_best(scur, g,
-                         static_cast<unsigned>(live[g / 2] >> (g % 2 * 32)),
-                         0);
-  __syncthreads();
 
-  if (warp == 0) {
-    const u64* img = mask + base * nw;
-    const unsigned below = (1u << lane) - 1;
-    for (;;) {
-      // the winner: the best of the group maxima
-      u64 best = 0;
-      for (int g = lane; g < ng; g += 32) best = max_key(best, gkey[g]);
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        best = max_key(best, __shfl_xor_sync(kFull, best, off));
+  if (warp < nwarps) {
+    // lane `lane` of chain warp `warp` owns group g: its unprocessed
+    // bits and its best entry's key and score live in the lane's
+    // registers, and only this warp touches the group's scores
+    const int g = warp + nwarps * lane;
+    const bool owns = g < ng;
+    int* list = nbr + warp * list_len(n, nwarps);
+    unsigned live = owns ? vbits[g] : 0u;
+    u64 key = 0;
+    float bs = 0.0f;
+    for (int q = 0; q < 32 && warp + nwarps * q < ng; ++q) {
+      const int gq = warp + nwarps * q;
+      float s;
+      const u64 k = group_best(scur, gq, __shfl_sync(kFull, live, q), lane, s);
+      if (lane == q) {
+        key = k;
+        bs = s;
+      }
+    }
+    const u64 first = warp_max_key(key);
+    if (lane == 0) wkey[warp] = first;
+    chain_barrier(32 * nwarps);
+
+    // each winner's mask row, read as 32-bit halves: half g is group g
+    const unsigned* rows = reinterpret_cast<const unsigned*>(mask + base * nw);
+    const size_t row_len = 2 * static_cast<size_t>(nw);
+    int guess = -1;    // the winner whose half the lane prefetched
+    unsigned ahead = 0;
+    for (int round = 0;; ++round) {
+      // every warp finds the same winner, the best of the warps' bests;
+      // this round's bests go to the other buffer, so no warp writes
+      // what another may still read
+      const u64* key_now = wkey + (round & 1) * kMaxChainWarps;
+      u64* key_next = wkey + ((round & 1) ^ 1) * kMaxChainWarps;
+      const u64 warp_best = lane < nwarps ? key_now[lane] : 0ull;
+      const u64 best = warp_max_key(warp_best);
       if (static_cast<unsigned>(best >> 32) <= kNegInfKey) break;
       const int w = index_of(best);
 
-      // its neighbours: its mask row (no bit of its own) AND the
-      // unprocessed bits, compacted into nbr by a prefix of the counts
-      const u64* row = img + static_cast<size_t>(w) * nw;
-      u64 words[kSlots];
-      int cnt = 0;
-#pragma unroll
-      for (int s = 0; s < kSlots; ++s) {
-        const int wi = lane + 32 * s;
-        words[s] = wi < nw ? row[wi] & live[wi] : 0ull;
-        cnt += __popcll(words[s]);
-      }
-      int pos = cnt;
+      // the winner's neighbours in this lane's group (its row has no bit
+      // of its own); its half was loaded a round ahead if it was the
+      // runner-up then
+      unsigned row_half = ahead;
+      if (w != guess)
+        row_half = owns ? rows[static_cast<size_t>(w) * row_len + g] : 0u;
+      // this round's runner-up, the best of the other warps' bests, most
+      // often wins the next round: its half is loaded after the decays
+      const u64 next =
+          prefetch ? warp_max_key(warp_best == best ? 0ull : warp_best) : 0ull;
+      const unsigned mine = row_half & live;
+      if (g == w / kGroup) live &= ~(1u << (w % kGroup));
+      const int cnt = __popc(mine);
+      int excl = cnt;
 #pragma unroll
       for (int off = 1; off < 32; off *= 2) {
-        const int o = __shfl_up_sync(kFull, pos, off);
-        if (lane >= off) pos += o;
+        const int o = __shfl_up_sync(kFull, excl, off);
+        if (lane >= off) excl += o;
       }
-      const int total = __shfl_sync(kFull, pos, 31);
-      pos -= cnt;
-#pragma unroll
-      for (int s = 0; s < kSlots; ++s)
-        for (u64 m = words[s]; m; m &= m - 1)
-          nbr[pos++] = (lane + 32 * s) * kBits +
-                       __ffsll(static_cast<long long>(m)) - 1;
-      __syncwarp();
+      const int total = __shfl_sync(kFull, excl, 31);
+      excl -= cnt;
 
-      // the decays, one per neighbour; a neighbour that was its group's
-      // best makes the group dirty (the winner's group is dirty first)
+      // the neighbours into the warp's list, each lane its own at its
+      // prefix; then the decays, 64 a pass, two a lane side by side.
+      // Neighbours overlap the winner, so the decays run branch-free (a
+      // lane without a second neighbour decays the winner's own box and
+      // drops the result).
+      for (unsigned m = mine; m; m &= m - 1)
+        list[excl++] = g * kGroup + __ffs(m) - 1;
+      __syncwarp();
       const float4 r = sbox[w];
       const float ra = sarea[w];
-      int nd = 1;
-      for (int k0 = 0; k0 < total; k0 += 32) {
-        const int k = k0 + lane;
-        bool was_best = false;
-        int g = 0;
-        if (k < total) {
-          const int j = nbr[k];
-          scur[j] = scur[j] *
-                    decay_of(r, ra, sbox[j], sarea[j], sigma, thresh, linear);
-          g = j / kGroup;
-          was_best = index_of(gkey[g]) == j;
-        }
-        const unsigned m = __ballot_sync(kFull, was_best);
-        if (was_best) dirty[nd + __popc(m & below)] = g;
-        nd += __popc(m);
+      for (int k = lane; k < total; k += 64) {
+        const int j0 = list[k];
+        const int j1 = k + 32 < total ? list[k + 32] : w;
+        const float s0 = scur[j0], s1 = scur[j1];
+        const float d0 = decay_from(inter_of(r, sbox[j0]), ra, sarea[j0], rule);
+        const float d1 = decay_from(inter_of(r, sbox[j1]), ra, sarea[j1], rule);
+        scur[j0] = s0 * d0;
+        if (j1 != w) scur[j1] = s1 * d1;
       }
-      if (lane == 0) {
-        dirty[0] = w / kGroup;
-        live[w / kBits] &= ~(1ull << (w % kBits));
+      if (prefetch) {
+        guess = next ? index_of(next) : -1;
+        if (owns && next) ahead = rows[static_cast<size_t>(guess) * row_len + g];
       }
       __syncwarp();
 
-      // the dirty groups' maxima anew, one lane a group
-      for (int d = lane; d < nd; d += 32) {
-        const int g = dirty[d];
-        gkey[g] = group_best(
-            scur, g, static_cast<unsigned>(live[g / 2] >> (g % 2 * 32)),
-            lane);
+      // a group's best changes only if it won or was decayed: those
+      // groups are rescanned, by the whole warp, one after another
+      unsigned dirty = __ballot_sync(
+          kFull, key && (index_of(key) == w || scur[index_of(key)] != bs));
+      while (dirty) {
+        // two at a time, so that their latencies overlap
+        const int q0 = __ffs(dirty) - 1;
+        dirty &= dirty - 1;
+        const int q1 = dirty ? __ffs(dirty) - 1 : q0;
+        dirty &= dirty - 1;
+        float s0, s1;
+        const u64 k0 = group_best(scur, warp + nwarps * q0,
+                                  __shfl_sync(kFull, live, q0), lane, s0);
+        const u64 k1 = group_best(scur, warp + nwarps * q1,
+                                  __shfl_sync(kFull, live, q1), lane, s1);
+        if (lane == q0) {
+          key = k0;
+          bs = s0;
+        }
+        if (lane == q1) {
+          key = k1;
+          bs = s1;
+        }
       }
-      __syncwarp();
+      const u64 mine_best = warp_max_key(key);
+      if (lane == 0) key_next[warp] = mine_best;
+      chain_barrier(32 * nwarps);
     }
   }
   __syncthreads();
@@ -311,14 +393,20 @@ int smem_optin() {
 
 extern "C" {
 
-// Largest N: one image's chain state fits one block's shared memory and
-// a lane holds at most kSlots mask words (8128 on an H100).
+// Largest N: one image's chain state fits one block's shared memory at
+// any count of chain warps (8192 on an H100).
 int soft_nms_max_n() {
-  int n = kMaxWords * kBits;
-  while (n > 0 && chain_smem(n) > static_cast<size_t>(smem_optin()))
-    n -= kBits;
-  return n;
+  static const int max_n = [] {
+    const size_t optin = static_cast<size_t>(smem_optin());
+    int n = 8192;
+    for (int w = 1; w <= kMaxChainWarps; ++w)
+      while (n > 0 && chain_smem(n, chain_warps_for(n, w)) > optin) n -= 32;
+    return n;
+  }();
+  return max_n;
 }
+
+int soft_nms_max_chain_warps() { return kMaxChainWarps; }
 
 // Words per row of the mask scratch: the caller allocates
 // batch * n * soft_nms_mask_words(n) 64-bit words.
@@ -328,14 +416,25 @@ unsigned long long soft_nms_kernels_launched() { return kernels_launched; }
 
 // boxes: (batch, n, 4) f32; scores: (batch, n) f32; valid: (batch, n)
 // uint8; mask: scratch, see soft_nms_mask_words; out: (batch, n) f32.
-// All contiguous, in input order (no sort). Two launches.
+// All contiguous, in input order (no sort). chain_warps: the warps that
+// share each image's rounds, 1 to soft_nms_max_chain_warps(). Two
+// launches.
 int soft_nms_launch(const void* boxes, const void* scores, const void* valid,
                     void* mask, void* out, int batch, int n, float sigma,
-                    float thresh, int linear, void* stream) {
+                    float thresh, int linear, int chain_warps,
+                    int prefetch, void* stream) {
   if (n <= 0 || batch <= 0) return static_cast<int>(cudaSuccess);
-  if (n > soft_nms_max_n()) return static_cast<int>(cudaErrorInvalidValue);
+  const int nwarps = chain_warps_for(n, chain_warps);
+  if (n > soft_nms_max_n() || chain_warps < 1 || nwarps > kMaxChainWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = chain_smem(n);
+  const size_t smem = chain_smem(n, nwarps);
+  unsigned sb;
+  memcpy(&sb, &sigma, sizeof sb);
+  const unsigned exp_bits = (sb >> 23) & 0xff;
+  const Rule rule = {sigma, 1.0f / sigma, thresh, linear,
+                     (sb & 0x807fffffu) == 0 && exp_bits >= 1 &&
+                         exp_bits <= 253};
   cudaError_t err = cudaFuncSetAttribute(
       soft_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -343,14 +442,14 @@ int soft_nms_launch(const void* boxes, const void* scores, const void* valid,
   const int nw = mask_words(n);
   soft_mask_kernel<<<dim3(nw, nw, batch), kBits, 0, s>>>(
       static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
-      n, sigma, thresh, linear, static_cast<u64*>(mask));
+      n, rule, static_cast<u64*>(mask));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ++kernels_launched;
   soft_chain_kernel<<<batch, kThreads, smem, s>>>(
       static_cast<const float4*>(boxes), static_cast<const float*>(scores),
       static_cast<const uint8_t*>(valid), static_cast<const u64*>(mask), n,
-      sigma, thresh, linear, static_cast<float*>(out));
+      rule, nwarps, prefetch, static_cast<float*>(out));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ++kernels_launched;
