@@ -3,7 +3,8 @@
 // winner's overlaps.
 //
 // Replaces the TPU kernel cvpce_tpu/ops/nms_pallas.py:_soft_nms_kernel
-// (driven by soft_nms_scores_pallas). The wrapper is
+// (driven by soft_nms_scores_pallas), which sweeps all N entries in each
+// round on the TPU's wide vector unit. The wrapper is
 // cvpce_tpu_torch/ops/nms.py:soft_nms_scores_fused; its plain version
 // soft_nms_scores computes the same rounds with torch ops.
 //
@@ -20,40 +21,48 @@
 // scores are bit-equal to the plain version's.
 //
 // What bounds it: the latency of the dependent rounds, one per valid
-// candidate (4693 on a serve photo, up to 5120). The arithmetic (~N^2 / 2
-// IoUs) is microseconds of the card's and the input is 100 KB an image;
-// neither bytes nor operations limit it. A round's budget is what one
-// warp can do in about 1000 cycles (~0.6 us at 1.7 GHz).
+// candidate (4693 on a serve photo, up to 5120), not operations or
+// bytes: the arithmetic is ~N^2 / 2 IoUs, microseconds of the card's,
+// and the input is 100 KB an image. A round is a chain of dependent
+// steps of 40-180 cycles each (a shared load, a shuffle, a warp
+// reduction, a named barrier, a decay's division and expf), so its
+// budget is a few thousand cycles, about 1.5 us; the time divided by the
+// rounds is chip_smoke.py's us_per_round.
 //
 // Two facts make the rounds short and exact. A pair's decay does not
 // depend on which box of the pair wins (inter uses symmetric min/max and
 // f32 addition commutes), so it can be tested once, in parallel, before
 // the chain. And a score whose decay is exactly 1 does not change, so
-// skipping it changes no bit: a round need only touch the winner's
-// overlaps, and the groups whose best entry they were.
+// skipping it changes no bit: a round touches only the winner's overlaps
+// and the groups whose best entry they were.
 //   1. soft_mask_kernel, all SMs: a grid over (column word, row block,
 //      image) writes mask[b][i][w], a 64-bit word whose bit t says that
 //      valid box i and valid box 64w + t != i have a decay other than
-//      exactly 1 when either wins, computed with the chain's own
-//      expression (decay_of). Full rows, both triangles: the order of the
-//      rounds follows the scores, not the indices. Bits of invalid boxes
-//      and of the ragged edge past n stay clear.
-//   2. soft_chain_kernel, one block per image: boxes, areas, current
-//      scores, the unprocessed bits and the best (score, index) of each
-//      group of 32 entries live in shared memory (28.5 B an entry,
-//      146 KB at N = 5120). The block loads them and writes the output;
-//      between one __syncthreads() and the next, warp 0 alone runs the
-//      rounds, with __syncwarp() only:
-//      - the winner is the argmax over the group maxima (a few a lane,
-//        then a shuffle reduction of 64-bit keys that order by score,
-//        then by lowest index);
-//      - its mask row (ceil(N/64) words, L2-resident after phase 1),
-//        ANDed with the unprocessed bits, lists its neighbours, which a
-//        popc prefix compacts so that the lanes take them 32 at a time
-//        and decay each once, with the plain version's expressions;
-//      - only the dirty groups are rescanned, one lane each: the
-//        winner's, and those whose best entry was just decayed. Decays
-//        only lower scores, so no other group's best can change.
+//      exactly 1 when i wins, computed with the chain's own expression
+//      (decay_of). Full rows, both triangles: the order of the rounds
+//      follows the scores, not the indices. Bits of invalid boxes and of
+//      the ragged edge past n stay clear.
+//   2. soft_chain_kernel, one 512-thread block per image: boxes, areas
+//      and current scores in shared memory (28 B an entry, 144 KB at
+//      N = 5120); all threads load them and write the output, and
+//      between those two __syncthreads() W chain warps (12 by default)
+//      run the rounds with one named barrier each. Lane l of chain warp k
+//      owns the 32-entry group k + W l: its unprocessed bits and its
+//      best entry live in the lane's registers, and only warp k touches
+//      the group's scores. A round:
+//      - each warp reads the warps' bests of the last round and reduces
+//        them to the same winner (64-bit keys: score, then lowest index);
+//      - each lane reads its 32-bit half of the winner's mask row (L2-
+//        resident), ANDed with its unprocessed bits. The runner-up (the
+//        best of the other warps' bests) most often wins the next round,
+//        so its half is loaded a round ahead;
+//      - the warp's neighbours go into its list at a prefix of the lanes'
+//        counts, and the lanes decay them, two each a pass, with the
+//        plain version's expressions;
+//      - a group whose best won or was decayed is rescanned by the whole
+//        warp (a lane an entry); decays only lower scores, so no other
+//        group's best can change. The warp's best goes to the other of
+//        two buffers, so no warp writes what another may still read.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -192,7 +201,7 @@ size_t chain_smem(int n, int nwarps) {
          static_cast<size_t>(nwarps) * list_len(n, nwarps) * 4;
 }
 
-// the order bits of a score: the high half of key_of
+// the order bits of a score: the high half of its key
 __device__ __forceinline__ unsigned order_of(float s) {
   unsigned u = __float_as_uint(s == 0.0f ? 0.0f : s);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
@@ -326,8 +335,18 @@ soft_chain_kernel(const float4* __restrict__ boxes,
       // Neighbours overlap the winner, so the decays run branch-free (a
       // lane without a second neighbour decays the winner's own box and
       // drops the result).
-      for (unsigned m = mine; m; m &= m - 1)
-        list[excl++] = g * kGroup + __ffs(m) - 1;
+      if (total > 32) {
+        // many neighbours: a pass over all 32 bits, no bit search
+#pragma unroll
+        for (int t = 0, p = excl; t < kGroup; ++t) {
+          const unsigned on = (mine >> t) & 1u;
+          if (on) list[p] = g * kGroup + t;
+          p += on;
+        }
+      } else {
+        for (unsigned m = mine; m; m &= m - 1)
+          list[excl++] = g * kGroup + __ffs(m) - 1;
+      }
       __syncwarp();
       const float4 r = sbox[w];
       const float ra = sarea[w];
@@ -347,7 +366,7 @@ soft_chain_kernel(const float4* __restrict__ boxes,
       __syncwarp();
 
       // a group's best changes only if it won or was decayed: those
-      // groups are rescanned, by the whole warp, one after another
+      // groups are rescanned by the whole warp
       unsigned dirty = __ballot_sync(
           kFull, key && (index_of(key) == w || scur[index_of(key)] != bs));
       while (dirty) {
@@ -406,8 +425,6 @@ int soft_nms_max_n() {
   return max_n;
 }
 
-int soft_nms_max_chain_warps() { return kMaxChainWarps; }
-
 // Words per row of the mask scratch: the caller allocates
 // batch * n * soft_nms_mask_words(n) 64-bit words.
 int soft_nms_mask_words(int n) { return mask_words(n); }
@@ -417,7 +434,8 @@ unsigned long long soft_nms_kernels_launched() { return kernels_launched; }
 // boxes: (batch, n, 4) f32; scores: (batch, n) f32; valid: (batch, n)
 // uint8; mask: scratch, see soft_nms_mask_words; out: (batch, n) f32.
 // All contiguous, in input order (no sort). chain_warps: the warps that
-// share each image's rounds, 1 to soft_nms_max_chain_warps(). Two
+// share each image's rounds, 1 to 16, raised to what one group a lane
+// needs; prefetch: load the runner-up's mask row a round ahead. Two
 // launches.
 int soft_nms_launch(const void* boxes, const void* scores, const void* valid,
                     void* mask, void* out, int batch, int n, float sigma,
