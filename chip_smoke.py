@@ -325,22 +325,76 @@ def phase_knn_edges(gen):
           "seconds": time.perf_counter() - t0})
 
 
-def launches_per_call(fn):
-    """(kernels csrc/knn_fused.cu launches in one call of fn, kernels
-    the profiler sees in it or None when it sees no device activity at
-    all, their names)."""
+def profile_kernels(fns):
+    """[(name, device ms)] of the CUDA kernels the callables launch, from
+    one torch.profiler session around a call of each (after a call of
+    each outside it); None when the profiler sees no device activity.
+    One session for all: in one process only the first sessions return
+    device events."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    before = knn_ops.kernels_launched()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for fn in fns:
         fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            fn()
         torch.cuda.synchronize()
-    counted = knn_ops.kernels_launched() - before
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return counted, len(names) if names else None, sorted(set(names))
+    kernels = [(e.name, e.time_range.elapsed_us() / 1e3)
+               for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return kernels or None
+
+
+def phase_kernel_launches(gallery, queries, inv_g, boxes, scores, valid):
+    """Kernels per call of K2 (k = 1 and k up to 8: its two template
+    widths) and K3, counted where the .cu files launch them, at most 2
+    each; and the kernels the profiler sees in one call of each, with
+    their device times (K3's two phases apart)."""
+    knn = {k: (lambda k=k: knn_ops.nearest_neighbors_fused(
+        gallery, queries, k, inv_g)) for k in (1, 5)}
+
+    def soft():
+        return nms_ops.soft_nms_scores_fused(boxes, scores, valid, 0.5, 0.5,
+                                             "gaussian")
+
+    counted = {}
+    for k, fn in knn.items():
+        before = knn_ops.kernels_launched()
+        fn()
+        counted[k] = knn_ops.kernels_launched() - before
+        require(counted[k] <= 2, f"K2 launched {counted[k]} kernels in one "
+                                 f"call")
+    before = nms_ops.soft_nms_kernels_launched()
+    soft()
+    soft_counted = nms_ops.soft_nms_kernels_launched() - before
+    require(soft_counted <= 2, f"K3 launched {soft_counted} kernels in one "
+                               f"call")
+    seen = profile_kernels([*knn.values(), soft])
+
+    def picked(*parts):
+        if seen is None:
+            return None
+        return [(name, ms) for name, ms in seen
+                if all(p in name for p in parts)]
+
+    row = {}
+    for k in knn:
+        ks = picked("knn_", "<1>" if k == 1 else "<8>")
+        require(ks is None or len(ks) <= 2, f"the profiler saw {len(ks or [])} "
+                                            f"kernels in one K2 call: {ks}")
+        row[f"knn_fused.k{k}"] = {
+            "kernels": counted[k], "profiler_kernels":
+                None if ks is None else len(ks),
+            "names": sorted({n for n, _ in ks or []})}
+    ks = picked("soft_")
+    require(ks is None or len(ks) <= 2, f"the profiler saw {len(ks or [])} "
+                                        f"kernels in one K3 call: {ks}")
+    row["soft_nms.8x5120.gaussian"] = {
+        "kernels": soft_counted,
+        "profiler_kernels": None if ks is None else len(ks),
+        "device_ms": {n: ms for n, ms in ks or []}}
+    emit({"phase": "kernels.launches_per_call", **row})
 
 
 def soft_cost(valid):
@@ -553,21 +607,7 @@ def phase_kernels(timer, rng):
     inv_g = knn_ops.inverse_norms(gallery)
     for k in (1, 5):
         knn_check(timer, gallery, inv_g, queries, k, f"k{k}")
-    # kernels in one search, for each of K2's two template widths (k = 1,
-    # and k up to 8): counted where the .cu file launches them, and by the
-    # profiler where it sees the card; at most 2 by either
-    per_call = {}
-    for k in (1, 5):
-        n, seen, names = launches_per_call(
-            lambda: knn_ops.nearest_neighbors_fused(gallery, queries, k,
-                                                    inv_g))
-        require(n <= 2, f"K2 launched {n} kernels in one call")
-        require(seen is None or seen <= 2, f"the profiler saw {seen} "
-                                           f"kernels in one K2 call: "
-                                           f"{names}")
-        per_call[k] = {"kernels": n, "profiler_kernels": seen,
-                       "names": names}
-    emit({"phase": "kernels.knn_fused.launches_per_call", **per_call})
+    phase_kernel_launches(gallery, queries, inv_g, boxes, scores, valid)
     del gallery, queries, inv_g
     # the edge cases draw from their own seeds, so the later phases' inputs
     # stay those of earlier runs

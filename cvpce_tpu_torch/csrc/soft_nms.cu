@@ -170,11 +170,11 @@ soft_mask_kernel(const float4* __restrict__ boxes,
     const float4 r = boxes[base + i];
     const float ra = area_of(r);
     // cols is the same in every lane but the diagonal's: no divergence
-    for (u64 m = cols; m; m &= m - 1) {
-      const int c = __ffsll(static_cast<long long>(m)) - 1;
-      if (decay_of(r, ra, cbox[c], carea[c], rule) != 1.0f)
+#pragma unroll 8
+    for (int c = 0; c < kBits; ++c)
+      if (((cols >> c) & 1ull) &&
+          decay_of(r, ra, cbox[c], carea[c], rule) != 1.0f)
         bits |= 1ull << c;
-    }
   }
   mask[(base + i) * nw + cb] = bits;
 }
