@@ -24,10 +24,9 @@
 // candidate (4693 on a serve photo, up to 5120), not operations or
 // bytes: the arithmetic is ~N^2 / 2 IoUs, microseconds of the card's,
 // and the input is 100 KB an image. A round is a chain of dependent
-// steps of 40-180 cycles each (a shared load, a shuffle, a warp
-// reduction, a named barrier, a decay's division and expf), so its
-// budget is a few thousand cycles, about 1.5 us; the time divided by the
-// rounds is chip_smoke.py's us_per_round.
+// steps (a shared load, a shuffle, a warp reduction, a named barrier, a
+// decay's divisions and expf), so its budget is a few thousand cycles;
+// the time divided by the rounds is chip_smoke.py's us_per_round.
 //
 // Two facts make the rounds short and exact. A pair's decay does not
 // depend on which box of the pair wins (inter uses symmetric min/max and

@@ -172,6 +172,16 @@ def test_soft_nms_kernel_bit_equal_at_any_lever(cuda, case, chain_warps,
         assert torch.equal(got, want)
 
 
+# a power-of-two sigma divides by multiplying with its exact reciprocal,
+# any other by the division itself: both must round as torch does
+@pytest.mark.parametrize("sigma", [0.5, 2.0, 0.3, 0.7])
+def test_soft_nms_kernel_bit_equal_for_any_sigma(cuda, sigma):
+    boxes, scores, valid = soft_case(cuda, 2, 3000, 4)
+    got = nms.soft_nms_scores_fused(boxes, scores, valid, sigma)
+    want = nms.soft_nms_scores(boxes, scores, valid, sigma)
+    assert torch.equal(got, want)
+
+
 def test_soft_nms_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     boxes = torch.zeros((1, 64, 4), device=cuda)
     scores = torch.zeros((1, 64), device=cuda)
