@@ -427,33 +427,6 @@ def soft_against_plain(boxes, scores, valid, method, label):
     return got, want, kernels
 
 
-# K3's levers, timed against each other in every run: the warps that
-# share an image's rounds, and the next winner's mask row loaded ahead
-SOFT_LEVERS_AB = (("warps8", 8, True), ("warps12", 12, True),
-                  ("warps16", 16, True), ("warps12_no_prefetch", 12, False))
-
-
-def soft_levers_ab(timer, boxes, scores, valid, method, want):
-    """K3's time at each setting of SOFT_LEVERS_AB, in turns (the list
-    forward, then back; the mean of the two medians), each setting held
-    bit-equal to the plain scores `want`."""
-    default = nms_ops.SOFT_NMS_CHAIN_WARPS, nms_ops.SOFT_NMS_PREFETCH
-    times = {label: [] for label, *_ in SOFT_LEVERS_AB}
-    try:
-        for order in (SOFT_LEVERS_AB, SOFT_LEVERS_AB[::-1]):
-            for label, warps, prefetch in order:
-                nms_ops.SOFT_NMS_CHAIN_WARPS = warps
-                nms_ops.SOFT_NMS_PREFETCH = prefetch
-                fn = lambda: nms_ops.soft_nms_scores_fused(  # noqa: E731
-                    boxes, scores, valid, 0.5, 0.5, method)
-                require(torch.equal(fn(), want),
-                        f"Soft-NMS at {label} not bit-equal")
-                times[label].append(timer.ms(fn, iters=10, warmup=1))
-    finally:
-        nms_ops.SOFT_NMS_CHAIN_WARPS, nms_ops.SOFT_NMS_PREFETCH = default
-    return {label: statistics.mean(t) for label, t in times.items()}
-
-
 def check_soft(timer, boxes, scores, valid, method, label, time_it=True):
     """K3 against its plain version: bit-equal, the keep-set
     (> score_thresh) mismatches, the rounds of the fullest image; timed
@@ -478,8 +451,6 @@ def check_soft(timer, boxes, scores, valid, method, label, time_it=True):
         row["ms"] = timer.ms(lambda: nms_ops.soft_nms_scores_fused(
             boxes, scores, valid, 0.5, 0.5, method))
         row["us_per_round"] = row["ms"] * 1000 / rounds
-        row["ms_by_lever"] = soft_levers_ab(timer, boxes, scores, valid,
-                                            method, want)
         row["plain_ms"] = timer.ms(lambda: nms_ops.soft_nms_scores(
             boxes, scores, valid, 0.5, 0.5, method), iters=3, warmup=1)
         nbytes, flops = soft_cost(valid)

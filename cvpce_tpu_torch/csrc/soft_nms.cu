@@ -36,17 +36,19 @@
 // and the groups whose best entry they were.
 //   1. soft_mask_kernel, all SMs: a grid over (column word, row block,
 //      image) writes mask[b][i][w], a 64-bit word whose bit t says that
-//      valid box i and valid box 64w + t != i have a decay other than
-//      exactly 1 when i wins, computed with the chain's own expression
-//      (decay_of). Full rows, both triangles: the order of the rounds
-//      follows the scores, not the indices. Bits of invalid boxes and of
-//      the ragged edge past n stay clear.
+//      valid box i and valid box 64w + t != i may decay each other: they
+//      intersect and, under the linear rule, their IoU, by the chain's own
+//      expression, is above thresh. Elsewhere the decay is exactly 1. A set
+//      bit whose gaussian decay still rounds to 1 is multiplied in by the
+//      chain and changes no bit. Full rows, both triangles: the order of
+//      the rounds follows the scores, not the indices. Bits of invalid
+//      boxes and of the ragged edge past n stay clear.
 //   2. soft_chain_kernel, one 512-thread block per image: boxes, areas
 //      and current scores in shared memory (28 B an entry, 144 KB at
 //      N = 5120); all threads load them and write the output, and
-//      between those two __syncthreads() W chain warps (12 by default)
-//      run the rounds with one named barrier each. Lane l of chain warp k
-//      owns the 32-entry group k + W l: its unprocessed bits and its
+//      between those two __syncthreads() 12 chain warps run the rounds
+//      with one named barrier each. Lane l of chain warp k owns the
+//      32-entry group k + 12 l: its unprocessed bits and its
 //      best entry live in the lane's registers, and only warp k touches
 //      the group's scores. A round:
 //      - each warp reads the warps' bests of the last round and reduces
@@ -73,9 +75,11 @@ typedef unsigned long long u64;
 constexpr int kBits = 64;          // boxes per mask word and row block
 constexpr int kGroup = 32;         // entries per argmax group
 constexpr int kThreads = 512;      // chain block: all load and store
-constexpr int kMaxChainWarps = kThreads / 32;  // of which these chain
+constexpr int kChainWarps = 12;    // of which these run the rounds
+constexpr int kMaxN = 8192;        // most entries an image may have
+// a chain lane owns at most one group
+static_assert(kChainWarps * 32 * kGroup >= kMaxN, "too few chain warps");
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kNoIndex = 0x7fffffff;
 // the high half of the key of -inf: a round whose best key is at or
 // below it (an empty group's key is 0) has no live entry left
 constexpr unsigned kNegInfKey = 0x007fffffu;
@@ -114,12 +118,16 @@ __device__ __forceinline__ float decay_from(float inter, float ra, float ca,
   return expf(rule.pow2 ? x * rule.inv_sigma : x / rule.sigma);
 }
 
-// the same, exactly 1 for disjoint boxes (IoU +0: exp(-0), or the linear
-// rule's 1) without the divisions
-__device__ __forceinline__ float decay_of(float4 r, float ra, float4 c,
+// whether box c's decay from box r (areas ra, ca) may differ from exactly
+// 1: they intersect (disjoint boxes have IoU +0: exp(-0) and 1 - 0 are
+// 1), and, under the linear rule, their IoU is above thresh, with
+// decay_from's expression
+__device__ __forceinline__ bool may_decay(float4 r, float ra, float4 c,
                                           float ca, const Rule& rule) {
   const float inter = inter_of(r, c);
-  return inter == 0.0f ? 1.0f : decay_from(inter, ra, ca, rule);
+  if (!rule.linear || inter == 0.0f) return inter != 0.0f;
+  const float iou = inter / fmaxf((ra + ca) - inter, 1e-12f);
+  return iou > rule.thresh;
 }
 
 // A key is 64 bits that order by score, then by the lower index: the
@@ -172,32 +180,25 @@ soft_mask_kernel(const float4* __restrict__ boxes,
 #pragma unroll 8
     for (int c = 0; c < kBits; ++c)
       if (((cols >> c) & 1ull) &&
-          decay_of(r, ra, cbox[c], carea[c], rule) != 1.0f)
+          may_decay(r, ra, cbox[c], carea[c], rule))
         bits |= 1ull << c;
   }
   mask[(base + i) * nw + cb] = bits;
 }
 
-// chain warps a launch uses: at least `requested`, and enough that each
-// lane owns at most one group
-__host__ __device__ inline int chain_warps_for(int n, int requested) {
-  const int least = (groups(n) + 31) / 32;
-  return requested > least ? requested : least;
-}
-
 // room in a chain warp's neighbour list: every entry of its groups
-__host__ __device__ inline int list_len(int n, int nwarps) {
-  return (groups(n) + nwarps - 1) / nwarps * kGroup;
+__host__ __device__ inline int list_len(int n) {
+  return (groups(n) + kChainWarps - 1) / kChainWarps * kGroup;
 }
 
 // the chain's shared memory: boxes, areas, scores (padded to whole
 // groups, so a group's scan never leaves them), the valid bits of each
 // group, each chain warp's best key in two buffers and its neighbour list
-size_t chain_smem(int n, int nwarps) {
+size_t chain_smem(int n) {
   return static_cast<size_t>(n) * (16 + 4) +
          static_cast<size_t>(groups(n)) * (kGroup * 4 + 4) +
-         2 * kMaxChainWarps * 8 +
-         static_cast<size_t>(nwarps) * list_len(n, nwarps) * 4;
+         2 * kChainWarps * 8 +
+         static_cast<size_t>(kChainWarps) * list_len(n) * 4;
 }
 
 // the order bits of a score: the high half of its key
@@ -242,15 +243,15 @@ soft_chain_kernel(const float4* __restrict__ boxes,
                   const float* __restrict__ scores,
                   const uint8_t* __restrict__ valid,
                   const u64* __restrict__ mask, int n, Rule rule,
-                  int nwarps, int prefetch, float* __restrict__ out) {
+                  float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nw = mask_words(n), ng = groups(n);
   float4* sbox = reinterpret_cast<float4*>(smem);
-  u64* wkey = reinterpret_cast<u64*>(sbox + n);  // [2][kMaxChainWarps]
-  float* sarea = reinterpret_cast<float*>(wkey + 2 * kMaxChainWarps);
+  u64* wkey = reinterpret_cast<u64*>(sbox + n);  // [2][kChainWarps]
+  float* sarea = reinterpret_cast<float*>(wkey + 2 * kChainWarps);
   float* scur = sarea + n;                        // [ng * kGroup]
   unsigned* vbits = reinterpret_cast<unsigned*>(scur + ng * kGroup);
-  int* nbr = reinterpret_cast<int*>(vbits + ng);  // [nwarps][list_len]
+  int* nbr = reinterpret_cast<int*>(vbits + ng);  // [kChainWarps][list_len]
 
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -268,18 +269,18 @@ soft_chain_kernel(const float4* __restrict__ boxes,
   }
   __syncthreads();
 
-  if (warp < nwarps) {
+  if (warp < kChainWarps) {
     // lane `lane` of chain warp `warp` owns group g: its unprocessed
     // bits and its best entry's key and score live in the lane's
     // registers, and only this warp touches the group's scores
-    const int g = warp + nwarps * lane;
+    const int g = warp + kChainWarps * lane;
     const bool owns = g < ng;
-    int* list = nbr + warp * list_len(n, nwarps);
+    int* list = nbr + warp * list_len(n);
     unsigned live = owns ? vbits[g] : 0u;
     u64 key = 0;
     float bs = 0.0f;
-    for (int q = 0; q < 32 && warp + nwarps * q < ng; ++q) {
-      const int gq = warp + nwarps * q;
+    for (int q = 0; q < 32 && warp + kChainWarps * q < ng; ++q) {
+      const int gq = warp + kChainWarps * q;
       float s;
       const u64 k = group_best(scur, gq, __shfl_sync(kFull, live, q), lane, s);
       if (lane == q) {
@@ -289,7 +290,7 @@ soft_chain_kernel(const float4* __restrict__ boxes,
     }
     const u64 first = warp_max_key(key);
     if (lane == 0) wkey[warp] = first;
-    chain_barrier(32 * nwarps);
+    chain_barrier(32 * kChainWarps);
 
     // each winner's mask row, read as 32-bit halves: half g is group g
     const unsigned* rows = reinterpret_cast<const unsigned*>(mask + base * nw);
@@ -300,9 +301,9 @@ soft_chain_kernel(const float4* __restrict__ boxes,
       // every warp finds the same winner, the best of the warps' bests;
       // this round's bests go to the other buffer, so no warp writes
       // what another may still read
-      const u64* key_now = wkey + (round & 1) * kMaxChainWarps;
-      u64* key_next = wkey + ((round & 1) ^ 1) * kMaxChainWarps;
-      const u64 warp_best = lane < nwarps ? key_now[lane] : 0ull;
+      const u64* key_now = wkey + (round & 1) * kChainWarps;
+      u64* key_next = wkey + ((round & 1) ^ 1) * kChainWarps;
+      const u64 warp_best = lane < kChainWarps ? key_now[lane] : 0ull;
       const u64 best = warp_max_key(warp_best);
       if (static_cast<unsigned>(best >> 32) <= kNegInfKey) break;
       const int w = index_of(best);
@@ -315,8 +316,7 @@ soft_chain_kernel(const float4* __restrict__ boxes,
         row_half = owns ? rows[static_cast<size_t>(w) * row_len + g] : 0u;
       // this round's runner-up, the best of the other warps' bests, most
       // often wins the next round: its half is loaded after the decays
-      const u64 next =
-          prefetch ? warp_max_key(warp_best == best ? 0ull : warp_best) : 0ull;
+      const u64 next = warp_max_key(warp_best == best ? 0ull : warp_best);
       const unsigned mine = row_half & live;
       if (g == w / kGroup) live &= ~(1u << (w % kGroup));
       const int cnt = __popc(mine);
@@ -358,10 +358,8 @@ soft_chain_kernel(const float4* __restrict__ boxes,
         scur[j0] = s0 * d0;
         if (j1 != w) scur[j1] = s1 * d1;
       }
-      if (prefetch) {
-        guess = next ? index_of(next) : -1;
-        if (owns && next) ahead = rows[static_cast<size_t>(guess) * row_len + g];
-      }
+      guess = next ? index_of(next) : -1;
+      if (owns && next) ahead = rows[static_cast<size_t>(guess) * row_len + g];
       __syncwarp();
 
       // a group's best changes only if it won or was decayed: those
@@ -375,9 +373,9 @@ soft_chain_kernel(const float4* __restrict__ boxes,
         const int q1 = dirty ? __ffs(dirty) - 1 : q0;
         dirty &= dirty - 1;
         float s0, s1;
-        const u64 k0 = group_best(scur, warp + nwarps * q0,
+        const u64 k0 = group_best(scur, warp + kChainWarps * q0,
                                   __shfl_sync(kFull, live, q0), lane, s0);
-        const u64 k1 = group_best(scur, warp + nwarps * q1,
+        const u64 k1 = group_best(scur, warp + kChainWarps * q1,
                                   __shfl_sync(kFull, live, q1), lane, s1);
         if (lane == q0) {
           key = k0;
@@ -390,7 +388,7 @@ soft_chain_kernel(const float4* __restrict__ boxes,
       }
       const u64 mine_best = warp_max_key(key);
       if (lane == 0) key_next[warp] = mine_best;
-      chain_barrier(32 * nwarps);
+      chain_barrier(32 * kChainWarps);
     }
   }
   __syncthreads();
@@ -411,14 +409,13 @@ int smem_optin() {
 
 extern "C" {
 
-// Largest N: one image's chain state fits one block's shared memory at
-// any count of chain warps (8192 on an H100).
+// Largest N: one image's chain state fits one block's shared memory
+// (8192 on an H100).
 int soft_nms_max_n() {
   static const int max_n = [] {
     const size_t optin = static_cast<size_t>(smem_optin());
-    int n = 8192;
-    for (int w = 1; w <= kMaxChainWarps; ++w)
-      while (n > 0 && chain_smem(n, chain_warps_for(n, w)) > optin) n -= 32;
+    int n = kMaxN;
+    while (n > 0 && chain_smem(n) > optin) n -= 32;
     return n;
   }();
   return max_n;
@@ -432,20 +429,14 @@ unsigned long long soft_nms_kernels_launched() { return kernels_launched; }
 
 // boxes: (batch, n, 4) f32; scores: (batch, n) f32; valid: (batch, n)
 // uint8; mask: scratch, see soft_nms_mask_words; out: (batch, n) f32.
-// All contiguous, in input order (no sort). chain_warps: the warps that
-// share each image's rounds, 1 to 16, raised to what one group a lane
-// needs; prefetch: load the runner-up's mask row a round ahead. Two
-// launches.
+// All contiguous, in input order (no sort). Two launches.
 int soft_nms_launch(const void* boxes, const void* scores, const void* valid,
                     void* mask, void* out, int batch, int n, float sigma,
-                    float thresh, int linear, int chain_warps,
-                    int prefetch, void* stream) {
+                    float thresh, int linear, void* stream) {
   if (n <= 0 || batch <= 0) return static_cast<int>(cudaSuccess);
-  const int nwarps = chain_warps_for(n, chain_warps);
-  if (n > soft_nms_max_n() || chain_warps < 1 || nwarps > kMaxChainWarps)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n > soft_nms_max_n()) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = chain_smem(n, nwarps);
+  const size_t smem = chain_smem(n);
   unsigned sb;
   memcpy(&sb, &sigma, sizeof sb);
   const unsigned exp_bits = (sb >> 23) & 0xff;
@@ -466,7 +457,7 @@ int soft_nms_launch(const void* boxes, const void* scores, const void* valid,
   soft_chain_kernel<<<batch, kThreads, smem, s>>>(
       static_cast<const float4*>(boxes), static_cast<const float*>(scores),
       static_cast<const uint8_t*>(valid), static_cast<const u64*>(mask), n,
-      rule, nwarps, prefetch, static_cast<float*>(out));
+      rule, static_cast<float*>(out));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ++kernels_launched;

@@ -38,10 +38,6 @@ from .. import _build
 from .boxes import pairwise_iou
 
 ALIGN = 256  # pad N like nms_mask_pallas does
-# csrc/soft_nms.cu's chain: the warps that share each image's rounds, and
-# whether a round loads the mask row of the likely next winner ahead
-SOFT_NMS_CHAIN_WARPS = 12
-SOFT_NMS_PREFETCH = True
 
 
 def _iou_rows(boxes: torch.Tensor) -> torch.Tensor:
@@ -261,7 +257,7 @@ def soft_nms_scores_fused(boxes: torch.Tensor, scores: torch.Tensor,
     valid_c = valid.to(boxes_c.device, torch.uint8).contiguous()
     out = torch.empty((b, n), dtype=torch.float32, device=boxes_c.device)
     # the overlap bitmask: bit t of word w in row i says that the decay
-    # between boxes i and 64w + t is not exactly 1
+    # between boxes i and 64w + t may differ from exactly 1
     mask = torch.empty((b, n, lib.soft_nms_mask_words(n)), dtype=torch.int64,
                        device=boxes_c.device)
     if b and n:
@@ -269,8 +265,7 @@ def soft_nms_scores_fused(boxes: torch.Tensor, scores: torch.Tensor,
             *(ctypes.c_void_p(t.data_ptr())
               for t in (boxes_c, scores_c, valid_c, mask, out)), b, n,
             ctypes.c_float(sigma), ctypes.c_float(iou_threshold),
-            int(method == "linear"), SOFT_NMS_CHAIN_WARPS,
-            int(SOFT_NMS_PREFETCH), _build.stream_ptr(boxes_c))
+            int(method == "linear"), _build.stream_ptr(boxes_c))
         if code:
             raise RuntimeError("soft_nms launch failed: "
                                + lib.soft_nms_error_string(code).decode())
@@ -293,7 +288,7 @@ def _soft_lib():
     if not getattr(lib, "_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.soft_nms_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, cf, cf,
-                                        ci, ci, ci, vp]
+                                        ci, vp]
         lib.soft_nms_launch.restype = ci
         lib.soft_nms_max_n.restype = ci
         lib.soft_nms_mask_words.argtypes = [ci]

@@ -153,25 +153,6 @@ def test_soft_nms_kernel_matches_plain(cuda, method, case):
     assert (got[~valid] == 0).all()
 
 
-# fewer chain warps than an image's groups need are raised to enough
-@pytest.mark.parametrize("chain_warps,prefetch", [
-    (1, True), (3, True), (6, True), (8, True), (13, True), (16, True),
-    (8, False)])
-@pytest.mark.parametrize("case", ["ties", "ragged_valid"])
-def test_soft_nms_kernel_bit_equal_at_any_lever(cuda, case, chain_warps,
-                                                prefetch, monkeypatch):
-    boxes, scores, valid = (torch.from_numpy(a).to(cuda) for a in
-                            testing.soft_nms_case(case,
-                                                  np.random.default_rng(3)))
-    monkeypatch.setattr(nms, "SOFT_NMS_CHAIN_WARPS", chain_warps)
-    monkeypatch.setattr(nms, "SOFT_NMS_PREFETCH", prefetch)
-    for method in ("gaussian", "linear"):
-        got = nms.soft_nms_scores_fused(boxes, scores, valid, 0.5, 0.5,
-                                        method)
-        want = nms.soft_nms_scores(boxes, scores, valid, 0.5, 0.5, method)
-        assert torch.equal(got, want)
-
-
 # a power-of-two sigma divides by multiplying with its exact reciprocal,
 # any other by the division itself: both must round as torch does
 @pytest.mark.parametrize("sigma", [0.5, 2.0, 0.3, 0.7])
