@@ -13,8 +13,11 @@ fused kNN (K2) at the serving shape and over Q in {1, 17, 32, 67}, A in
 misaligned query tensor it must refuse; and fused maxpool -> int8 conv
 (K4) at the three VGG block-boundary sites of
 scripts/profile_fused_pool.py (B=128), which is also the path K4
-serves. Then it serves at full width, on 4 synthetic planogram scenes
-of 832x1344:
+serves, with 1 kernel a call, beside torch._int_mm on the same im2col
+product, and bit for bit on its own (pooled values at exact rounding
+ties, saturation, all-negative inputs, B = 1, ragged pooled sizes, Cin
+64 / 128 / 256; int32, f32 and bf16 out, with and without ReLU). Then
+it serves at full width, on 4 synthetic planogram scenes of 832x1344:
 
 - serve (f32): GLN (seeded random weights, head calibrated to the
   scenes' product density) -> hard-NMS kernel -> crops -> MACVGG ->
@@ -504,15 +507,6 @@ def fused_pool_path(sites):
             for args in sites]
 
 
-def bf16_ulp(v):
-    """The spacing of bf16 numbers at |v| (f32 tensor of bf16 values):
-    2**(floor(log2|v|) - 7), and the subnormal step 2**-133 at 0 and
-    below the normal range."""
-    exp = torch.frexp(v).exponent  # v = m * 2**exp with 0.5 <= |m| < 1
-    ulp = torch.ldexp(torch.ones_like(v), exp - 8)
-    return torch.where(v == 0, 2.0 ** -133, ulp.clamp_min(2.0 ** -133))
-
-
 def pool_cost(x, cout):
     b, h, w, cin = x.shape
     p, q = h // 2, w // 2
@@ -521,31 +515,62 @@ def pool_cost(x, cout):
     return nbytes, 2.0 * 9 * cin * cout * b * p * q
 
 
+def pool_against_plain(args, out_dtype, fuse_relu, label):
+    """K4 and its plain version on the same inputs, required equal (int32
+    accumulators bit for bit; the f32 and bf16 epilogues round as the
+    plain version does), with 1 kernel a call by csrc/pool_int8_conv.cu's
+    own count. Returns the kernel's output."""
+    before = conv_fused.kernels_launched()
+    got = conv_fused.fused_pool_int8_conv(*args, fuse_relu, out_dtype)
+    kernels = conv_fused.kernels_launched() - before
+    want = conv_fused.pool_int8_conv_plain(*args, fuse_relu, out_dtype)
+    torch.cuda.synchronize()
+    require(kernels == 1, f"K4 launched {kernels} kernels in one call "
+                          f"({label})")
+    mismatches = int((got != want).sum())
+    require(mismatches == 0, f"K4 differs from plain in {mismatches} "
+                             f"outputs ({label}, {out_dtype}, relu "
+                             f"{fuse_relu})")
+    return got
+
+
+def int_mm_ms(timer, args):
+    """torch._int_mm alone on the site's im2col product (M = B * P * Q
+    patch rows, K = 9 Cin, N = Cout): the library's int8 tensor-core time
+    for the same multiply-accumulate."""
+    x, kq, a_scale, _, _ = args
+    a = conv_fused._scale_tensor(a_scale, x.device)
+    pooled = torch.nn.functional.max_pool2d(
+        x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+    rows = conv_fused.im2col_nhwc(conv_fused.quantize(pooled, a), 3, 3, 1,
+                                  1).contiguous()
+    del pooled
+    cin, cout = kq.shape[2], kq.shape[3]
+    mat = kq.reshape(9 * cin, cout).t().contiguous().t()
+    ms = timer.ms(lambda: torch._int_mm(rows, mat), iters=10)
+    del rows
+    torch.cuda.empty_cache()
+    return ms
+
+
 def check_pool(timer, name, args, out):
     """K4 against its plain version at one site: int32 accumulators bit
-    for bit, the bf16 output within 1 bf16 ulp; times the kernel, the
-    plain version and the library composition."""
+    for bit and the bf16 output equal, 1 kernel a call; times the kernel,
+    the plain version (= the library composition) and torch._int_mm on
+    the same product, and the kernel's int8 operations a second."""
     t0 = time.perf_counter()
     x, kq, a_scale, scale, bias = args
-    acc_k = conv_fused.fused_pool_int8_conv(x, kq, a_scale, scale, bias,
-                                            out_dtype=torch.int32)
-    acc_p = conv_fused.pool_int8_conv_plain(x, kq, a_scale, scale, bias,
-                                            out_dtype=torch.int32)
-    acc_mismatches = int((acc_k != acc_p).sum())
-    del acc_k, acc_p
+    pool_against_plain(args, torch.int32, False, name)
     want = conv_fused.pool_int8_conv_plain(*args, fuse_relu=True).float()
     got = out.float()
     torch.cuda.synchronize()
     err = (got - want).abs()
-    beyond_ulp = int((err > bf16_ulp(want)).sum())
-    require(acc_mismatches == 0, f"{name}: {acc_mismatches} int32 "
-                                 f"accumulators differ from plain")
-    require(beyond_ulp == 0, f"{name}: {beyond_ulp} outputs beyond 1 bf16 "
-                             f"ulp of plain")
+    mismatches = int((got != want).sum())
+    require(mismatches == 0, f"{name}: {mismatches} bf16 outputs differ "
+                             f"from plain")
     row = {"name": "pool_int8_conv", "site": name, "shape": list(x.shape),
-           "cout": kq.shape[3], "acc_mismatches": acc_mismatches,
-           "beyond_1ulp": beyond_ulp,
-           "equal_fraction": float((got == want).float().mean()),
+           "cout": kq.shape[3], "acc_mismatches": 0,
+           "bf16_mismatches": mismatches, "kernels_per_call": 1,
            "max_abs_err": float(err.max())}
     del got, want, err
     row["ms"] = timer.ms(lambda: conv_fused.fused_pool_int8_conv(
@@ -555,14 +580,39 @@ def check_pool(timer, name, args, out):
     # no single torch call pools and convolves in int8: the yardstick is
     # the library composition max_pool2d + quantize + im2col +
     # torch._int_mm + dequant, which is the plain version itself, so its
-    # one timing stands for both
+    # one timing stands for both; int_mm_ms is its product alone
     row["library_ms"] = row["plain_ms"]
     row["library"] = "composition (= plain version)"
+    row["int_mm_ms"] = int_mm_ms(timer, args)
     nbytes, ops = pool_cost(x, kq.shape[3])
     row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, PEAK_INT8_OPS)
+    row["tops"] = ops / (row["ms"] * 1e-3) / 1e12
+    row["bound_fraction"] = row["bound_ms"] / row["ms"]
     row["seconds"] = time.perf_counter() - t0
     emit({"phase": f"kernels.pool_int8_conv.{name}", **row})
     return row
+
+
+def phase_pool_edges(rng):
+    """K4 equal to its plain version on the adversarial inputs of
+    cvpce_tpu_torch.testing (which tests/test_torch_cuda.py holds it to as
+    well): every output type, with and without the ReLU."""
+    t0 = time.perf_counter()
+    rows = {}
+    for label in testing.POOL_EDGE_CASES:
+        x, kq, a_scale, scale, bias = testing.pool_case(label, rng)
+        args = (torch.from_numpy(x).cuda().to(torch.bfloat16),
+                torch.from_numpy(kq).cuda(), a_scale,
+                torch.from_numpy(scale).cuda(), torch.from_numpy(bias).cuda())
+        for out_dtype, relu in ((torch.int32, False), (torch.float32, False),
+                                (torch.float32, True),
+                                (torch.bfloat16, False),
+                                (torch.bfloat16, True)):
+            pool_against_plain(args, out_dtype, relu, label)
+        rows[label] = {"shape": list(x.shape), "cout": kq.shape[3],
+                       "kernels_per_call": 1}
+    emit({"phase": "kernels.pool_int8_conv.edges", "equal": True,
+          "cases": rows, "seconds": time.perf_counter() - t0})
 
 
 def phase_kernels(timer, rng):
@@ -585,6 +635,7 @@ def phase_kernels(timer, rng):
     phase_nms_edges(np.random.default_rng(41))
     phase_soft_edges(np.random.default_rng(47))
     phase_knn_edges(torch.Generator(device="cuda").manual_seed(43))
+    phase_pool_edges(np.random.default_rng(53))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
 
 
@@ -596,18 +647,23 @@ def phase_fused_pool(timer, rng):
     sites = [pool_site_inputs(rng, hw, cin, cout)
              for _, hw, cin, cout in POOL_SITES]
     conv_fused.fused_pool_int8_conv.launches = 0
+    kernels = conv_fused.kernels_launched()
     outs = fused_pool_path(sites)
     torch.cuda.synchronize()
     launches = conv_fused.fused_pool_int8_conv.launches
+    kernels = conv_fused.kernels_launched() - kernels
     require(launches == len(POOL_SITES),
             f"K4 launched {launches} times on its path")
+    require(kernels == len(POOL_SITES),
+            f"K4's .so launched {kernels} kernels for {launches} calls")
     path_s = time.perf_counter() - t0
     rows = [check_pool(timer, name, args, out)
             for (name, *_), args, out in zip(POOL_SITES, sites, outs)]
     del sites, outs
     torch.cuda.empty_cache()
     emit({"phase": "fused_pool", "sites": len(rows), "launches": launches,
-          "path_seconds": path_s, "seconds": time.perf_counter() - t0})
+          "kernels": kernels, "path_seconds": path_s,
+          "seconds": time.perf_counter() - t0})
     return rows, launches
 
 

@@ -2,9 +2,10 @@
 
 Module tree mirrors `cvpce_tpu/`: `models/gln.py` here is the
 counterpart of `cvpce_tpu/models/gln.py`. Plain tensor code is PyTorch;
-the two Pallas kernels on the serving path are hand-written CUDA C++
-(`csrc/nms_hard.cu`, `csrc/knn_fused.cu`) built by `_build.py` with nvcc
-into a plain-C shared library loaded through ctypes.
+the four Pallas kernels are hand-written CUDA C++ (`csrc/nms_hard.cu`,
+`csrc/knn_fused.cu`, `csrc/soft_nms.cu`, `csrc/pool_int8_conv.cu`), each
+built by `_build.py` with nvcc into a plain-C shared library loaded
+through ctypes.
 
 Imports torch, numpy and the standard library only. Entry points run on
 `cuda` unless the caller passes `device="cpu"`; there is no automatic

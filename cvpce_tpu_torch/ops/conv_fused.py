@@ -16,8 +16,10 @@ them bit for bit.
   below both use it.
 - `pool_int8_conv_plain`: the composition, torch ops on any device.
 - `fused_pool_int8_conv`: on a CUDA tensor, the kernel in
-  csrc/pool_int8_conv.cu; on a CPU tensor, the plain version. It counts
-  its kernel launches in `fused_pool_int8_conv.launches`.
+  csrc/pool_int8_conv.cu (int8 tensor cores, one launch a call); on a
+  CPU tensor, the plain version. It counts its kernel launches in
+  `fused_pool_int8_conv.launches`; `kernels_launched` reads the count
+  the .so keeps itself.
 """
 from __future__ import annotations
 
@@ -36,6 +38,26 @@ _INT_MM_MIN_ROWS = 17
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 
+def im2col_nhwc(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
+                padding: int = 0) -> torch.Tensor:
+    """(B, H, W, C) -> (B * Ho * Wo, kh * kw * C) patch rows, taps in
+    (ky, kx, c) order, zero padding `padding` on each side."""
+    b, h, w, c = x.shape
+    ho = (h + 2 * padding - kh) // stride + 1
+    wo = (w + 2 * padding - kw) // stride + 1
+    if padding:
+        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    if kh == 1 and kw == 1:
+        patches = x[:, :(ho - 1) * stride + 1:stride,
+                    :(wo - 1) * stride + 1:stride, :]
+    else:
+        patches = torch.cat(
+            [x[:, dy:dy + (ho - 1) * stride + 1:stride,
+               dx:dx + (wo - 1) * stride + 1:stride, :]
+             for dy in range(kh) for dx in range(kw)], dim=-1)
+    return patches.reshape(b * ho * wo, kh * kw * c)
+
+
 def int8_conv_nhwc(xq: torch.Tensor, kq: torch.Tensor, stride: int = 1,
                    padding: int = 0) -> torch.Tensor:
     """(B, H, W, Cin) int8 x (kh, kw, Cin, Cout) int8 -> (B, Ho, Wo,
@@ -47,17 +69,7 @@ def int8_conv_nhwc(xq: torch.Tensor, kq: torch.Tensor, stride: int = 1,
     kh, kw, _, cout = kq.shape
     ho = (h + 2 * padding - kh) // stride + 1
     wo = (w + 2 * padding - kw) // stride + 1
-    if padding:
-        xq = F.pad(xq, (0, 0, padding, padding, padding, padding))
-    if kh == 1 and kw == 1:
-        patches = xq[:, :(ho - 1) * stride + 1:stride,
-                     :(wo - 1) * stride + 1:stride, :]
-    else:
-        patches = torch.cat(
-            [xq[:, dy:dy + (ho - 1) * stride + 1:stride,
-                dx:dx + (wo - 1) * stride + 1:stride, :]
-             for dy in range(kh) for dx in range(kw)], dim=-1)
-    rows = patches.reshape(b * ho * wo, kh * kw * cin)
+    rows = im2col_nhwc(xq, kh, kw, stride, padding)
     # column-major (K, Cout): both operands contiguous along K, the
     # layout cuBLASLt's int8 product takes without a copy
     mat = kq.reshape(kh * kw * cin, cout).t().contiguous().t()
@@ -75,8 +87,11 @@ def quantize(x: torch.Tensor, a_scale: torch.Tensor) -> torch.Tensor:
 
 
 def _scale_tensor(a_scale, device) -> torch.Tensor:
-    return torch.as_tensor(a_scale, dtype=torch.float32,
-                           device=device).reshape(())
+    """a_scale as a 0-d f32 tensor on `device`; a number is filled in on
+    the device, so a call does not wait for a host-to-device copy."""
+    if isinstance(a_scale, torch.Tensor):
+        return a_scale.to(device, torch.float32).reshape(())
+    return torch.full((), float(a_scale), dtype=torch.float32, device=device)
 
 
 def pool_int8_conv_plain(x: torch.Tensor, kq: torch.Tensor,
@@ -105,8 +120,11 @@ def fused_pool_int8_conv(x: torch.Tensor, kq: torch.Tensor,
                          out_dtype: torch.dtype = torch.bfloat16
                          ) -> torch.Tensor:
     """`pool_int8_conv_plain` fused in one CUDA kernel for CUDA tensors;
-    a CPU tensor takes the plain version. x is bf16 or f32; out_dtype
-    f32, bf16 or int32; Cin and Cout multiples of 4."""
+    a CPU tensor takes the plain version. x is bf16 or f32, 16-byte
+    aligned; out_dtype f32, bf16 or int32; Cin a multiple of 32, Cout of
+    8, W / 2 at most `_lib().pool_int8_conv_max_q(Cin)` (two strips of
+    three pooled rows must fit one block's shared memory). Raises
+    ValueError on anything else."""
     if x.device.type == "cpu":
         return pool_int8_conv_plain(x, kq, a_scale, scale, bias, fuse_relu,
                                     out_dtype)
@@ -122,15 +140,21 @@ def fused_pool_int8_conv(x: torch.Tensor, kq: torch.Tensor,
     if kq.dtype != torch.int8 or tuple(kq.shape[:3]) != (3, 3, cin):
         raise ValueError("kq must be (3, 3, Cin, Cout) int8")
     cout = kq.shape[3]
-    if cin % 4 or cout % 4:
-        raise ValueError("Cin and Cout must be multiples of 4")
+    if cin % 32 or cout % 8:
+        raise ValueError("Cin must be a multiple of 32 and Cout of 8 (the "
+                         "kernel's k32 and n8 tensor-core tiles)")
+    lib = _lib()
+    if w // 2 > lib.pool_int8_conv_max_q(cin):
+        raise ValueError(f"W / 2 = {w // 2} exceeds the "
+                         f"{lib.pool_int8_conv_max_q(cin)} pooled columns "
+                         f"whose rows fit shared memory at Cin = {cin}")
     dev = x.device
     xc = x.contiguous()
-    # (3, 3, Cin, Cout) -> (9, Cin/4, Cout, 4): the 4 input channels of
-    # one dp4a word lie together, and a thread's 4 output channels are
-    # 16 consecutive bytes
-    kw = kq.to(dev).reshape(9, cin // 4, 4, cout).permute(0, 1, 3, 2) \
-        .contiguous()
+    if xc.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+    # (3, 3, Cin, Cout) -> (Cout, 9 Cin), K-major: the col operand of the
+    # kernel's int8 mma, a channel's K bytes contiguous
+    kw = kq.to(dev).reshape(9 * cin, cout).t().contiguous()
     a = _scale_tensor(a_scale, dev)
     sc = scale.to(dev, torch.float32).contiguous()
     bi = bias.to(dev, torch.float32).contiguous()
@@ -139,7 +163,6 @@ def fused_pool_int8_conv(x: torch.Tensor, kq: torch.Tensor,
     out = torch.empty((b, h // 2, w // 2, cout), dtype=out_dtype,
                       device=dev)
     if out.numel():
-        lib = _lib()
         code = lib.pool_int8_conv_launch(
             *(ctypes.c_void_p(t.data_ptr()) for t in (xc, kw, a, sc, bi,
                                                       out)),
@@ -156,6 +179,12 @@ def fused_pool_int8_conv(x: torch.Tensor, kq: torch.Tensor,
 fused_pool_int8_conv.launches = 0
 
 
+def kernels_launched() -> int:
+    """Kernels csrc/pool_int8_conv.cu has launched in this process: the
+    difference across a call is that call's launches."""
+    return _lib().pool_int8_conv_kernels_launched()
+
+
 def _lib():
     lib = _build.load("pool_int8_conv")
     if not getattr(lib, "_typed", False):
@@ -163,6 +192,9 @@ def _lib():
         lib.pool_int8_conv_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.pool_int8_conv_launch.restype = ci
+        lib.pool_int8_conv_max_q.argtypes = [ci]
+        lib.pool_int8_conv_max_q.restype = ci
+        lib.pool_int8_conv_kernels_launched.restype = ctypes.c_ulonglong
         lib.pool_int8_conv_error_string.argtypes = [ci]
         lib.pool_int8_conv_error_string.restype = ctypes.c_char_p
         lib._typed = True

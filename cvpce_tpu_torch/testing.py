@@ -1,7 +1,7 @@
 """Adversarial inputs for the port's kernels: the one source of the edge
 cases that `tests/test_torch_cuda.py` (under pytest) and `chip_smoke.py`
-(in the smoke run on the card) both hold K1, K2 and K3 to their plain
-versions on. Numpy only; the callers move the arrays to the card."""
+(in the smoke run on the card) both hold K1, K2, K3 and K4 to their
+plain versions on. Numpy only; the callers move the arrays to the card."""
 from __future__ import annotations
 
 import numpy as np
@@ -24,6 +24,21 @@ KNN_KS = (1, 5, 8)
 # a gallery of KNN_DUP_COPIES copies of KNN_DUP_ROWS rows: every
 # distance ties that many ways, and the lowest copy must win
 KNN_DUP_ROWS, KNN_DUP_COPIES = 2048, 4
+# K4, called through fused_pool_int8_conv, (B, H, W, Cin, Cout) of each:
+# pooled values exactly halfway between two int8 steps (round half to
+# even), values beyond +-127.5 steps (saturation), all-negative inputs,
+# B = 1, pooled sizes that fill no 128-pixel tile (9 x 11, 17 x 19), and
+# Cin 64, 128 and 256, the last with a Cout that ends inside a 128-channel
+# tile. "ties", "saturate" and "negative" keep 9 * Cin * 127^2 below 2^24,
+# so f32 holds their accumulators exactly.
+POOL_CASE_SHAPES = {"ties": (2, 16, 20, 64, 64),
+                    "saturate": (2, 16, 20, 64, 64),
+                    "negative": (2, 16, 20, 64, 32),
+                    "b1": (1, 32, 32, 128, 128),
+                    "ragged_18x22": (2, 18, 22, 64, 128),
+                    "ragged_34x38": (2, 34, 38, 128, 256),
+                    "cin256": (2, 24, 28, 256, 136)}
+POOL_EDGE_CASES = tuple(POOL_CASE_SHAPES)
 
 
 def random_boxes(rng: np.random.Generator, b: int, n: int) -> np.ndarray:
@@ -139,3 +154,36 @@ def soft_nms_case(case: str, rng: np.random.Generator, n: int = None):
         valid = np.arange(boxes.shape[1])[None, :] < walk[:, None]
         return boxes, _soft_scores(rng, *valid.shape), valid
     raise ValueError(f"unknown Soft-NMS edge case {case!r}")
+
+
+def bf16_round(x: np.ndarray) -> np.ndarray:
+    """f32 values rounded to the nearest bf16 (ties to even), as f32."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def pool_case(case: str, rng: np.random.Generator):
+    """(x (B, H, W, Cin) f32 of bf16 values, kq (3, 3, Cin, Cout) int8,
+    a_scale, scale (Cout,) f32, bias (Cout,) f32) for one of
+    POOL_EDGE_CASES."""
+    if case not in POOL_CASE_SHAPES:
+        raise ValueError(f"unknown pool edge case {case!r}")
+    b, h, w, cin, cout = POOL_CASE_SHAPES[case]
+    a_scale = 3.0 / 127.0
+    if case == "ties":
+        # every input, so every pooled value, is (k + 1/2) a_scale with a
+        # power-of-two a_scale: x / a_scale is exactly k + 1/2, and
+        # |k + 1/2| <= 127.5 has 8 significant bits, exact in bf16
+        a_scale = 1.0 / 16.0
+        x = (rng.integers(-128, 128, (b, h, w, cin)) + 0.5) * a_scale
+    elif case == "saturate":
+        x = rng.uniform(-400, 400, (b, h, w, cin)) * a_scale
+    elif case == "negative":
+        x = -rng.uniform(1e-3, 3, (b, h, w, cin))
+    else:
+        x = rng.uniform(-3, 3, (b, h, w, cin))
+    kq = rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)
+    scale = rng.uniform(1e-5, 1e-4, cout).astype(np.float32)
+    bias = rng.normal(0, 0.1, cout).astype(np.float32)
+    return bf16_round(x.astype(np.float32)), kq, a_scale, scale, bias

@@ -213,3 +213,52 @@ def test_pool_int8_conv_kernel_matches_plain(cuda, cin, cout, hw, fuse_relu,
     assert got.dtype == out_dtype and got.shape == want.shape
     # same epilogue rounding (multiply, then add, then the cast)
     assert torch.equal(got, want)
+
+
+# every K4 edge case of cvpce_tpu_torch.testing, each output type, bit for
+# bit: the accumulators are exact int32 sums, and the epilogue rounds as
+# the plain version does
+@pytest.mark.parametrize("case", testing.POOL_EDGE_CASES)
+def test_pool_int8_conv_kernel_bit_equal_on_edge_cases(cuda, case):
+    x, kq, a_scale, scale, bias = testing.pool_case(
+        case, np.random.default_rng(17))
+    x = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    kq, scale, bias = (torch.from_numpy(a).to(cuda) for a in (kq, scale,
+                                                             bias))
+    for out_dtype, relu in ((torch.int32, False), (torch.float32, False),
+                            (torch.float32, True), (torch.bfloat16, False),
+                            (torch.bfloat16, True)):
+        kernels = conv_fused.kernels_launched()
+        got = conv_fused.fused_pool_int8_conv(x, kq, a_scale, scale, bias,
+                                              relu, out_dtype)
+        assert conv_fused.kernels_launched() - kernels == 1
+        want = conv_fused.pool_int8_conv_plain(x, kq, a_scale, scale, bias,
+                                               relu, out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == want.shape
+        assert torch.equal(got, want), (out_dtype, relu)
+
+
+def test_pool_int8_conv_wrapper_refuses_what_the_tiles_cannot_take(cuda):
+    def call(b=1, h=8, w=8, cin=64, cout=64, x=None):
+        if x is None:
+            x = torch.zeros((b, h, w, cin), dtype=torch.bfloat16,
+                            device=cuda)
+        kq = torch.zeros((3, 3, cin, cout), dtype=torch.int8, device=cuda)
+        return conv_fused.fused_pool_int8_conv(
+            x, kq, 0.1, torch.ones(cout, device=cuda),
+            torch.zeros(cout, device=cuda))
+
+    with pytest.raises(ValueError, match="multiple of 32"):
+        call(cin=48)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        call(cout=12)
+    with pytest.raises(ValueError, match="even"):
+        call(h=7)
+    wide = 2 * (conv_fused._lib().pool_int8_conv_max_q(256) + 1)
+    with pytest.raises(ValueError, match="exceeds"):
+        call(h=2, w=wide, cin=256)
+    flat = torch.zeros(8 * 8 * 64 + 4, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        call(x=flat[4:].view(1, 8, 8, 64))
+    assert call().shape == (1, 4, 4, 64)

@@ -17,6 +17,7 @@ from cvpce_tpu.models.gln import fold_gln_backbone as j_fold_gln
 from cvpce_tpu.models.resnet import ResNet50 as JResNet50
 from cvpce_tpu.models.resnet import fold_frozen_bn as j_fold_fbn
 from cvpce_tpu.ops.conv_pallas import fused_pool_int8_conv as j_fused
+from cvpce_tpu_torch import testing
 from cvpce_tpu_torch.models.gln import GLN, GLNConfig, fold_gln_backbone
 from cvpce_tpu_torch.models.quant import (Int8Conv, act_scale_tree,
                                           calibrate_act_scales)
@@ -207,6 +208,35 @@ def test_pool_int8_conv_plain_matches_pallas(cin, cout, hw):
     got = got.float().numpy()
     assert np.all(np.abs(got - want) <= bf16_ulp(want))
     assert (got == want).mean() > 0.999
+
+
+# the K4 edge cases of cvpce_tpu_torch/testing.py where rounding could
+# differ: pooled values exactly halfway between two int8 steps, values
+# that saturate at +-127, all-negative inputs (Cin = 64: the accumulators
+# stay below 2^24, so the Pallas kernel's f32 output holds them exactly)
+@pytest.mark.parametrize("case", ["ties", "saturate", "negative"])
+def test_pool_int8_conv_plain_matches_pallas_on_edge_cases(case):
+    x, kq, a_scale, _, _ = testing.pool_case(case, np.random.default_rng(5))
+    b, h, w, cin = x.shape
+    cout = kq.shape[3]
+    pooled = x.reshape(b, h // 2, 2, w // 2, 2, cin).max((2, 4)) \
+        / np.float32(a_scale)
+    if case == "ties":
+        assert np.all(pooled % 1 == 0.5)
+    elif case == "saturate":
+        assert (np.abs(pooled) > 127.5).mean() > 0.5
+    else:
+        assert (pooled < 0).all()
+    want_acc = np.asarray(j_fused(
+        jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(kq),
+        np.float32(a_scale), jnp.ones(cout), jnp.zeros(cout),
+        fuse_relu=False, out_dtype=jnp.float32, interpret=True))
+    got_acc = pool_int8_conv_plain(
+        torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(kq),
+        a_scale, torch.ones(cout), torch.zeros(cout), out_dtype=torch.int32)
+    assert got_acc.dtype == torch.int32
+    np.testing.assert_array_equal(got_acc.numpy().astype(np.int64),
+                                  want_acc.astype(np.int64))
 
 
 def test_pool_int8_conv_flags():
