@@ -29,7 +29,16 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   (scales calibrated on the scenes) and its backbone folded, an int8_all
   static bf16 MACVGG on folded BN calibrated on a 4096-entry gallery,
   the index saved with its scales and loaded back -- then the same
-  scenes, and the detector alone on a batch of 8 photos.
+  scenes, and the detector alone on a batch of 8 photos;
+- eval, on the serve phase's f32 detector and 8192-entry gallery:
+  eval.calibrate (calibrate_confidence on 8 PlanogramSceneDetectionSet
+  scenes, saved and read back through the resolvers), eval.proposals
+  (evaluate_gln at IoU 0.5:0.95, its metrics held against the matcher on
+  the CPU), eval.detection (evaluate_detections on 4 PlanogramQuerySet
+  scenes, held against the plain kNN), eval.dihe (eval_dihe, k = 1 and
+  5, through the saved index) and eval.planograms (evaluate_planograms
+  on the serve scenes under a 0.5 domain shift, with and without colour
+  correction, the native graph matcher held against the Python one).
 
 Prints one JSON line per phase with its elapsed seconds, then the
 `{"kernels": [...]}` line, the card's name and power limit as nvidia-smi
@@ -56,11 +65,23 @@ import torch
 from cvpce_tpu_torch import _build, testing
 from cvpce_tpu_torch.data import synthetic
 from cvpce_tpu_torch.data import transforms as T
+from cvpce_tpu_torch.eval import (eval_dihe, evaluate_detections,
+                                  evaluate_gln, evaluate_planograms,
+                                  mean_average_metrics)
+from cvpce_tpu_torch.eval.proposals import make_variables_inference_fn
 from cvpce_tpu_torch.models.embedders import EmbedFn, MACVGG, fold_bn_variables
 from cvpce_tpu_torch.models.gln import GLN, GLNConfig, fold_gln_backbone
 from cvpce_tpu_torch.ops import conv_fused
 from cvpce_tpu_torch.ops import knn as knn_ops
 from cvpce_tpu_torch.ops import nms as nms_ops
+from cvpce_tpu_torch.ops.metrics import calculate_metrics
+from cvpce_tpu_torch.pipeline import native
+from cvpce_tpu_torch.pipeline.calibrate import (calibrate_confidence,
+                                                calibration_dir_for_weights,
+                                                load_calibration,
+                                                resolve_input_norm,
+                                                resolve_threshold,
+                                                save_calibration)
 from cvpce_tpu_torch.pipeline.classifier import Classifier
 from cvpce_tpu_torch.pipeline.evaluator import (PlanogramComparator,
                                                 PlanogramEvaluator)
@@ -83,6 +104,11 @@ INT8_GALLERY_SIZE = 4096  # still >= 4096, so K2 serves it
 N_STYLES = 16
 N_SCENES = 4
 DETECT_BATCH = 8  # bench.py's detector batch
+EVAL_IMAGES = 8  # PlanogramSceneDetectionSet scenes calibrated and scored
+EVAL_BATCH = 4
+COCO_THRESHOLDS = tuple(float(t) for t in
+                        np.round(np.arange(0.5, 1.0, 0.05), 2))
+METRIC_KEYS = ("ap", "ar_300", "f", "p", "r", "c")
 # scripts/profile_fused_pool.py: (site, H = W, Cin, Cout), B = 128
 POOL_SITES = (("pool1_conv2_1", 256, 64, 128),
               ("pool2_conv3_1", 128, 128, 256),
@@ -1009,6 +1035,157 @@ def phase_serve_int8(ctx, seed):
           "seconds": time.perf_counter() - t0})
 
 
+# ------------------------------------------------------------------- eval
+
+class QueryTestSet:
+    """PlanogramQuerySet scenes, rendered once, with the ann_to_int /
+    int_to_ann lookups of evaluate_detections over the styles."""
+
+    def __init__(self, styles, n: int, seed: int, config):
+        base = synthetic.PlanogramQuerySet(styles, n=n,
+                                           canvas_h=config.canvas_h,
+                                           canvas_w=config.canvas_w,
+                                           seed=10_000 + seed)
+        self.items = [base[i] for i in range(n)]
+        self.int_to_ann = [s["label"] for s in styles]
+        self.ann_to_int = {a: i for i, a in enumerate(self.int_to_ann)}
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def _reset_launches():
+    nms_ops.nms_keep_sorted.launches = 0
+    knn_ops.nearest_neighbors_fused.launches = 0
+
+
+def _launches():
+    return {"nms_hard": nms_ops.nms_keep_sorted.launches,
+            "knn_fused": knn_ops.nearest_neighbors_fused.launches}
+
+
+def phase_eval(ctx, seed):
+    """The evaluation and calibration path on the serve phase's f32
+    detector (calibrated head) and 8192-entry gallery, at 832x1344."""
+    pg, clf = ctx["pg"], ctx["clf"]
+    config, state = pg.config, pg.model.state_dict()
+    infer = make_variables_inference_fn(config, device="cuda")
+
+    t0 = time.perf_counter()
+    calset = synthetic.PlanogramSceneDetectionSet(
+        EVAL_IMAGES, config.canvas_h, config.canvas_w, seed=seed)
+    _reset_launches()
+    cal = calibrate_confidence(state, config, calset, batch_size=EVAL_BATCH,
+                               infer_fn=infer, input_norm="raw01",
+                               device="cuda")
+    launches = _launches()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    save_calibration(str(BUILD), cal)
+    cal_dir = calibration_dir_for_weights(str(BUILD))
+    back = {"threshold": resolve_threshold("auto", cal_dir),
+            "input_norm": resolve_input_norm(cal_dir)}
+    require(load_calibration(cal_dir) == cal
+            and back == {k: cal[k] for k in back},
+            f"calibration read back as {back}, written {cal}")
+    require(launches["nms_hard"] > 0, "nms_hard not launched calibrating")
+    emit({"phase": "eval.calibrate", **cal, "read_back": back,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    res, (targets, preds, confs) = evaluate_gln(
+        state, calset, config, thresholds=COCO_THRESHOLDS,
+        batch_size=EVAL_BATCH, return_detections=True, infer_fn=infer,
+        device="cuda")
+    launches = _launches()
+    require(launches["nms_hard"] > 0, "nms_hard not launched in evaluate_gln")
+    cpu = calculate_metrics(targets, preds, confs, COCO_THRESHOLDS,
+                            device="cpu")
+    for t in COCO_THRESHOLDS:
+        for key in METRIC_KEYS:
+            require(res[t][key] == cpu[t][key],
+                    f"evaluate_gln {key}@{t}: {res[t][key]} on the card, "
+                    f"{cpu[t][key]} with the matcher on the CPU")
+    emit({"phase": "eval.proposals", "images": len(calset),
+          "detections": int(sum(len(c) for c in confs)),
+          "targets": int(sum(len(t) for t in targets)),
+          **{f"{key}@{t}": res[t][key] for t in (0.5, 0.75)
+             for key in ("ap", "ar_300", "f")},
+          "launches": launches, "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    testset = QueryTestSet(ctx["styles"], N_SCENES, seed, config)
+    _reset_launches()
+    per_class, overall = evaluate_detections(pg, clf, testset, (0.5,),
+                                             verbose=False)
+    launches = _launches()
+    mean = mean_average_metrics(per_class, (0.5,))
+    clf._use_fused = False
+    per_class_p, overall_p = evaluate_detections(pg, clf, testset, (0.5,),
+                                                 verbose=False)
+    clf._use_fused = True
+    mean_p = mean_average_metrics(per_class_p, (0.5,))
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched in evaluate_detections")
+    require(overall == overall_p and mean == mean_p,
+            f"evaluate_detections with K2 {overall} {mean}, with the plain "
+            f"kNN {overall_p} {mean_p}")
+    emit({"phase": "eval.detection", "scenes": len(testset),
+          "overall": overall[0.5], "mean": mean[0.5],
+          "launches": launches, "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    index = str(BUILD / "f32_index.npz")
+    clf.save_index(index)
+    _reset_launches()
+    acc = eval_dihe(clf.encoder_fn, clf.embedding_size, None, testset,
+                    k=(1, 5), load_index=index, verbose=False, device="cuda")
+    launches = _launches()
+    require(launches["knn_fused"] > 0, "knn_fused not launched in eval_dihe")
+    require(sorted(acc) == [1, 5] and 0.0 <= acc[1] <= acc[5] <= 1.0,
+            f"eval_dihe accuracy {acc}")
+    emit({"phase": "eval.dihe", "scenes": len(testset),
+          "crops": int(sum(len(it[1]) for it in testset.items)),
+          "accuracy": acc, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    planoset = []
+    for i, (img, plano, _actual, expected) in enumerate(ctx["scenes"]):
+        shifted = synthetic.apply_domain_shift(
+            img, np.random.default_rng((seed, 41, i)), 0.5)
+        planoset.append((shifted, {"boxes": plano["boxes"],
+                                   "labels": plano["labels"],
+                                   "actual_accuracy": expected}))
+    rows = {}
+    for color_correct in (False, True):
+        native.CALLS.update(build_graph=0, large_common_subgraph=0)
+        _reset_launches()
+        got = evaluate_planograms(PlanogramEvaluator(
+            pg, clf, PlanogramComparator(device="cuda"),
+            color_correct=color_correct), planoset, verbose=False)
+        launches = _launches()
+        calls = dict(native.CALLS)
+        require(calls["large_common_subgraph"] > 0,
+                "the native graph matcher was not used")
+        plain = evaluate_planograms(PlanogramEvaluator(
+            pg, clf, PlanogramComparator(use_native=False, device="cuda"),
+            color_correct=color_correct), planoset, verbose=False)
+        require(got["per_image"] == plain["per_image"],
+                f"compliance {got['per_image']} with the native matcher, "
+                f"{plain['per_image']} with the Python one")
+        require(all(0.0 <= v <= 1.0 for v in got["per_image"]),
+                f"compliance outside [0, 1]: {got['per_image']}")
+        rows["color_correct" if color_correct else "raw"] = dict(
+            got, native_calls=calls, launches=launches)
+    emit({"phase": "eval.planograms", "scenes": len(planoset),
+          "domain_shift": 0.5, **rows,
+          "seconds": time.perf_counter() - t0})
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1050,6 +1227,7 @@ def main(argv=None) -> int:
     launches, nms_serve, knn_serve, ctx = phase_serve(timer, args.seed)
     soft_launches, soft_serve = phase_serve_soft(timer, ctx)
     phase_serve_int8(ctx, args.seed)
+    phase_eval(ctx, args.seed)
     pool_row = dict(pool_rows[0])
     pool_row["max_abs_err"] = max(r["max_abs_err"] for r in pool_rows)
     rows = {"nms_hard": dict(nms_serve, launches=launches["nms_hard"]),

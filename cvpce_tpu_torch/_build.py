@@ -1,11 +1,14 @@
-"""Build the CUDA kernels in `csrc/` with nvcc and load them with ctypes.
+"""Build the CUDA kernels in `csrc/` with nvcc, and the host C++ in
+`csrc/` with g++, and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes). Libraries go into `build/cvpce_tpu_torch/` at the repository
-root (listed in .gitignore; `CVPCE_TORCH_BUILD_DIR` overrides it), named
-by a hash of the source and the flags, so a library is rebuilt only when
-either changes. Pointers and the stream pass as `ctypes.c_void_p`; every
+minutes); each `csrc/<name>.cpp` (the native graph matcher) compiles
+with the host compiler, `g++ -O3 -shared -fPIC -std=c++17`. Libraries
+go into `build/cvpce_tpu_torch/` at the repository root (listed in
+.gitignore; `CVPCE_TORCH_BUILD_DIR` overrides it), named by a hash of
+the source and the flags, so a library is rebuilt only when either
+changes. Pointers and the stream pass as `ctypes.c_void_p`; every
 C launch entry point returns `cudaGetLastError()`, and the op modules
 raise on a non-zero code with the library's `*_error_string`.
 
@@ -28,6 +31,7 @@ KERNELS = ("nms_hard", "knn_fused", "soft_nms", "pool_int8_conv")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 # per-source extra flags: the NMS IoUs and Soft-NMS decays must round
 # exactly as the plain torch versions do, so no multiply-add contraction
 EXTRA_FLAGS: Dict[str, List[str]] = {"nms_hard": ["-fmad=false"],
@@ -56,12 +60,31 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin)")
 
 
+def gxx_path() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found on PATH")
+
+
+def _source(name: str) -> Path:
+    """`csrc/<name>.cu` for a kernel, else `csrc/<name>.cpp`."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
 def _flags(name: str) -> List[str]:
+    if _source(name).suffix == ".cpp":
+        return HOST_FLAGS
     return ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS.get(name, [])
 
 
+def _compiler(name: str) -> str:
+    return gxx_path() if _source(name).suffix == ".cpp" else nvcc_path()
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source(name).read_bytes()
     digest = hashlib.sha256(
         src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}_{digest}.so"
@@ -74,14 +97,14 @@ def _build(name: str) -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    cmd = [_compiler(name), *_flags(name), "-o", str(tmp),
+           str(_source(name))]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} "
+        raise RuntimeError(f"{Path(cmd[0]).name} failed for {name} "
                            f"(rc {proc.returncode}):\n{log}")
     os.replace(tmp, out)
     BUILD_INFO[name] = {"seconds": seconds, "log": log}
@@ -97,7 +120,8 @@ def build_all() -> Dict[str, Dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel `name`, built on first use."""
+    """The loaded library for `name` (a kernel, or `graph_match`),
+    built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(_build(name)))

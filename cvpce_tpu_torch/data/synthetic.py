@@ -1,14 +1,153 @@
-"""Deterministic synthetic planogram scenes and product gallery renders.
+"""Deterministic synthetic shelf scenes, planogram scenes and product
+gallery renders.
 
-numpy-only copy of the parts of cvpce_tpu/data/synthetic.py that the
-serving path needs: `product_styles`, `product_gallery_image` and
-`planogram_scene` (without the photometric domain shift, which needs
-OpenCV). The same (seed, arguments) give the same arrays as the JAX
-package's functions.
+numpy copy of cvpce_tpu/data/synthetic.py: the detection sets
+(`shelf_scene`, `SyntheticShelfDataset`, `PlanogramSceneDetectionSet`),
+the planogram scenes and their photometric domain shift
+(`planogram_scene`, `apply_domain_shift`), and the DIHE gallery and
+query sets (`ArchetypeGallerySet`, `PlanogramQuerySet`). The same
+(seed, arguments) draw the same numbers in the same order and give the
+same arrays as the JAX package's functions; the defocus blur is
+`transforms.gaussian_blur` (cv2's rules, f32 rounding apart) and the
+gallery resize the port's bilinear one. The perspective warp
+(`perspective_scene`, a cv2 warp) is not ported yet: `perspective > 0`
+raises.
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import numpy as np
+
+from . import transforms as T
+
+
+def _no_perspective(perspective: float) -> None:
+    if perspective > 0:
+        raise NotImplementedError(
+            "perspective > 0 needs perspective_scene (a cv2 warp), which "
+            "is not ported yet (ROADMAP.md Queue 1)")
+
+
+def _cached_item(store: dict, i: int, render) -> Dict:
+    """Memoize a deterministic per-index detection item; box arrays are
+    returned as fresh copies."""
+    if i not in store:
+        store[i] = render()
+    item = dict(store[i])
+    item["boxes"] = item["boxes"].copy()
+    item["orig_boxes"] = item["orig_boxes"].copy()
+    return item
+
+
+def shelf_scene(h: int, w: int, rng: np.random.Generator,
+                min_shelves: int = 4, max_shelves: int = 8,
+                fill: float = 0.92) -> Tuple[np.ndarray, np.ndarray]:
+    """Render one shelf scene. Returns (image [h,w,3] float32 in [0,1],
+    boxes [n,4] float32 xyxy)."""
+    img = np.empty((h, w, 3), np.float32)
+    base = rng.uniform(0.25, 0.5)
+    grad = np.linspace(base, base + rng.uniform(-0.1, 0.1), h,
+                       dtype=np.float32)
+    img[:] = grad[:, None, None]
+    img += rng.normal(0, 0.02, (h, w, 3)).astype(np.float32)
+
+    n_shelves = int(rng.integers(min_shelves, max_shelves + 1))
+    edges = np.linspace(0, h, n_shelves + 1).astype(int)
+    boxes = []
+    for s in range(n_shelves):
+        top, bottom = edges[s], edges[s + 1]
+        shelf_h = bottom - top
+        board = max(2, shelf_h // 12)
+        img[bottom - board:bottom] = rng.uniform(0.1, 0.2)
+        x = int(rng.integers(0, max(1, w // 40)))
+        row_h = shelf_h - board
+        while x < w - 8:
+            pw = int(rng.uniform(0.02, 0.07) * w)
+            pw = max(6, min(pw, w - x - 1))
+            ph = int(rng.uniform(0.65, 0.95) * row_h)
+            ph = max(6, ph)
+            y2 = bottom - board
+            y1 = y2 - ph
+            if rng.random() < fill:
+                color = rng.uniform(0.15, 0.95, 3).astype(np.float32)
+                img[y1:y2, x:x + pw] = color
+                b = max(1, pw // 12)
+                img[y1:y1 + b, x:x + pw] *= 0.5
+                img[y2 - b:y2, x:x + pw] *= 0.5
+                img[y1:y2, x:x + b] *= 0.5
+                img[y1:y2, x + pw - b:x + pw] *= 0.5
+                if rng.random() < 0.7:
+                    band_y = y1 + int(0.3 * ph)
+                    band_h = max(1, ph // 5)
+                    img[band_y:band_y + band_h, x + b:x + pw - b] = \
+                        rng.uniform(0.1, 0.9, 3).astype(np.float32)
+                boxes.append([x, y1, x + pw, y2])
+            x += pw + int(rng.integers(1, max(2, w // 100)))
+    img = np.clip(img, 0.0, 1.0)
+    if not boxes:
+        boxes = [[0, 0, 8, 8]]
+    return img, np.asarray(boxes, np.float32)
+
+
+def _augment_scene(img: np.ndarray, boxes: np.ndarray,
+                   rng: np.random.Generator, domain_shift: float,
+                   perspective: float):
+    """Deployment-domain augmentation for detector sets: each scene
+    draws its shift strength uniformly in [0, domain_shift]."""
+    _no_perspective(perspective)
+    if domain_shift > 0:
+        img = apply_domain_shift(img, rng,
+                                 float(rng.uniform(0, domain_shift)))
+    return img, boxes
+
+
+def _detection_item(img, boxes, h: int, w: int, name: str) -> Dict:
+    return {
+        "image": img,
+        "boxes": boxes,
+        "image_size": np.array([h, w], np.int32),
+        "scale": np.float32(1.0),
+        "name": name,
+        "orig_boxes": boxes.copy(),
+        "orig_size": np.array([h, w], np.int32),
+    }
+
+
+class SyntheticShelfDataset:
+    """SKU110K-shaped items (image/boxes/image_size/scale/orig_boxes)
+    rendered directly at canvas size (scale=1), for evaluate_gln."""
+
+    def __init__(self, n: int, canvas_h: int = 832, canvas_w: int = 1344,
+                 seed: int = 0, min_shelves: int = 4, max_shelves: int = 8,
+                 domain_shift: float = 0.0, perspective: float = 0.0):
+        _no_perspective(perspective)
+        self.n = n
+        self.canvas_h = canvas_h
+        self.canvas_w = canvas_w
+        self.seed = seed
+        self.min_shelves = min_shelves
+        self.max_shelves = max_shelves
+        self.domain_shift = domain_shift
+        self.perspective = perspective
+        self._items: Dict[int, Dict] = {}
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int) -> Dict:
+        if not 0 <= i < self.n:
+            raise IndexError(i)
+        return _cached_item(self._items, i, lambda: self._render(i))
+
+    def _render(self, i: int) -> Dict:
+        rng = np.random.default_rng((self.seed, i))
+        img, boxes = shelf_scene(self.canvas_h, self.canvas_w, rng,
+                                 self.min_shelves, self.max_shelves)
+        img, boxes = _augment_scene(img, boxes, rng, self.domain_shift,
+                                    self.perspective)
+        return _detection_item(img, boxes, self.canvas_h, self.canvas_w,
+                               f"synthetic_{i}")
 
 
 def product_styles(k: int, seed: int = 0, texture: bool = False):
@@ -120,7 +259,7 @@ def product_gallery_image(style, height: int = 192) -> np.ndarray:
 def planogram_scene(h: int, w: int, styles, rng: np.random.Generator,
                     violation_rate: float = 0.0,
                     min_shelves: int = 3, max_shelves: int = 5,
-                    fill: float = 0.92):
+                    fill: float = 0.92, domain_shift: float = 0.0):
     """Render a planogram-driven shelf scene.
 
     Returns (img, planogram, actual, expected_compliance) where
@@ -129,7 +268,8 @@ def planogram_scene(h: int, w: int, styles, rng: np.random.Generator,
     error attribution), actual = {"boxes", "labels"} the rendered
     ground truth (violations applied: 'removed' products absent,
     'swapped' rendered as another archetype), and expected_compliance
-    = intact / planned.
+    = intact / planned. `domain_shift` > 0 applies the photometric
+    deployment-domain shift (apply_domain_shift) after rendering.
     """
     img = np.empty((h, w, 3), np.float32)
     base = rng.uniform(0.25, 0.5)
@@ -179,6 +319,7 @@ def planogram_scene(h: int, w: int, styles, rng: np.random.Generator,
                     plano_viol.append("swapped")
             x += pw + int(rng.integers(2, max(3, w // 80)))
     img = np.clip(img, 0.0, 1.0)
+    img = apply_domain_shift(img, rng, domain_shift)
     planogram = {
         "boxes": np.asarray(plano_boxes, np.float32).reshape(-1, 4),
         "labels": plano_labels,
@@ -190,3 +331,144 @@ def planogram_scene(h: int, w: int, styles, rng: np.random.Generator,
     }
     expected = intact / max(1, len(plano_labels))
     return img, planogram, actual, expected
+
+
+class PlanogramSceneDetectionSet:
+    """planogram_scene renders as SKU110K-shaped detection items: odd
+    indices carry violations, `boxes` is the rendered ground truth."""
+
+    def __init__(self, n: int, canvas_h: int = 832, canvas_w: int = 1344,
+                 seed: int = 0, n_styles: int = 12,
+                 violation_rate: float = 0.3,
+                 min_shelves: int = 3, max_shelves: int = 5,
+                 domain_shift: float = 0.0, perspective: float = 0.0):
+        _no_perspective(perspective)
+        self.n = n
+        self.canvas_h = canvas_h
+        self.canvas_w = canvas_w
+        self.seed = seed
+        self.styles = product_styles(n_styles)
+        self.violation_rate = violation_rate
+        self.min_shelves = min_shelves
+        self.max_shelves = max_shelves
+        self.domain_shift = domain_shift
+        self.perspective = perspective
+        self._items: Dict[int, Dict] = {}
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int) -> Dict:
+        if not 0 <= i < self.n:
+            raise IndexError(i)
+        return _cached_item(self._items, i, lambda: self._render(i))
+
+    def _render(self, i: int) -> Dict:
+        rng = np.random.default_rng((self.seed, 77, i))
+        vr = 0.0 if i % 2 == 0 else self.violation_rate
+        img, _, actual, _ = planogram_scene(
+            self.canvas_h, self.canvas_w, self.styles, rng,
+            violation_rate=vr, min_shelves=self.min_shelves,
+            max_shelves=self.max_shelves)
+        boxes = actual["boxes"]
+        img, boxes = _augment_scene(img, boxes, rng, self.domain_shift,
+                                    self.perspective)
+        if not len(boxes):
+            boxes = np.asarray([[0, 0, 8, 8]], np.float32)
+        return _detection_item(img, boxes, self.canvas_h, self.canvas_w,
+                               f"plano_synthetic_{i}")
+
+
+def _jitter_view(img: np.ndarray, rng: np.random.Generator,
+                 strength: float = 0.1) -> np.ndarray:
+    """Photometric view jitter: global gain + noise."""
+    out = img * rng.uniform(1 - strength, 1 + strength)
+    out = out + rng.normal(0, 0.02, img.shape).astype(np.float32)
+    return np.clip(out, 0.0, 1.0).astype(np.float32)
+
+
+class ArchetypeGallerySet:
+    """(emb_img, gen_img, hierarchy, annotation) tuples in tanh scale
+    over the product_styles archetypes (numpy, host). Hierarchy groups
+    archetypes into hue families."""
+
+    def __init__(self, styles, views: int = 8, seed: int = 0,
+                 families: int = 4, size: int = 256):
+        self.styles = styles
+        self.views = views
+        self.seed = seed
+        self.size = size
+        k = len(styles)
+        self.hierarchies = [
+            [f"Family{i * families // max(1, k)}", s["label"]]
+            for i, s in enumerate(styles)]
+        self._canon = [
+            T.resize_for_classification(product_gallery_image(s),
+                                        size=size).numpy()
+            for s in styles]
+
+    def __len__(self) -> int:
+        return len(self.styles) * self.views
+
+    def __getitem__(self, i: int):
+        pid, view = divmod(i, self.views)
+        rng = np.random.default_rng((self.seed, pid, view))
+        base = self._canon[pid]
+        emb = base if view == 0 else _jitter_view(base, rng)
+        gen = _jitter_view(base, rng)
+        return (emb * 2.0 - 1.0, gen * 2.0 - 1.0,
+                self.hierarchies[pid], self.styles[pid]["label"])
+
+
+class PlanogramQuerySet:
+    """(scene_img, gt_labels, gt_boxes) eval items over held-out
+    planogram scenes (eval_dihe protocol: gt-crop classification)."""
+
+    def __init__(self, styles, n: int = 8, canvas_h: int = 832,
+                 canvas_w: int = 1344, seed: int = 10_000,
+                 domain_shift: float = 0.0, perspective: float = 0.0):
+        _no_perspective(perspective)
+        self.styles = styles
+        self.n = n
+        self.canvas_h = canvas_h
+        self.canvas_w = canvas_w
+        self.seed = seed
+        self.domain_shift = domain_shift
+        self.perspective = perspective
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int):
+        rng = np.random.default_rng((self.seed, 5, i))
+        img, _, actual, _ = planogram_scene(
+            self.canvas_h, self.canvas_w, self.styles, rng,
+            domain_shift=self.domain_shift)
+        return img, actual["labels"], actual["boxes"]
+
+
+def apply_domain_shift(img: np.ndarray, rng: np.random.Generator,
+                       strength: float) -> np.ndarray:
+    """Photometric deployment-domain shift for a rendered scene: color
+    cast, gamma, illumination gradient, defocus blur, sensor noise.
+    Geometry is untouched. `strength` in [0, 1]; 0 is a no-op."""
+    if strength <= 0:
+        return img
+    out = img.astype(np.float32)
+    gains = rng.uniform(1 - 0.3 * strength, 1 + 0.3 * strength, 3)
+    out = out * gains.astype(np.float32)
+    gamma = float(rng.uniform(1 - 0.35 * strength, 1 + 0.35 * strength))
+    out = np.clip(out, 1e-4, None) ** gamma
+    gy = np.linspace(*rng.uniform(1 - 0.25 * strength,
+                                  1 + 0.25 * strength, 2),
+                     out.shape[0], dtype=np.float32)
+    gx = np.linspace(*rng.uniform(1 - 0.25 * strength,
+                                  1 + 0.25 * strength, 2),
+                     out.shape[1], dtype=np.float32)
+    out = out * gy[:, None, None] * gx[None, :, None]
+    sigma = float(rng.uniform(0.3, 1.6) * strength * 2.0)
+    if sigma > 0.2:
+        out = T.gaussian_blur(out, sigma)
+    out = out + rng.normal(0, 0.04 * strength, out.shape).astype(
+        np.float32)
+    return np.clip(out, 0.0, 1.0).astype(np.float32)

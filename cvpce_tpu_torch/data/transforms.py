@@ -4,7 +4,8 @@ Bilinear resizing follows OpenCV's INTER_LINEAR (half-pixel centres,
 edge clamping, no antialiasing), which `F.interpolate(mode="bilinear",
 align_corners=False)` computes. Images are HWC float32 in [0, 1], numpy
 arrays or tensors; results are tensors on `device` (the input's device
-by default).
+by default). `gaussian_blur` is host numpy, like the cv2 calls it
+replaces.
 """
 from __future__ import annotations
 
@@ -89,3 +90,46 @@ def resize_for_classification(img, size: int = CLASSIFICATION_IMAGE_SIZE,
                         dtype=torch.float32, device=x.device)
     canvas[:h, :w] = x
     return resize_bilinear(canvas, size, size)
+
+
+def _reflect101(idx: np.ndarray, n: int) -> np.ndarray:
+    """cv2.BORDER_REFLECT_101 source index of each (possibly far
+    out-of-range) position along an axis of length n: reflection about
+    the edge pixels, repeated for borders wider than the axis."""
+    if n == 1:
+        return np.zeros_like(idx)
+    period = 2 * (n - 1)
+    idx = np.mod(idx, period)
+    return np.where(idx >= n, period - idx, idx)
+
+
+def gaussian_kernel(sigma: float) -> np.ndarray:
+    """cv2's automatic Gaussian kernel for f32 images: size
+    cvRound(sigma * 8 + 1) | 1 (round half to even), coefficients
+    exp(-x^2 / (2 sigma^2)) taken in f64, normalised to sum 1, then
+    rounded to f32."""
+    n = int(np.rint(sigma * 8 + 1)) | 1
+    x = np.arange(n, dtype=np.float64) - (n - 1) * 0.5
+    k = np.exp(-0.5 / (sigma * sigma) * x * x)
+    return (k * (1.0 / k.sum())).astype(np.float32)
+
+
+def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """`cv2.GaussianBlur(img, (0, 0), sigmaX=sigma, sigmaY=sigma)` for an
+    f32 (H, W) or (H, W, C) array: the separable kernel of
+    `gaussian_kernel`, rows first, then columns, BORDER_REFLECT_101 at
+    the edges (also where the kernel is wider than the image). f32
+    sums in another order than cv2's, so results agree to f32
+    rounding."""
+    img = np.asarray(img, np.float32)
+    k = gaussian_kernel(sigma)
+    r = len(k) // 2
+    out = img
+    for axis in (1, 0):
+        n = out.shape[axis]
+        src = np.take(out, _reflect101(np.arange(-r, n + r), n), axis=axis)
+        acc = np.zeros_like(out)
+        for j, w in enumerate(k):
+            acc += w * np.take(src, np.arange(j, j + n), axis=axis)
+        out = acc
+    return out

@@ -12,6 +12,7 @@ either package loads in the other and restores the encoder's scales.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -28,16 +29,25 @@ FUSED_MAX_K = 8
 class Classifier:
     def __init__(self, encoder_fn: Callable, embedding_size: int,
                  sample_set=None, batch_size: int = 32, k: int = 1,
-                 load: Optional[str] = None, device="cuda"):
+                 load: Optional[str] = None, index_average: int = 1,
+                 device="cuda"):
         """encoder_fn: (B, 256, 256, 3) tanh-scale -> (B, D) embeddings.
         sample_set: items (emb_img, gen_img, hierarchy, annotation) or
-        (img, img, cls, cls)."""
+        (img, img, cls, cls). index_average > 1 collapses each run of
+        that many consecutive sample_set items (which must share an
+        annotation) into one index entry holding their mean embedding;
+        it applies when the index is built, not when it is loaded."""
         self.device = resolve_device(device)
         self.encoder_fn = encoder_fn
         self.embedding_size = embedding_size
         self.batch_size = batch_size
         self.k = k
+        self.index_average = index_average
         if load is not None:
+            if index_average > 1:
+                warnings.warn(
+                    "index_average>1 is ignored when loading a saved "
+                    "index; it only applies in build_index", stacklevel=2)
             self.embedding, self.annotations, scales = self._load_index(
                 load)
             if scales is not None and hasattr(encoder_fn, "set_scales"):
@@ -82,6 +92,17 @@ class Classifier:
             annotations += [it[3] if len(it) > 3 else it[2] for it in items]
         embedding = (np.concatenate(embeddings) if embeddings else
                      np.zeros((0, self.embedding_size), np.float32))
+        f = self.index_average
+        if f > 1 and len(embedding):
+            assert len(embedding) % f == 0, \
+                f"index_average={f} must divide gallery size {len(embedding)}"
+            groups = [annotations[i * f:(i + 1) * f]
+                      for i in range(len(annotations) // f)]
+            assert all(len(set(map(str, g))) == 1 for g in groups), \
+                "index_average groups must share one annotation"
+            embedding = embedding.reshape(-1, f,
+                                          embedding.shape[-1]).mean(1)
+            annotations = annotations[::f]
         return embedding, annotations
 
     def save_index(self, path: str) -> None:

@@ -3,6 +3,11 @@ counterpart of cvpce_tpu/pipeline/evaluator.py with the same fallbacks:
 no detections -> 0 (or 1 for an empty planogram); no graph matching ->
 0; no homography -> |matching| / |expected|; optional second-chance
 reclassification of projected missing-product regions.
+
+The comparator builds graphs and matches them with the native engine
+(pipeline/native.py) by default, as in the JAX package; where it does
+not build, the comparator raises, and `use_native=False` is the explicit
+pure-Python route (pipeline/planograms.py).
 """
 from __future__ import annotations
 
@@ -17,9 +22,27 @@ from . import planograms as pg
 
 
 class PlanogramComparator:
-    def __init__(self, graph_threshold: float = 0.5, device="cuda"):
+    def __init__(self, graph_threshold: float = 0.5,
+                 use_native: bool = True, device="cuda"):
         self.graph_threshold = graph_threshold
         self.device = resolve_device(device)
+        self._native = None
+        if use_native:
+            from . import native
+
+            native.load()
+            self._native = native
+
+    def _build_graph(self, boxes, labels):
+        if self._native is not None:
+            return self._native.build_graph(boxes, labels,
+                                            self.graph_threshold)
+        return pg.build_graph(boxes, labels, self.graph_threshold)
+
+    def _match(self, ge, ga):
+        if self._native is not None:
+            return self._native.large_common_subgraph(ge, ga)
+        return pg.large_common_subgraph(ge, ga)
 
     def compare(self, expected: Dict, actual: Dict,
                 image: Optional[np.ndarray] = None,
@@ -43,11 +66,9 @@ class PlanogramComparator:
 
         ge = expected.get("graph")
         if ge is None:
-            ge = pg.build_graph(expected["boxes"], expected["labels"],
-                                self.graph_threshold)
-        ga = pg.build_graph(actual["boxes"], actual["labels"],
-                            self.graph_threshold)
-        matching = pg.large_common_subgraph(ge, ga)
+            ge = self._build_graph(expected["boxes"], expected["labels"])
+        ga = self._build_graph(actual["boxes"], actual["labels"])
+        matching = self._match(ge, ga)
         if not len(matching):
             return 0.0, None, "no_matching"
 
@@ -87,21 +108,38 @@ class PlanogramComparator:
 
 
 class PlanogramEvaluator:
-    """generator -> classifier -> comparator."""
+    """generator -> classifier -> comparator.
 
-    def __init__(self, proposal_generator, classifier, comparator):
+    color_correct=True removes the scene-level photometric state
+    (pipeline/colorcorrect.py) from the classify leg only: detection
+    runs on the raw image, while the classification crops, the
+    comparator's second-chance ones included, come from the corrected
+    scene."""
+
+    def __init__(self, proposal_generator, classifier, comparator,
+                 color_correct: bool = False):
         self.proposal_generator = proposal_generator
         self.classifier = classifier
         self.comparator = comparator
+        self.color_correct = color_correct
 
     def evaluate(self, image: np.ndarray, planogram: Dict) -> float:
         return self.evaluate_detailed(image, planogram)[0]
 
     def evaluate_detailed(self, image: np.ndarray, planogram: Dict):
-        boxes, crops = \
-            self.proposal_generator.generate_proposals_and_images(image)
+        """(compliance, per-expected-slot found mask or None, path)."""
+        if self.color_correct:
+            from .colorcorrect import scene_color_correct
+
+            cls_image = scene_color_correct(image)
+            boxes = self.proposal_generator.generate_proposals(image)
+            crops = self.proposal_generator.crop_boxes(cls_image, boxes)
+        else:
+            boxes, crops = \
+                self.proposal_generator.generate_proposals_and_images(image)
+            cls_image = image
         classes = ([ann[0] for ann in self.classifier.classify(crops)]
                    if len(crops) else [])
         return self.comparator.compare_detailed(
-            planogram, {"boxes": boxes, "labels": classes}, image,
+            planogram, {"boxes": boxes, "labels": classes}, cls_image,
             self.classifier)

@@ -114,8 +114,18 @@ class ProposalGenerator:
                                device=self.device)
         return torch.cat(chunks)
 
+    def detect_with_crops(self, image: np.ndarray) -> Dict:
+        """Detections above the confidence threshold: `boxes` (N, 4) and
+        `scores` (N,) numpy, and their classification-ready `crops`
+        (N, 256, 256, 3) tanh tensor on the device."""
+        res = self.detect(image)
+        keep = res["valid"] & (res["scores"] > self.confidence_threshold)
+        boxes = res["boxes"][keep]
+        return {"boxes": boxes, "scores": res["scores"][keep],
+                "crops": self.crop_boxes(image, boxes)}
+
     def generate_proposals_and_images(self, image: np.ndarray
                                       ) -> Tuple[np.ndarray, torch.Tensor]:
         """(boxes (N, 4) numpy, crops (N, 256, 256, 3) tanh tensor)."""
-        boxes = self.generate_proposals(image)
-        return boxes, self.crop_boxes(image, boxes)
+        res = self.detect_with_crops(image)
+        return res["boxes"], res["crops"]

@@ -1,8 +1,8 @@
 """Import guard: the port and chip_smoke.py import no package that the
 GPU machine lacks. A subprocess refuses jax, flax, orbax, networkx, cv2,
-PIL, click, torchvision and the JAX package itself at import time, then
-imports every module of cvpce_tpu_torch and chip_smoke (without running
-it)."""
+PIL, click, torchvision, matplotlib and the JAX package itself at import
+time, then imports every module of cvpce_tpu_torch (the modules listed
+in REQUIRED among them) and chip_smoke (without running it)."""
 import os
 import subprocess
 import sys
@@ -13,7 +13,17 @@ SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BANNED = {"jax", "jaxlib", "flax", "orbax", "networkx", "cv2", "PIL",
-          "click", "torchvision", "cvpce_tpu"}
+          "click", "torchvision", "matplotlib", "cvpce_tpu"}
+REQUIRED = {"cvpce_tpu_torch.ops.metrics", "cvpce_tpu_torch.eval",
+            "cvpce_tpu_torch.eval.coco_protocol",
+            "cvpce_tpu_torch.eval.proposals",
+            "cvpce_tpu_torch.eval.detection",
+            "cvpce_tpu_torch.eval.classification",
+            "cvpce_tpu_torch.eval.compliance",
+            "cvpce_tpu_torch.pipeline.calibrate",
+            "cvpce_tpu_torch.pipeline.serving",
+            "cvpce_tpu_torch.pipeline.colorcorrect",
+            "cvpce_tpu_torch.pipeline.native"}
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -25,6 +35,7 @@ sys.meta_path.insert(0, Refuse())
 import cvpce_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     cvpce_tpu_torch.__path__, "cvpce_tpu_torch.")]
+assert REQUIRED <= set(names), sorted(REQUIRED - set(names))
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -42,4 +53,4 @@ def test_port_imports_no_missing_package():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 20
+    assert count >= 31
