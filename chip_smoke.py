@@ -38,7 +38,25 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   scenes, held against the plain kNN), eval.dihe (eval_dihe, k = 1 and
   5, through the saved index) and eval.planograms (evaluate_planograms
   on the serve scenes under a 0.5 domain shift, with and without colour
-  correction, the native graph matcher held against the Python one).
+  correction, the native graph matcher held against the Python one);
+- kernels.knn_fused.wide: K2 past its resident query tile, at D in
+  {1280, 1284, 1536, 2048, 3072, 3904} x Q in {1, 32, 67} x A in {4096,
+  8192} x k in {1, 5, 8}, timed at Q = 32, D = 1536, k = 1, and refusing
+  one D past knn_fused_max_dim();
+- serve.macresnet: the serve phase's f32 detector with an f32 MACResNet
+  (c3 + c4, 1536-d; seeded weights and BatchNorm statistics) indexing a
+  4096-entry gallery, K2 at D = 1536; then the same scenes with the
+  plain kNN, whose compliance must match;
+- serve.macresnet.int8: the same MACResNet in bf16 with quant='static',
+  calibrated on the gallery, the index saved with its 52 scales and
+  loaded back;
+- load.reference: seeded checkpoints in the reference's layouts (GLN,
+  torchvision resnet50 and vgg16_bn, a reference MACVGG in block
+  slices; nested, with `module.` prefixes) saved with torch.save and
+  loaded through cli/common.py onto the card, every parameter and
+  output held bit for bit against the same dict loaded directly;
+- data.perspective: eval_dihe through the MACResNet index on
+  perspective-warped query scenes (the warp is the port's numpy one).
 
 Prints one JSON line per phase with its elapsed seconds, then the
 `{"kernels": [...]}` line, the card's name and power limit as nvidia-smi
@@ -63,13 +81,16 @@ import numpy as np
 import torch
 
 from cvpce_tpu_torch import _build, testing
+from cvpce_tpu_torch.cli.common import load_embedder, load_gln_state_dict
 from cvpce_tpu_torch.data import synthetic
 from cvpce_tpu_torch.data import transforms as T
 from cvpce_tpu_torch.eval import (eval_dihe, evaluate_detections,
                                   evaluate_gln, evaluate_planograms,
                                   mean_average_metrics)
 from cvpce_tpu_torch.eval.proposals import make_variables_inference_fn
-from cvpce_tpu_torch.models.embedders import EmbedFn, MACVGG, fold_bn_variables
+from cvpce_tpu_torch.models.embedders import (EmbedFn, MACResNet, MACVGG,
+                                              fold_bn_state_dict,
+                                              fold_bn_variables)
 from cvpce_tpu_torch.models.gln import GLN, GLNConfig, fold_gln_backbone
 from cvpce_tpu_torch.ops import conv_fused
 from cvpce_tpu_torch.ops import knn as knn_ops
@@ -86,6 +107,8 @@ from cvpce_tpu_torch.pipeline.classifier import Classifier
 from cvpce_tpu_torch.pipeline.evaluator import (PlanogramComparator,
                                                 PlanogramEvaluator)
 from cvpce_tpu_torch.pipeline.proposals import ProposalGenerator
+from cvpce_tpu_torch.utils.torch_import import (import_gln, import_resnet50,
+                                                import_vgg16_features)
 
 # H100 SXM peaks from NVIDIA's data sheet: HBM bytes/s, f32 FLOP/s
 # outside the tensor cores and dense int8 tensor-core OP/s, at the full
@@ -101,6 +124,13 @@ KNN_TOL = 1e-5
 SOFT_TOL = 1e-6
 GALLERY_SIZE = 8192
 INT8_GALLERY_SIZE = 4096  # still >= 4096, so K2 serves it
+MACRESNET_GALLERY_SIZE = 4096
+MACRESNET_INT8_SCALES = 52  # 16 bottlenecks x 3 convs + 4 downsamples
+# K2 past its resident query tile: the last resident D and the first
+# streamed one, MACResNet's c3 + c4 (1536) and c1..c5 (3904), between
+WIDE_DIMS = (1280, 1284, 1536, 2048, 3072, 3904)
+WIDE_QUERIES = (1, 32, 67)
+WIDE_GALLERIES = (4096, 8192)
 N_STYLES = 16
 N_SCENES = 4
 DETECT_BATCH = 8  # bench.py's detector batch
@@ -1186,6 +1216,301 @@ def phase_eval(ctx, seed):
           "seconds": time.perf_counter() - t0})
 
 
+# ------------------------------------------------- MACResNet, loaders, data
+
+def phase_knn_wide(timer):
+    """K2 on D past its resident query tile, held against knn_plain on
+    every shape of the grid, timed at Q = 32, D = 1536, k = 1; one D
+    past knn_fused_max_dim() must be refused."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    shapes = mismatches = 0
+    worst = 0.0
+    rows = []
+    for dim in WIDE_DIMS:
+        queries = torch.randn((max(WIDE_QUERIES), dim), device="cuda",
+                              generator=gen)
+        for na in WIDE_GALLERIES:
+            gallery = torch.randn((na, dim), device="cuda", generator=gen)
+            inv_g = knn_ops.inverse_norms(gallery)
+            for nq in WIDE_QUERIES:
+                q = queries[:nq]
+                dists = knn_ops.distance_matrix(q, gallery)
+                for k in testing.KNN_KS:
+                    d_k, i_k = knn_ops.nearest_neighbors_fused(gallery, q, k,
+                                                               inv_g)
+                    d_p, i_p = knn_ops.knn_plain(gallery, q, k)
+                    err, n_diff, _ = knn_index_check(
+                        d_k, i_k, d_p, i_p, dists,
+                        f"wide D={dim} Q={nq} A={na} k={k}")
+                    shapes += 1
+                    mismatches += n_diff
+                    worst = max(worst, err)
+            if dim == 1536:
+                rows.append(knn_check(timer, gallery, inv_g,
+                                      queries[:32], 1, f"d1536_a{na}"))
+            del gallery, inv_g
+    max_dim = knn_ops.knn_fused_max_dim()
+    wide = max_dim + 4
+    try:
+        knn_ops.nearest_neighbors_fused(
+            torch.zeros((4096, wide), device="cuda"),
+            torch.zeros((2, wide), device="cuda"), 1)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, f"K2 took D={wide}, past knn_fused_max_dim()")
+    require(max_dim >= max(WIDE_DIMS), f"knn_fused_max_dim() {max_dim}")
+    emit({"phase": "kernels.knn_fused.wide", "shapes": shapes,
+          "index_mismatches": mismatches, "max_abs_err": worst,
+          "max_dim": max_dim,
+          "resident_max_dim": knn_ops.knn_fused_resident_max_dim(),
+          "refused_dim": wide, "seconds": time.perf_counter() - t0})
+    return rows
+
+
+def seeded_macresnet(seed: int) -> MACResNet:
+    """An f32 MACResNet (c3 + c4) with seeded conv weights and seeded
+    BatchNorm affines and running statistics (means N(0, 0.1), variances
+    in [0.5, 2]), on the CPU."""
+    model = MACResNet(generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng((seed, 61))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                for t, v in ((m.weight, rng.uniform(0.5, 1.5, c)),
+                             (m.bias, rng.normal(0, 0.1, c)),
+                             (m.running_mean, rng.normal(0, 0.1, c)),
+                             (m.running_var, rng.uniform(0.5, 2.0, c))):
+                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+    return model
+
+
+def phase_serve_macresnet(timer, ctx, seed):
+    """The serve phase's f32 detector with an f32 MACResNet and a
+    4096-entry gallery (K2 at D = 1536) on the 4 scenes, then again
+    with the plain kNN; then the same MACResNet in bf16 + int8 static."""
+    t0 = time.perf_counter()
+    pg, scenes = ctx["pg"], ctx["scenes"]
+    model = seeded_macresnet(seed)
+    encoder = EmbedFn(model, device="cuda")
+    gallery = GallerySet(ctx["styles"], MACRESNET_GALLERY_SIZE, seed)
+    clf = Classifier(encoder, encoder.embedding_size, sample_set=gallery,
+                     k=1, device="cuda")
+    torch.cuda.synchronize()
+    gallery_s = time.perf_counter() - t0
+    require(encoder.embedding_size == 1536, "MACResNet is not 1536-d")
+    require(clf._use_fused, "gallery too small for the fused kNN path")
+    require(np.isfinite(clf.embedding).all(), "non-finite gallery")
+    emit({"phase": "serve.macresnet.gallery", "entries": len(clf.embedding),
+          "dim": encoder.embedding_size, "seconds": gallery_s})
+
+    evaluator = PlanogramEvaluator(pg, clf, PlanogramComparator(device="cuda"))
+    _reset_launches()
+    per_scene = serve_scenes(evaluator, scenes)
+    launches = _launches()
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the MACResNet path")
+    clf._use_fused = False
+    plain_rows = serve_scenes(evaluator, scenes)
+    clf._use_fused = True
+    for r, p in zip(per_scene, plain_rows):
+        r["plain_knn_compliance"] = p["compliance"]
+        r["macvgg_compliance"] = ctx["compliance"][r["scene"]]
+        require(r["compliance"] == p["compliance"],
+                f"MACResNet scene {r['scene']}: compliance "
+                f"{r['compliance']} with K2, {p['compliance']} plain")
+        emit({"phase": "serve.macresnet.scene", **r})
+    # K2's row of the kernels line: the first scene's first 32 crops
+    img = scenes[0][0]
+    canvas, _, (ch, cw), _ = pg._canvas(img)
+    res = pg.infer(canvas[None], torch.tensor([[ch, cw]], dtype=torch.float32,
+                                              device="cuda"))
+    n_det = int((res["valid"] & (res["scores"] > pg.confidence_threshold))
+                .sum())
+    crops = pg.crop_boxes(img, res["boxes"][0][:n_det].cpu().numpy())
+    emb = encoder(crops[:32])
+    knn_row = knn_check(timer, clf._anchors_dev, clf._anchor_inv_norms, emb,
+                        1, "macresnet")
+    emit({"phase": "serve.macresnet", "scenes": N_SCENES,
+          "launches": launches,
+          "serve_seconds": sum(r["seconds"] for r in per_scene),
+          "seconds_per_scene": [r["seconds"] for r in per_scene],
+          "gallery_seconds": gallery_s,
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    state = model.state_dict()
+
+    def int8_encoder():
+        m = MACResNet(dtype=torch.bfloat16, quant="static")
+        m.load_state_dict(state)
+        return EmbedFn(m, device="cuda")
+
+    encoder8 = int8_encoder()
+    require(encoder8.needs_calibration, "quant='static' needs calibration")
+    clf8 = Classifier(encoder8, encoder8.embedding_size, sample_set=gallery,
+                      k=1, device="cuda")
+    scales = encoder8.get_scales()
+    n_scales = sum(1 for _ in _leaves(scales)) if scales else 0
+    require(n_scales == MACRESNET_INT8_SCALES,
+            f"{n_scales} MACResNet act scales after indexing")
+    BUILD.mkdir(parents=True, exist_ok=True)
+    index = str(BUILD / "macresnet_int8_index.npz")
+    clf8.save_index(index)
+    encoder8b = int8_encoder()
+    clf8b = Classifier(encoder8b, encoder8b.embedding_size, load=index, k=1,
+                       device="cuda")
+    require(encoder8b.get_scales() == scales, "saved scales not restored")
+    before, after = encoder8(crops), encoder8b(crops)
+    require(torch.equal(before, after),
+            "int8 MACResNet embeddings changed across the index reload")
+    gallery_s = time.perf_counter() - t0
+    evaluator = PlanogramEvaluator(pg, clf8b,
+                                   PlanogramComparator(device="cuda"))
+    _reset_launches()
+    per_scene8 = serve_scenes(evaluator, scenes)
+    launches8 = _launches()
+    require(launches8["knn_fused"] > 0,
+            "knn_fused was not launched on the int8 MACResNet path")
+    for r in per_scene8:
+        r["f32_compliance"] = per_scene[r["scene"]]["compliance"]
+        emit({"phase": "serve.macresnet.int8.scene", **r})
+    emit({"phase": "serve.macresnet.int8", "scenes": N_SCENES,
+          "act_scales": n_scales, "launches": launches8,
+          "gallery_seconds": gallery_s,
+          "serve_seconds": sum(r["seconds"] for r in per_scene8),
+          "seconds": time.perf_counter() - t0})
+    ctx.update(macresnet=encoder, macresnet_clf=clf)
+    return launches, knn_row
+
+
+def phase_load_reference(seed):
+    """Seeded checkpoints in the reference's layouts, saved with
+    torch.save and loaded through cli/common.py onto the card: every
+    parameter equals the tensor the name mapping picks, and 8 crops and
+    one canvas give the outputs of the same dict loaded directly."""
+    t0 = time.perf_counter()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng((seed, 67))
+    gln_sd = testing.gln_reference_state_dict(rng)
+    resnet_sd = testing.resnet50_state_dict(rng)
+    vgg_sd = testing.vgg16_features_state_dict(rng, batch_norm=True)
+    # the reference MACVGG in block slices of the same vgg16_bn weights
+    slices_sd = testing.macvgg_slices(vgg_sd, batch_norm=True)
+    files = {"gln": {"model_state_dict": gln_sd},
+             "resnet50": {"model_state_dict": {f"module.{k}": v
+                                               for k, v in resnet_sd.items()}},
+             "vgg16_bn": vgg_sd,
+             "macvgg": {"model_state_dict": slices_sd}}
+    paths = {}
+    for name, obj in files.items():
+        paths[name] = str(BUILD / f"reference_{name}.pth")
+        torch.save(obj, paths[name])
+    crops = torch.from_numpy(rng.uniform(-1, 1, (8, 256, 256, 3))
+                             .astype(np.float32)).cuda()
+    rows = {}
+
+    def same_params(got, want, label):
+        require(set(got) == set(want), f"{label}: key sets differ")
+        for key, t in want.items():
+            require(torch.equal(got[key].cpu(), t.to(got[key].dtype)),
+                    f"{label}: {key} differs from the mapped tensor")
+        return len(want)
+
+    # the detector, on one seeded canvas
+    config = GLNConfig()
+    state = load_gln_state_dict(paths["gln"], config)
+    n_gln = same_params(state, import_gln(gln_sd), "gln")
+    direct = GLN(config)
+    direct.load_state_dict(import_gln(gln_sd))
+    loaded = GLN(config)
+    loaded.load_state_dict(state)
+    canvas = torch.from_numpy(rng.uniform(
+        0, 1, (1, config.canvas_h, config.canvas_w, 3)).astype(
+            np.float32)).cuda()
+    with torch.inference_mode():
+        out_l = loaded.cuda()(canvas)
+        out_d = direct.cuda()(canvas)
+    for key in out_d:
+        require(torch.equal(out_l[key], out_d[key]),
+                f"gln {key} differs from the directly loaded model")
+    rows["gln"] = {"params": n_gln, "outputs": sorted(out_d)}
+    del loaded, direct, out_l, out_d
+
+    # the embedders, on 8 seeded crops
+    enc, size = load_embedder(paths["resnet50"], encoder="resnet50",
+                              device="cuda")
+    mapped = import_resnet50(resnet_sd, "batch", prefix="trunk.")
+    n_res = same_params(enc.model.state_dict(), mapped, "resnet50")
+    direct = MACResNet()
+    direct.load_state_dict(mapped)
+    require(torch.equal(enc(crops), EmbedFn(direct, device="cuda")(crops)),
+            "resnet50 embeddings differ from the directly loaded model")
+    rows["resnet50"] = {"params": n_res, "dim": size}
+    mapped = fold_bn_state_dict(import_vgg16_features(vgg_sd, True))
+    direct = MACVGG(batch_norm=False)
+    direct.load_state_dict(mapped)
+    want = EmbedFn(direct, device="cuda")(crops)
+    for name in ("vgg16_bn", "macvgg"):
+        enc, size = load_embedder(paths[name], batch_norm=True,
+                                  device="cuda")
+        n_vgg = same_params(enc.model.state_dict(), mapped, name)
+        require(torch.equal(enc(crops), want),
+                f"{name} embeddings differ from the directly loaded model")
+        rows[name] = {"params": n_vgg, "dim": size}
+
+    bad = dict(resnet_sd)
+    bad["layer1.0.conv1.weight"] = bad["layer1.0.conv1.weight"][:, :32]
+    bad_path = str(BUILD / "reference_resnet50_bad.pth")
+    torch.save(bad, bad_path)
+    try:
+        load_embedder(bad_path, encoder="resnet50", device="cuda")
+        raised = None
+    except ValueError as err:
+        raised = str(err)
+    require(raised is not None and "layer1_0.conv1.weight" in raised,
+            f"a wrongly shaped checkpoint loaded ({raised})")
+    emit({"phase": "load.reference", **rows, "wrong_shape": raised,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_data_perspective(ctx, seed):
+    """eval_dihe through the MACResNet index on perspective-warped query
+    scenes at 832x1344: the warp is transforms.warp_perspective, host
+    numpy, so no cv2 is needed."""
+    t0 = time.perf_counter()
+    config = ctx["pg"].config
+    base = synthetic.PlanogramQuerySet(
+        ctx["styles"], n=N_SCENES, canvas_h=config.canvas_h,
+        canvas_w=config.canvas_w, seed=10_000 + seed, perspective=0.5)
+    items, render_s = [], []
+    for i in range(len(base)):
+        ts = time.perf_counter()
+        items.append(base[i])
+        render_s.append(time.perf_counter() - ts)
+    for img, labels, boxes in items:
+        require(img.shape == (config.canvas_h, config.canvas_w, 3)
+                and np.isfinite(img).all() and len(labels) == len(boxes),
+                "perspective scene")
+    index = str(BUILD / "macresnet_index.npz")
+    clf = ctx["macresnet_clf"]
+    clf.save_index(index)
+    _reset_launches()
+    acc = eval_dihe(ctx["macresnet"], clf.embedding_size, None, items,
+                    k=(1, 5), load_index=index, verbose=False, device="cuda")
+    launches = _launches()
+    require(launches["knn_fused"] > 0, "knn_fused not launched in eval_dihe")
+    require(sorted(acc) == [1, 5] and 0.0 <= acc[1] <= acc[5] <= 1.0,
+            f"eval_dihe accuracy {acc}")
+    emit({"phase": "data.perspective", "scenes": len(items),
+          "perspective": 0.5,
+          "crops": int(sum(len(it[1]) for it in items)),
+          "render_seconds_per_scene": render_s, "accuracy": acc,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1228,10 +1553,20 @@ def main(argv=None) -> int:
     soft_launches, soft_serve = phase_serve_soft(timer, ctx)
     phase_serve_int8(ctx, args.seed)
     phase_eval(ctx, args.seed)
+    phase_knn_wide(timer)
+    mac_launches, knn_mac = phase_serve_macresnet(timer, ctx, args.seed)
+    phase_load_reference(args.seed)
+    phase_data_perspective(ctx, args.seed)
     pool_row = dict(pool_rows[0])
     pool_row["max_abs_err"] = max(r["max_abs_err"] for r in pool_rows)
+    # K2's row is this slice's path, MACResNet's 1536-d gallery; the
+    # MACVGG serve path's (D = 1024) rides along
+    d1024 = {k: knn_serve[k] for k in ("shape", "ms", "plain_ms",
+                                        "bound_ms", "library_ms")}
     rows = {"nms_hard": dict(nms_serve, launches=launches["nms_hard"]),
-            "knn_fused": dict(knn_serve, launches=launches["knn_fused"]),
+            "knn_fused": dict(knn_mac, launches=mac_launches["knn_fused"],
+                              d1024=dict(d1024,
+                                         launches=launches["knn_fused"])),
             "soft_nms": dict(soft_serve,
                              launches=soft_launches["soft_nms"]),
             "pool_int8_conv": dict(pool_row, launches=pool_launches)}
@@ -1247,10 +1582,12 @@ def main(argv=None) -> int:
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    extra = {"knn_fused": ("d1024",)}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],
          "replaces": replaces[name][1],
-         **{k: row[k] for k in keys}} for name, row in rows.items()]})
+         **{k: row[k] for k in keys + extra.get(name, ())}}
+        for name, row in rows.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,14 @@
 //      the block's partial top-k. Q > 32 loops over query tiles inside
 //      the kernel, with a barrier between tiles: the last reduction's
 //      ring slot is one the next tile's prologue loads into. D is at
-//      most 1280 (knn_fused_max_dim).
+//      most 1280 here (knn_fused_resident_max_dim).
+//      Wider queries (MACResNet's 1536 to 3904) do not stay resident:
+//      each ring slot then holds the query tile's slice of the same
+//      depth beside the gallery's (66.5 KB a slot, 3 slots), so the
+//      query tile is read again, from L2, once per gallery tile, and the
+//      queries' norms are summed slice by slice over the block's first
+//      gallery tile. The inner loop, the reduction and the epilogue are
+//      the resident ones. D is at most kMaxStreamDim (knn_fused_max_dim).
 //   2. knn_merge: one warp per query merges the blocks' partials: each
 //      lane keeps a register top-k of its parts (reading a sorted part
 //      only until an entry misses its list), then k rounds of a warp
@@ -69,6 +76,9 @@ constexpr int kRedFloats = kWarps * kQT * kRows;
 constexpr int kMaxStages = 5;
 constexpr int kMinStages = 2;
 constexpr int kMergeWarps = 4;
+// widest D the streamed-query scan takes: 16 depth chunks, past
+// MACResNet's widest descriptor (c1..c5, 3904)
+constexpr int kMaxStreamDim = 4096;
 
 // kernels this file has launched, read by knn_fused_kernels_launched
 unsigned long long kernels_launched = 0;
@@ -78,6 +88,7 @@ static_assert(kSubD % 4 == 0, "a warp's depth slice is whole float4s");
 static_assert(kTPQ <= 32 && kRows % kTPQ == 0, "epilogue mapping");
 static_assert(kRows * kDC / 4 % kThreads == 0, "whole float4s a thread");
 static_assert(kRedFloats <= kStageFloats, "the reduction fits a ring slot");
+static_assert(kRows == kQT, "a query slice loads as a gallery stage does");
 
 __device__ __forceinline__ bool better(float da, int ia, float db, int ib) {
   return da < db || (da == db && ia < ib);
@@ -161,8 +172,8 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
   }
 }
 
-// one ring stage: gallery rows [row0, row0 + 16) x depth [d0, d0 + 128),
-// zero past the gallery's end and past dim
+// one ring stage: rows [row0, row0 + kRows) x depth [d0, d0 + kDC) of a
+// gallery (or, streamed, of the queries), zero past its end and past dim
 __device__ __forceinline__ void load_stage(float* dst,
                                            const float* __restrict__ g,
                                            int na, int dim, int row0, int d0,
@@ -179,16 +190,19 @@ __device__ __forceinline__ void load_stage(float* dst,
   }
 }
 
-template <int K>
+// kStream: the queries stream through the ring beside the gallery
+// instead of staying resident (a ring slot is then [gallery][queries])
+template <int K, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 knn_scan(const float* __restrict__ q, const float* __restrict__ g,
          const float* __restrict__ inv_g, int nq, int na, int dim, int dpad,
          int stages, float* __restrict__ part_d, int* __restrict__ part_i) {
   extern __shared__ __align__(16) float smem[];
-  const int qstride = dpad + 4;
-  float* sq = smem;                              // [kQT][qstride]
-  float* ring = sq + kQT * qstride;              // [stages][kRows][kGStride]
-  float* inv_q = ring + stages * kStageFloats;   // [kQT]
+  constexpr int kSlot = kStream ? 2 * kStageFloats : kStageFloats;
+  const int qstride = kStream ? kGStride : dpad + 4;
+  float* sq = smem;                              // resident: [kQT][qstride]
+  float* ring = sq + (kStream ? 0 : kQT * qstride);  // [stages][kSlot]
+  float* inv_q = ring + stages * kSlot;          // [kQT]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int qg = lane / kRG, rg = lane % kRG;    // compute tile
@@ -202,21 +216,31 @@ knn_scan(const float* __restrict__ q, const float* __restrict__ g,
   const int total = (tile1 - tile0) * nchunks;   // ring stages to stream
 
   for (int q0 = 0; q0 < nq; q0 += kQT) {
-    // the query tile, once per block (zero past nq and past dim); it
-    // commits with the first stage
-    for (int e = tid; e < kQT * (dpad / 4); e += kThreads) {
-      const int r = e / (dpad / 4), c = (e % (dpad / 4)) * 4;
-      const bool ok = q0 + r < nq && c < dim;
-      cp_async16(sq + r * qstride + c,
-                 ok ? q + static_cast<size_t>(q0 + r) * dim + c : q,
-                 ok ? 16 : 0);
+    if constexpr (!kStream) {
+      // the query tile, once per block (zero past nq and past dim); it
+      // commits with the first stage
+      for (int e = tid; e < kQT * (dpad / 4); e += kThreads) {
+        const int r = e / (dpad / 4), c = (e % (dpad / 4)) * 4;
+        const bool ok = q0 + r < nq && c < dim;
+        cp_async16(sq + r * qstride + c,
+                   ok ? q + static_cast<size_t>(q0 + r) * dim + c : q,
+                   ok ? 16 : 0);
+      }
     }
     for (int s = 0; s < stages - 1; ++s) {
-      if (s < total)
-        load_stage(ring + s * kStageFloats, g, na, dim,
+      if (s < total) {
+        load_stage(ring + s * kSlot, g, na, dim,
                    (tile0 + s / nchunks) * kRows, (s % nchunks) * kDC, tid);
+        if constexpr (kStream)
+          load_stage(ring + s * kSlot + kStageFloats, q, nq, dim, q0,
+                     (s % nchunks) * kDC, tid);
+      }
       cp_async_commit();
     }
+    // streamed: each warp's partial sums of squares of its 4 queries
+    float qss[kQT / kWarps];
+#pragma unroll
+    for (int j = 0; j < kQT / kWarps; ++j) qss[j] = 0.0f;
 
     float bd[K];
     int bi[K];
@@ -235,7 +259,35 @@ knn_scan(const float* __restrict__ q, const float* __restrict__ g,
       const int slot = it % stages;
       cp_async_wait_pending(stages - 2);  // stage `it` (and the queries)
       __syncthreads();                    // ... visible; slot it-1 free
-      if (it == 0) {
+      if constexpr (kStream) {
+        // the queries' norms over the first gallery tile's depth chunks:
+        // warp w sums queries 4w .. 4w + 3, 128 depth a pass; inv_q is
+        // read after the epilogue's first barrier of this iteration
+        if (it < nchunks) {
+          const float* qsl = ring + slot * kSlot + kStageFloats;
+#pragma unroll
+          for (int j = 0; j < kQT / kWarps; ++j) {
+            const int r = warp * (kQT / kWarps) + j;
+#pragma unroll
+            for (int c = lane * 4; c < kDC; c += 128) {
+              const float4 v =
+                  *reinterpret_cast<const float4*>(qsl + r * kGStride + c);
+              qss[j] += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+            }
+          }
+          if (it == nchunks - 1) {
+#pragma unroll
+            for (int j = 0; j < kQT / kWarps; ++j) {
+              float ss = qss[j];
+              for (int off = 16; off > 0; off >>= 1)
+                ss += __shfl_xor_sync(0xffffffffu, ss, off);
+              if (lane == 0)
+                inv_q[warp * (kQT / kWarps) + j] =
+                    1.0f / fmaxf(sqrtf(ss), 1e-8f);
+            }
+          }
+        }
+      } else if (it == 0) {
         // the queries' inverse norms: warp w takes queries 4w .. 4w + 3
 #pragma unroll
         for (int j = 0; j < kQT / kWarps; ++j) {
@@ -252,15 +304,21 @@ knn_scan(const float* __restrict__ q, const float* __restrict__ g,
         }
       }
       const int nx = it + stages - 1;
-      if (nx < total)
-        load_stage(ring + (nx % stages) * kStageFloats, g, na, dim,
+      if (nx < total) {
+        load_stage(ring + (nx % stages) * kSlot, g, na, dim,
                    (tile0 + nx / nchunks) * kRows, (nx % nchunks) * kDC, tid);
+        if constexpr (kStream)
+          load_stage(ring + (nx % stages) * kSlot + kStageFloats, q, nq, dim,
+                     q0, (nx % nchunks) * kDC, tid);
+      }
       cp_async_commit();
 
       const int chunk = it % nchunks;
-      const float* gs = ring + slot * kStageFloats + rg * kGStride
-                        + warp * kSubD;
-      const float* qs = sq + qg * qstride + chunk * kDC + warp * kSubD;
+      const float* gs = ring + slot * kSlot + rg * kGStride + warp * kSubD;
+      const float* qs =
+          kStream ? ring + slot * kSlot + kStageFloats + qg * kGStride
+                        + warp * kSubD
+                  : sq + qg * qstride + chunk * kDC + warp * kSubD;
 #pragma unroll
       for (int s = 0; s < kSubD; s += 4) {
         float4 a[kTQ], b[kTR];
@@ -287,7 +345,7 @@ knn_scan(const float* __restrict__ q, const float* __restrict__ g,
         // just consumed ([kWarps][kQT][kRows]; the next load into it is
         // issued after the next iteration's barrier), rank the rows
         __syncthreads();
-        float* red = ring + slot * kStageFloats;
+        float* red = ring + slot * kSlot;
 #pragma unroll
         for (int j = 0; j < kTQ; ++j)
 #pragma unroll
@@ -383,10 +441,18 @@ __global__ void knn_inv_norm(const float* __restrict__ x, int rows, int dim,
 
 struct Plan {
   int dpad, stages, smem, nparts;
+  bool stream;  // the queries stream through the ring (D past resident)
 };
 
-size_t fixed_smem(int dpad) {
-  return sizeof(float) * (static_cast<size_t>(kQT) * (dpad + 4) + kQT);
+// shared memory besides the ring: the resident query tile and its norms,
+// or (streamed) the norms alone
+size_t fixed_smem(int dpad, bool stream) {
+  return sizeof(float)
+         * ((stream ? 0 : static_cast<size_t>(kQT) * (dpad + 4)) + kQT);
+}
+
+size_t slot_bytes(bool stream) {
+  return sizeof(float) * kStageFloats * (stream ? 2 : 1);
 }
 
 int smem_optin() {
@@ -395,6 +461,38 @@ int smem_optin() {
   cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   return bytes;
+}
+
+int resident_max_dim() {
+  int dpad = 0;
+  while (fixed_smem(dpad + kDC, false) + kMinStages * slot_bytes(false)
+         <= static_cast<size_t>(smem_optin()))
+    dpad += kDC;
+  return dpad;
+}
+
+template <int K, bool kStream>
+cudaError_t configure(int dev, int na, Plan* p) {
+  const size_t fixed = fixed_smem(p->dpad, kStream);
+  const size_t slot = slot_bytes(kStream);
+  const size_t optin = static_cast<size_t>(smem_optin());
+  if (fixed + kMinStages * slot > optin) return cudaErrorInvalidValue;
+  const size_t fit = (optin - fixed) / slot;
+  p->stages = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  p->smem = static_cast<int>(fixed + p->stages * slot);
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_scan<K, kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      p->smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, knn_scan<K, kStream>, kThreads, p->smem);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (na + kRows - 1) / kRows;
+  const int resident = sms * (per_sm > 0 ? per_sm : 1);
+  p->nparts = ntiles < resident ? ntiles : resident;
+  return cudaSuccess;
 }
 
 template <int K>
@@ -408,25 +506,12 @@ cudaError_t plan_for(int na, int dim, Plan* p) {
     *p = last;
     return cudaSuccess;
   }
+  if (dim > kMaxStreamDim) return cudaErrorInvalidValue;
   p->dpad = (dim + kDC - 1) / kDC * kDC;
-  const size_t stage = sizeof(float) * kStageFloats;
-  const size_t fixed = fixed_smem(p->dpad);
-  const size_t optin = static_cast<size_t>(smem_optin());
-  if (fixed + kMinStages * stage > optin) return cudaErrorInvalidValue;
-  const size_t fit = (optin - fixed) / stage;
-  p->stages = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
-  p->smem = static_cast<int>(fixed + p->stages * stage);
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_scan<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, p->smem);
+  p->stream = p->dpad > resident_max_dim();
+  const cudaError_t err = p->stream ? configure<K, true>(dev, na, p)
+                                    : configure<K, false>(dev, na, p);
   if (err != cudaSuccess) return err;
-  int sms = 0, per_sm = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, knn_scan<K>,
-                                                      kThreads, p->smem);
-  if (err != cudaSuccess) return err;
-  const int ntiles = (na + kRows - 1) / kRows;
-  const int resident = sms * (per_sm > 0 ? per_sm : 1);
-  p->nparts = ntiles < resident ? ntiles : resident;
   last = *p;
   last_dev = dev;
   last_na = na;
@@ -441,8 +526,12 @@ cudaError_t launch(const float* q, const float* g, const float* inv_g, int nq,
   Plan p;
   cudaError_t err = plan_for<K>(na, dim, &p);
   if (err != cudaSuccess) return err;
-  knn_scan<K><<<p.nparts, kThreads, p.smem, s>>>(
-      q, g, inv_g, nq, na, dim, p.dpad, p.stages, part_d, part_i);
+  if (p.stream)
+    knn_scan<K, true><<<p.nparts, kThreads, p.smem, s>>>(
+        q, g, inv_g, nq, na, dim, p.dpad, p.stages, part_d, part_i);
+  else
+    knn_scan<K, false><<<p.nparts, kThreads, p.smem, s>>>(
+        q, g, inv_g, nq, na, dim, p.dpad, p.stages, part_d, part_i);
   ++kernels_launched;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -478,15 +567,18 @@ int knn_inv_norm_launch(const void* x, int rows, int dim, void* inv,
 // knn_merge each count one), for counting a search's launches.
 unsigned long long knn_fused_kernels_launched() { return kernels_launched; }
 
-// Largest dim whose query tile and a 2-stage ring fit one block's shared
-// memory (1280 on an H100).
+// Largest dim whose query tile stays resident beside a 2-stage ring in
+// one block's shared memory (1280 on an H100); wider queries stream.
+int knn_fused_resident_max_dim() { return resident_max_dim(); }
+
+// Largest dim the scan takes: kMaxStreamDim where a 2-slot streamed ring
+// fits one block's shared memory (4096 on an H100), else the resident
+// maximum.
 int knn_fused_max_dim() {
-  const size_t stage = sizeof(float) * kStageFloats;
-  int dpad = 0;
-  while (fixed_smem(dpad + kDC) + kMinStages * stage
-         <= static_cast<size_t>(smem_optin()))
-    dpad += kDC;
-  return dpad;
+  return fixed_smem(0, true) + kMinStages * slot_bytes(true)
+                 <= static_cast<size_t>(smem_optin())
+             ? kMaxStreamDim
+             : resident_max_dim();
 }
 
 // Partial top-k lists per query (the scan's grid size); the caller

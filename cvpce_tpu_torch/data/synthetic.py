@@ -2,16 +2,16 @@
 gallery renders.
 
 numpy copy of cvpce_tpu/data/synthetic.py: the detection sets
-(`shelf_scene`, `SyntheticShelfDataset`, `PlanogramSceneDetectionSet`),
-the planogram scenes and their photometric domain shift
-(`planogram_scene`, `apply_domain_shift`), and the DIHE gallery and
-query sets (`ArchetypeGallerySet`, `PlanogramQuerySet`). The same
-(seed, arguments) draw the same numbers in the same order and give the
-same arrays as the JAX package's functions; the defocus blur is
-`transforms.gaussian_blur` (cv2's rules, f32 rounding apart) and the
-gallery resize the port's bilinear one. The perspective warp
-(`perspective_scene`, a cv2 warp) is not ported yet: `perspective > 0`
-raises.
+(`shelf_scene`, `SyntheticShelfDataset`, `PlanogramSceneDetectionSet`,
+`InterleavedDataset`), the planogram scenes, their photometric domain
+shift and their perspective warp (`planogram_scene`,
+`apply_domain_shift`, `perspective_scene`), and the DIHE gallery, crop
+and query sets (`ArchetypeGallerySet`, `AugmentedGallerySet`,
+`SceneCropSet`, `PlanogramQuerySet`). The same (seed, arguments) draw
+the same numbers in the same order and give the same arrays as the JAX
+package's functions; the defocus blur is `transforms.gaussian_blur` and
+the warp `transforms.warp_perspective` (cv2's rules, with no cv2), and
+crop and gallery resizes are the port's bilinear one.
 """
 from __future__ import annotations
 
@@ -20,13 +20,6 @@ from typing import Dict, Tuple
 import numpy as np
 
 from . import transforms as T
-
-
-def _no_perspective(perspective: float) -> None:
-    if perspective > 0:
-        raise NotImplementedError(
-            "perspective > 0 needs perspective_scene (a cv2 warp), which "
-            "is not ported yet (ROADMAP.md Queue 1)")
 
 
 def _cached_item(store: dict, i: int, render) -> Dict:
@@ -94,11 +87,18 @@ def _augment_scene(img: np.ndarray, boxes: np.ndarray,
                    rng: np.random.Generator, domain_shift: float,
                    perspective: float):
     """Deployment-domain augmentation for detector sets: each scene
-    draws its shift strength uniformly in [0, domain_shift]."""
-    _no_perspective(perspective)
+    draws its shift and perspective strengths uniformly in [0, max]. Box
+    gt follows the warp; a box the warp squeezes below 2 px (a product
+    at the canvas edge warped out of it) is dropped."""
     if domain_shift > 0:
         img = apply_domain_shift(img, rng,
                                  float(rng.uniform(0, domain_shift)))
+    if perspective > 0 and len(boxes):
+        img, boxes, _ = perspective_scene(
+            img, boxes, rng, float(rng.uniform(0, perspective)))
+        keep = ((boxes[:, 2] - boxes[:, 0] >= 2.0)
+                & (boxes[:, 3] - boxes[:, 1] >= 2.0))
+        boxes = boxes[keep]
     return img, boxes
 
 
@@ -121,7 +121,6 @@ class SyntheticShelfDataset:
     def __init__(self, n: int, canvas_h: int = 832, canvas_w: int = 1344,
                  seed: int = 0, min_shelves: int = 4, max_shelves: int = 8,
                  domain_shift: float = 0.0, perspective: float = 0.0):
-        _no_perspective(perspective)
         self.n = n
         self.canvas_h = canvas_h
         self.canvas_w = canvas_w
@@ -342,7 +341,6 @@ class PlanogramSceneDetectionSet:
                  violation_rate: float = 0.3,
                  min_shelves: int = 3, max_shelves: int = 5,
                  domain_shift: float = 0.0, perspective: float = 0.0):
-        _no_perspective(perspective)
         self.n = n
         self.canvas_h = canvas_h
         self.canvas_w = canvas_w
@@ -427,7 +425,6 @@ class PlanogramQuerySet:
     def __init__(self, styles, n: int = 8, canvas_h: int = 832,
                  canvas_w: int = 1344, seed: int = 10_000,
                  domain_shift: float = 0.0, perspective: float = 0.0):
-        _no_perspective(perspective)
         self.styles = styles
         self.n = n
         self.canvas_h = canvas_h
@@ -444,7 +441,97 @@ class PlanogramQuerySet:
         img, _, actual, _ = planogram_scene(
             self.canvas_h, self.canvas_w, self.styles, rng,
             domain_shift=self.domain_shift)
-        return img, actual["labels"], actual["boxes"]
+        boxes = actual["boxes"]
+        if self.perspective > 0:
+            img, boxes, _ = perspective_scene(img, boxes, rng,
+                                              self.perspective)
+        return img, actual["labels"], boxes
+
+
+class InterleavedDataset:
+    """Round-robin mixture of datasets with one item contract: index i
+    comes from datasets[i % k] (detector training on shelf and
+    planogram scenes in one run)."""
+
+    def __init__(self, *datasets):
+        if not datasets:
+            raise ValueError("InterleavedDataset needs a dataset")
+        self.datasets = datasets
+
+    def __len__(self) -> int:
+        return min(len(d) for d in self.datasets) * len(self.datasets)
+
+    def __getitem__(self, i: int):
+        if not 0 <= i < len(self):
+            raise IndexError(i)
+        k = len(self.datasets)
+        return self.datasets[i % k][i // k]
+
+
+class AugmentedGallerySet:
+    """Index-time gallery augmentation: any gallery set with (emb_img,
+    gen_img, hierarchy, annotation) items (tanh scale) -> one with
+    `factor` variants per item: variant 0 the original, variants 1.. its
+    emb image through apply_domain_shift at a strength drawn in
+    [0, strength]. The set `Classifier(index_average=)` serves."""
+
+    def __init__(self, base, factor: int = 4, strength: float = 0.7,
+                 seed: int = 0):
+        if factor < 1:
+            raise ValueError(f"factor={factor} must be at least 1")
+        self.base = base
+        self.factor = factor
+        self.strength = strength
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return len(self.base) * self.factor
+
+    def __getitem__(self, i: int):
+        j, v = divmod(i, self.factor)
+        item = self.base[j]
+        if v == 0:
+            return item
+        emb, rest = item[0], item[1:]
+        rng = np.random.default_rng((self.seed, 913, j, v))
+        img01 = np.clip((np.asarray(emb) + 1.0) * 0.5, 0.0,
+                        1.0).astype(np.float32)
+        img01 = apply_domain_shift(
+            img01, rng, float(rng.uniform(0, self.strength)))
+        return (img01 * 2.0 - 1.0, *rest)
+
+
+class SceneCropSet:
+    """[0, 1] 256x256 crops (numpy) of rendered planogram scenes at their
+    gt boxes: the synthetic target domain of the GAN discriminator."""
+
+    def __init__(self, styles, n: int = 256, canvas_h: int = 832,
+                 canvas_w: int = 1344, seed: int = 3,
+                 domain_shift: float = 0.0, perspective: float = 0.0):
+        self.crops = []
+        scene_idx = 0
+        while len(self.crops) < n:
+            srng = np.random.default_rng((seed, 1, scene_idx))
+            img, _, actual, _ = planogram_scene(
+                canvas_h, canvas_w, styles, srng,
+                domain_shift=domain_shift)
+            if perspective > 0:
+                img, actual["boxes"], _ = perspective_scene(
+                    img, actual["boxes"], srng, perspective)
+            for x1, y1, x2, y2 in actual["boxes"].astype(int):
+                crop = img[max(0, y1):y2, max(0, x1):x2]
+                if crop.size == 0:
+                    continue
+                self.crops.append(T.resize_for_classification(crop).numpy())
+                if len(self.crops) >= n:
+                    break
+            scene_idx += 1
+
+    def __len__(self) -> int:
+        return len(self.crops)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return self.crops[i]
 
 
 def apply_domain_shift(img: np.ndarray, rng: np.random.Generator,
@@ -472,3 +559,31 @@ def apply_domain_shift(img: np.ndarray, rng: np.random.Generator,
     out = out + rng.normal(0, 0.04 * strength, out.shape).astype(
         np.float32)
     return np.clip(out, 0.0, 1.0).astype(np.float32)
+
+
+def perspective_scene(img: np.ndarray, boxes: np.ndarray,
+                      rng: np.random.Generator, strength: float):
+    """Mild random perspective warp of a whole scene and its boxes (a
+    camera tilt): each canvas corner moves by up to 4% * strength of the
+    canvas. Boxes become the axis-aligned hull of their warped corners,
+    clipped to the canvas. Returns (img, boxes, H (3, 3) f32)."""
+    h, w = img.shape[:2]
+    if strength <= 0:
+        return img, boxes, np.eye(3, dtype=np.float32)
+    d = 0.04 * strength
+    src = np.asarray([[0, 0], [w, 0], [w, h], [0, h]], np.float32)
+    dst = np.ascontiguousarray(
+        src + rng.uniform(-d, d, (4, 2)) * [w, h], np.float32)
+    H = T.get_perspective_transform(src, dst)
+    warped = T.warp_perspective(img, H, w, h)
+    if len(boxes):
+        corners = np.stack([boxes[:, [0, 1]], boxes[:, [2, 1]],
+                            boxes[:, [2, 3]], boxes[:, [0, 3]]], axis=1)
+        ones = np.ones((*corners.shape[:2], 1), np.float32)
+        hom = np.concatenate([corners, ones], axis=-1) @ H.T
+        pts = hom[..., :2] / np.clip(hom[..., 2:], 1e-6, None)
+        new = np.concatenate([pts.min(axis=1), pts.max(axis=1)], axis=-1)
+        new[:, [0, 2]] = np.clip(new[:, [0, 2]], 0, w - 1)
+        new[:, [1, 3]] = np.clip(new[:, [1, 3]], 0, h - 1)
+        boxes = new.astype(np.float32)
+    return warped.astype(np.float32), boxes, H.astype(np.float32)

@@ -4,8 +4,10 @@ Bilinear resizing follows OpenCV's INTER_LINEAR (half-pixel centres,
 edge clamping, no antialiasing), which `F.interpolate(mode="bilinear",
 align_corners=False)` computes. Images are HWC float32 in [0, 1], numpy
 arrays or tensors; results are tensors on `device` (the input's device
-by default). `gaussian_blur` is host numpy, like the cv2 calls it
-replaces.
+by default). `gaussian_blur`, `get_perspective_transform` and
+`warp_perspective` are host numpy, like the cv2 calls they replace, and
+follow cv2's arithmetic (OpenCV 5's, the version the tests hold them
+to) so that they give its results.
 """
 from __future__ import annotations
 
@@ -133,3 +135,108 @@ def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
             acc += w * np.take(src, np.arange(j, j + n), axis=axis)
         out = acc
     return out
+
+
+def get_perspective_transform(src, dst) -> np.ndarray:
+    """`cv2.getPerspectiveTransform(src, dst)`: the (3, 3) f64 homography
+    taking the 4 points `src` to `dst` ((4, 2) f32 each). As cv2 builds
+    it: the 8x8 system with its products -x*u taken in f32, then
+    Gaussian elimination with partial pivoting in f64 (cv2's LU), h33 = 1."""
+    src = np.asarray(src, np.float32)
+    dst = np.asarray(dst, np.float32)
+    a = np.zeros((8, 8))
+    b = np.zeros(8)
+    for i in range(4):
+        (x, y), (u, v) = src[i], dst[i]
+        a[i, 0:3] = a[i + 4, 3:6] = (x, y, 1.0)
+        a[i, 6:8] = (-(x * u), -(y * u))        # f32 products
+        a[i + 4, 6:8] = (-(x * v), -(y * v))
+        b[i], b[i + 4] = u, v
+    for i in range(8):
+        k = i + int(np.argmax(np.abs(a[i:, i])))
+        if k != i:  # the first row of the largest magnitude, as cv2's
+            a[[i, k], i:] = a[[k, i], i:]
+            b[[i, k]] = b[[k, i]]
+        d = -1.0 / a[i, i]
+        for j in range(i + 1, 8):
+            alpha = a[j, i] * d
+            a[j, i + 1:] += alpha * a[i, i + 1:]
+            b[j] += alpha * b[i]
+    for i in range(7, -1, -1):
+        s = b[i]
+        for k in range(i + 1, 8):
+            s -= a[i, k] * b[k]
+        b[i] = s / a[i, i]
+    return np.append(b, 1.0).reshape(3, 3)
+
+
+def _invert3(m: np.ndarray) -> np.ndarray:
+    """cv2.invert of a 3x3 f64 matrix (DECOMP_LU): cofactors over the
+    determinant, in cv2's order of operations."""
+    m = np.asarray(m, np.float64)
+    det = (m[0, 0] * (m[1, 1] * m[2, 2] - m[1, 2] * m[2, 1])
+           - m[0, 1] * (m[1, 0] * m[2, 2] - m[1, 2] * m[2, 0])
+           + m[0, 2] * (m[1, 0] * m[2, 1] - m[1, 1] * m[2, 0]))
+    d = 1.0 / det
+    return np.array([
+        [(m[1, 1] * m[2, 2] - m[1, 2] * m[2, 1]) * d,
+         (m[0, 2] * m[2, 1] - m[0, 1] * m[2, 2]) * d,
+         (m[0, 1] * m[1, 2] - m[0, 2] * m[1, 1]) * d],
+        [(m[1, 2] * m[2, 0] - m[1, 0] * m[2, 2]) * d,
+         (m[0, 0] * m[2, 2] - m[0, 2] * m[2, 0]) * d,
+         (m[0, 2] * m[1, 0] - m[0, 0] * m[1, 2]) * d],
+        [(m[1, 0] * m[2, 1] - m[1, 1] * m[2, 0]) * d,
+         (m[0, 1] * m[2, 0] - m[0, 0] * m[2, 1]) * d,
+         (m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]) * d]])
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """f32 fused multiply-add: the f64 product of two f32 values is
+    exact, so one rounding of a * b + c to f32 (c f32) is the fused one
+    except where the f64 sum itself rounds (a double rounding, which
+    these magnitudes do not reach)."""
+    return (np.float64(a) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def warp_perspective(img: np.ndarray, m: np.ndarray, out_w: int,
+                     out_h: int) -> np.ndarray:
+    """`cv2.warpPerspective(img, m, (out_w, out_h), flags=INTER_LINEAR,
+    borderMode=BORDER_REPLICATE)` for an f32 (H, W) or (H, W, C) image,
+    following OpenCV 5's f32 path: the inverse map (cv2.invert in f64)
+    cast to f32; per row, y * m[.,1] + m[.,2] in f32, then per pixel the
+    source x, y = fma(x, m[0,0], .) / fma(x, m[2,0], .) and likewise in
+    f32; bilinear weights are the fractions of the f32 coordinates (no
+    1/32-pixel table, which OpenCV 4.10 and older used); interpolation
+    is two fused lerps along x, then one along y; out-of-range neighbours
+    clamp to the edge. Equal to cv2 wherever the row width is a multiple
+    of its SIMD width (16 f32 lanes with AVX-512); cv2's scalar tail for
+    the last columns of other widths rounds its coordinates in another
+    order (within 1e-4 px)."""
+    img = np.asarray(img, np.float32)
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    h, w = img.shape[:2]
+    mi = _invert3(m).astype(np.float32)
+    xs = np.arange(out_w, dtype=np.float32)[None, :]
+    ys = np.arange(out_h, dtype=np.float32)[:, None]
+    row_x = ys * mi[0, 1] + mi[0, 2]
+    row_y = ys * mi[1, 1] + mi[1, 2]
+    row_w = ys * mi[2, 1] + mi[2, 2]
+    den = _fma32(xs, mi[2, 0], row_w)
+    sx = _fma32(xs, mi[0, 0], row_x) / den
+    sy = _fma32(xs, mi[1, 0], row_y) / den
+    fx, fy = np.floor(sx), np.floor(sy)
+    ax = (sx - fx)[..., None]
+    ay = (sy - fy)[..., None]
+    ix = np.clip(fx, -1, w).astype(np.int64)
+    iy = np.clip(fy, -1, h).astype(np.int64)
+    x0, x1 = np.clip(ix, 0, w - 1), np.clip(ix + 1, 0, w - 1)
+    y0, y1 = np.clip(iy, 0, h - 1), np.clip(iy + 1, 0, h - 1)
+    p00, p01 = img[y0, x0], img[y0, x1]
+    p10, p11 = img[y1, x0], img[y1, x1]
+    top = _fma32(ax, p01 - p00, p00)
+    bottom = _fma32(ax, p11 - p10, p10)
+    out = _fma32(ay, bottom - top, top)
+    return out[..., 0] if squeeze else out

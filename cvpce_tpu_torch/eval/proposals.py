@@ -23,26 +23,42 @@ def make_variables_inference_fn(config: GLNConfig, device="cuda"
                                 ) -> Callable:
     """(state_dict, images (B, H, W, 3), image_sizes (B, 2)) ->
     detections, with the weights as an argument: one GLN module serves
-    every checkpoint, and a state_dict loads into it when another one
-    (a different object) is passed."""
+    every checkpoint, and each call runs the weights it is given, as the
+    JAX function applies its variables on every call. The state_dict is
+    loaded again unless every tensor in it is the one loaded last and
+    unchanged since (same storage, same `_version`), so an in-place
+    update, as an optimizer step makes, reaches the next call."""
     dev = resolve_device(device)
     model = GLN(config).to(dev)
     anchors, counts = config.anchors()
     anchors_t = torch.from_numpy(anchors).to(dev)
-    loaded = None
+    loaded = None  # (the tensors loaded last, their versions)
 
     @torch.inference_mode()
     def infer(state_dict: Dict, images, image_sizes) -> Dict:
         nonlocal loaded
-        if loaded is not state_dict:
+        key = _weights_key(state_dict)
+        if key is None or loaded is None or loaded[1] != key:
             model.load_state_dict(state_dict)
-            loaded = state_dict
+            # holding the tensors keeps their storage from being reused
+            loaded = (list(state_dict.values()), key)
         outputs = model(torch.as_tensor(images).to(dev, torch.float32))
         sizes = torch.as_tensor(image_sizes).to(dev, torch.float32)
         return postprocess_detections(outputs, anchors_t, counts, sizes,
                                       config)
 
     return infer
+
+
+def _weights_key(state_dict: Dict):
+    """(name, storage pointer, version) of each tensor, or None where a
+    tensor keeps no version (one made under inference mode): such a
+    state_dict is loaded on every call."""
+    try:
+        return [(name, t.data_ptr(), t._version)
+                for name, t in state_dict.items()]
+    except RuntimeError:
+        return None
 
 
 def make_inference_fn(state_dict: Dict, config: GLNConfig, device="cuda"

@@ -1,4 +1,5 @@
-"""MACVGG embedder (torch); counterpart of cvpce_tpu/models/embedders.py.
+"""MAC embedders (torch): MACVGG and MACResNet; counterpart of
+cvpce_tpu/models/embedders.py.
 
 VGG16(+BN) `features` in torchvision's layer numbering, cut after the
 last ReLU of block 5. The descriptor is the concat of the spatial max
@@ -13,6 +14,13 @@ INT8_ALL_CONVS (`int8_all`) as int8 convs: dynamic scales by default,
 calibrated static scales with `int8_static`, recording them with
 `int8_calibrate`. Their act scales are keyed by the JAX module names
 `f{idx}` (`MACVGG.scale_key`), so one scale tree serves both packages.
+
+MACResNet is the same MAC idea over the stage outputs of a ResNet-50
+trunk with eval-mode BatchNorm (default c3 + c4 = 1536-d). Its input is
+the raw tanh-scale image, with no ImageNet normalisation, as in the JAX
+module. `quant` runs the trunk's 52 stage convs as int8 convs (the 7x7
+stem stays in `dtype`), keyed in the act-scale tree by module path
+(`trunk/layer1_0/conv1`), as JAX keys them.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from ..utils import resolve_device
 from .layers import cast_float_convs_, conv
 from .quant import (Int8Conv, act_scale_tree, calibrate_act_scales,
                     int8_convs, load_act_scales)
+from .resnet import ResNet50
 
 VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
              512, 512, 512, "M", 512, 512, 512, "M")
@@ -163,6 +172,56 @@ def fold_bn_variables(model: MACVGG, **kwargs) -> MACVGG:
 calibrate_int8_scales = calibrate_act_scales
 
 
+class MACResNet(nn.Module):
+    """ResNet-50 MAC embedder over stage outputs; counterpart of
+    cvpce_tpu/models/embedders.py:MACResNet. `descriptor_stages` are the
+    reference's descriptor layers + 1 (layers [2, 3] -> c3, c4). The
+    trunk computes every stage, as the JAX one does; the MAC of each
+    chosen stage is taken in f32, the stages are concatenated and the
+    result is L2-normalised with the `eps` clamp. `quant` in (None,
+    'static', 'calibrate', 'dynamic') runs the stage convs as int8
+    convs. The convs get a seeded lecun-normal init from `generator`;
+    the BatchNorms start as the identity (scale 1, bias 0, mean 0,
+    var 1), as flax initialises them."""
+
+    STAGE_SIZES = {"c1": 64, "c2": 256, "c3": 512, "c4": 1024, "c5": 2048}
+
+    def __init__(self, descriptor_stages=("c3", "c4"), eps: float = 1e-8,
+                 dtype: torch.dtype = torch.float32,
+                 quant: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        unknown = set(descriptor_stages) - set(self.STAGE_SIZES)
+        if unknown:
+            raise ValueError(f"unknown descriptor stages {sorted(unknown)}")
+        self.descriptor_stages = tuple(descriptor_stages)
+        self.eps = eps
+        self.dtype = dtype
+        self.quant = quant
+        self.trunk = ResNet50(norm="batch", quant=quant, dtype=dtype)
+        with torch.no_grad():
+            for m in self.trunk.modules():
+                if isinstance(m, (nn.Conv2d, Int8Conv)):
+                    # drawn in f32, then stored in the conv's dtype
+                    w = torch.empty(m.weight.shape)
+                    nn.init.normal_(w, 0.0, m.weight[0].numel() ** -0.5,
+                                    generator=generator)
+                    m.weight.copy_(w)
+        self.eval()
+
+    @property
+    def embedding_size(self) -> int:
+        return sum(self.STAGE_SIZES[s] for s in self.descriptor_stages)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) tanh-scale images -> (B, embedding_size) f32."""
+        feats = self.trunk(x.permute(0, 3, 1, 2))
+        desc = torch.cat([torch.amax(feats[s], dim=(2, 3)).float()
+                          for s in self.descriptor_stages], 1)
+        norm = torch.linalg.vector_norm(desc, dim=1, keepdim=True)
+        return desc / norm.clamp(min=self.eps)
+
+
 class EmbedFn:
     """Serving wrapper: `(B, 256, 256, 3)` tanh-scale images (numpy or
     tensor) -> `(B, D)` f32 embeddings on the model's device.
@@ -172,12 +231,15 @@ class EmbedFn:
     calibrated activation scales. The Classifier calibrates them on the
     gallery when it builds the index and saves them with it; an encoder
     that starts serving uncalibrated calibrates on its first batch, and
-    its scales then stay fixed."""
+    its scales then stay fixed. MACVGG marks static int8 with
+    `int8_static`; MACResNet (as the detectors) with `quant='static'`."""
 
     def __init__(self, model: nn.Module, device="cuda"):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self.needs_calibration = bool(getattr(model, "int8_static", False))
+        self.needs_calibration = bool(
+            getattr(model, "int8_static", False)
+            or getattr(model, "quant", None) == "static")
         self._calibrated = not self.needs_calibration
 
     @property

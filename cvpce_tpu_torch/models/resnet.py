@@ -1,7 +1,8 @@
-"""ResNet-50 trunk with FrozenBatchNorm (the GLN body); counterpart of
-cvpce_tpu/models/resnet.py:ResNet50 with norm='frozen' or 'none'.
-Module names follow the JAX parameter tree (`layer2_0.downsample_conv`,
-...).
+"""ResNet-50 trunk; counterpart of cvpce_tpu/models/resnet.py:ResNet50.
+`norm='frozen'` is the GLN body (FrozenBatchNorm), `norm='batch'` the
+MACResNet trunk (eval-mode BatchNorm over its running statistics, eps
+1e-5), `norm='none'` the folded serving twin. Module names follow the
+JAX parameter tree (`layer2_0.downsample_conv`, `layer2_0.bn1`, ...).
 
 `quant` runs every stage conv as an int8 conv (models/quant.py modes
 'static' / 'calibrate' / 'dynamic'); the 7x7 stem stays in `dtype`.
@@ -21,13 +22,39 @@ from .quant import qconv
 
 RESNET50_STAGES = (3, 4, 6, 3)
 STAGE_FEATURES = (64, 128, 256, 512)
-NORMS = ("frozen", "none")
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """Eval-mode BatchNorm over the running statistics (nn.BatchNorm2d's
+    parameters and buffers, eps 1e-5), normalising in f32 in flax's
+    order and returning its input's dtype, as flax's BatchNorm with a
+    bf16 compute dtype does. Train mode comes with training (ROADMAP.md,
+    Queue 1 item 4): flax's momentum and running-variance update differ
+    from torch's."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "BatchNorm in train mode is not ported yet (ROADMAP.md, "
+                "Queue 1 item 4); call .eval()")
+        # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
+        c = (None, slice(None), None, None)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean[c]) * mul[c] + self.bias[c]
+        return y.to(x.dtype)
 
 
 def _norm(kind: str, features: int) -> nn.Module:
-    if kind not in NORMS:
-        raise ValueError(f"unknown norm {kind!r}")
-    return FrozenBatchNorm(features) if kind == "frozen" else nn.Identity()
+    if kind == "frozen":
+        return FrozenBatchNorm(features)
+    if kind == "batch":
+        return BatchNorm(features)
+    if kind == "none":
+        return nn.Identity()
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 class Bottleneck(nn.Module):

@@ -12,7 +12,11 @@ counts those calls in `nearest_neighbors_fused.launches`; for CPU
 tensors it returns the plain version's result. Rows past the gallery's
 end are masked in the kernel, never ranked. A gallery that stays
 resident takes its inverse norms once, from `inverse_norms` (the same
-.cu file's first pass), and hands them to every search.
+.cu file's first pass), and hands them to every search. The kernel
+keeps a 32-query tile resident up to `knn_fused_resident_max_dim()`
+(1280 on an H100) and streams the queries beside the gallery above it,
+up to `knn_fused_max_dim()` (4096): MACResNet's 1536-d and 3904-d
+embeddings take the streamed scan.
 """
 from __future__ import annotations
 
@@ -95,9 +99,9 @@ def nearest_neighbors_fused(anchors: torch.Tensor, queries: torch.Tensor,
     if not 1 <= k <= MAX_K or k > na:
         raise ValueError(f"k={k} must be in [1, {MAX_K}] and <= A={na}")
     lib = _lib()
-    if dim % 4 or dim > lib.knn_fused_max_dim():
+    if dim % 4 or dim > knn_fused_max_dim():
         raise ValueError(f"D={dim} must be a multiple of 4 and at most "
-                         f"{lib.knn_fused_max_dim()}")
+                         f"{knn_fused_max_dim()}")
     a = anchors.float().contiguous()
     q = queries.float().contiguous()
     for name, t in (("anchors", a), ("queries", q)):
@@ -135,6 +139,17 @@ def nearest_neighbors_fused(anchors: torch.Tensor, queries: torch.Tensor,
 nearest_neighbors_fused.launches = 0
 
 
+def knn_fused_max_dim() -> int:
+    """The widest D `nearest_neighbors_fused` takes on this card."""
+    return _lib().knn_fused_max_dim()
+
+
+def knn_fused_resident_max_dim() -> int:
+    """The widest D whose query tile stays resident in the scan; wider
+    queries stream through its ring."""
+    return _lib().knn_fused_resident_max_dim()
+
+
 def kernels_launched() -> int:
     """Kernels csrc/knn_fused.cu has launched in this process (its norm
     pass, scan and merge each count one): the difference across a call
@@ -160,6 +175,7 @@ def _lib():
         lib.knn_fused_parts.argtypes = [ci, ci, ci]
         lib.knn_fused_parts.restype = ci
         lib.knn_fused_max_dim.restype = ci
+        lib.knn_fused_resident_max_dim.restype = ci
         lib.knn_fused_kernels_launched.restype = ctypes.c_ulonglong
         lib.knn_fused_error_string.argtypes = [ctypes.c_int]
         lib.knn_fused_error_string.restype = ctypes.c_char_p

@@ -188,6 +188,54 @@ def large_common_subgraph(g1: Graph, g2: Graph, edge_label: str = "dir",
     return best
 
 
+def tonioni_mcs(g1: Graph, g2: Graph, edge_label: str = "dir",
+                min_score: float = -0.2) -> Set[Tuple]:
+    """Branch-and-bound maximum-common-subgraph variant (the reference's
+    unused alternative to large_common_subgraph): from each hypothesis
+    in score order, repeatedly commit the strongest one, rescore and
+    prune the rest, and keep the largest set of pairs found."""
+
+    def descend(hypo: List[Tuple], incumbent: int) -> Set[Tuple]:
+        """Commit hypotheses until scores drop below `min_score` or the
+        optimistic bound (committed + pairwise-disjoint survivors) can
+        no longer beat the incumbent."""
+        chosen: Set[Tuple] = set()
+        while hypo:
+            neg_s, n1, n2 = hypo[0]
+            if neg_s > min_score:
+                break
+            chosen.add((n1, n2))
+            adjacent = set(_aligned_neighbors(g1, g2, n1, n2, edge_label))
+            seen1: Set = set()
+            seen2: Set = set()
+            bound = 0
+            survivors = []
+            for neg_s2, x1, x2 in hypo[1:]:
+                if x1 == n1 or x2 == n2:
+                    continue  # mutually exclusive with the commit
+                if (x1, x2) in adjacent:
+                    neg_s2 -= 1  # reward connectivity to the region
+                if x1 not in seen1 and x2 not in seen2:
+                    bound += 1
+                seen1.add(x1)
+                seen2.add(x2)
+                survivors.append((neg_s2, x1, x2))
+            if len(chosen) + bound < incumbent:
+                break
+            hypo = sorted(survivors)
+        return chosen
+
+    hypotheses = build_hypotheses(g1, g2, edge_label)
+    best: Set[Tuple] = set()
+    for i in range(len(hypotheses)):
+        if len(best) > len(hypotheses) - i:
+            break
+        sol = descend(hypotheses[i:], len(best))
+        if len(sol) > len(best):
+            best = sol
+    return best
+
+
 def _ransac_points(boxes: np.ndarray) -> np.ndarray:
     """Top-left, bottom-right and centre point per box."""
     centres = np.stack([(boxes[:, 0] + boxes[:, 2]) / 2,
@@ -195,21 +243,40 @@ def _ransac_points(boxes: np.ndarray) -> np.ndarray:
     return np.concatenate([boxes[:, :2], boxes[:, 2:], centres], axis=0)
 
 
+def _ransac_points_cross(boxes: np.ndarray) -> np.ndarray:
+    """Cross variant: centre and the four edge midpoints (top, bottom,
+    left, right) per box, the reference's unused alternative;
+    finalize_via_ransac takes it as `points_fn`."""
+    cx = (boxes[:, 0] + boxes[:, 2]) / 2
+    cy = (boxes[:, 1] + boxes[:, 3]) / 2
+    centres = np.stack([cx, cy], axis=1)
+    tops = np.stack([cx, boxes[:, 1]], axis=1)
+    bottoms = np.stack([cx, boxes[:, 3]], axis=1)
+    lefts = np.stack([boxes[:, 0], cy], axis=1)
+    rights = np.stack([boxes[:, 2], cy], axis=1)
+    return np.concatenate([centres, tops, bottoms, lefts, rights], axis=0)
+
+
 def finalize_via_ransac(solution: Set[Tuple], b1, b2, l1: Sequence,
                         l2: Sequence, reproj_threshold: float = 10.0,
-                        iou_threshold: float = 0.5, seed: int = 0,
-                        device="cuda"):
-    """Fit the expected->actual homography on matched pairs, project all
+                        iou_threshold: float = 0.5,
+                        return_matched_actual: bool = False,
+                        return_expected_positions: bool = False,
+                        seed: int = 0, points_fn=None, device="cuda"):
+    """Fit the expected->actual homography on matched pairs (points per
+    box from `points_fn`, default `_ransac_points`), project all
     expected boxes, match per label by IoU. Returns (matched_expected,
-    missing_indices, missing_positions, missing_labels), or four Nones
-    when no homography fits."""
+    [matched_actual,] [expected_positions,] missing_indices,
+    missing_positions, missing_labels), the bracketed entries when their
+    flag is set, or as many Nones when no homography fits."""
     b1 = np.asarray(b1, np.float32)
     b2 = np.asarray(b2, np.float32)
     nodes1, nodes2 = (list(x) for x in zip(*solution))
     boxes1 = b1[nodes1]
     boxes2 = b2[nodes2]
-    pts1 = _ransac_points(boxes1)
-    pts2 = _ransac_points(boxes2)
+    points_fn = points_fn or _ransac_points
+    pts1 = points_fn(boxes1)
+    pts2 = points_fn(boxes2)
     if len(solution) < 2:
         pts1 = np.concatenate([pts1, boxes1[:, (2, 1)], boxes1[:, (0, 3)]])
         pts2 = np.concatenate([pts2, boxes2[:, (2, 1)], boxes2[:, (0, 3)]])
@@ -221,13 +288,15 @@ def finalize_via_ransac(solution: Set[Tuple], b1, b2, l1: Sequence,
         torch.ones(len(pts1), dtype=torch.bool, device=dev), gen,
         reproj_threshold=reproj_threshold)
     if not bool(ok):
-        return None, None, None, None
+        return (None,) * (4 + return_matched_actual
+                          + return_expected_positions)
     expected_t = project_boxes(h, torch.from_numpy(b1).to(dev))
     expected_positions = expected_t.cpu().numpy()
     b2_t = torch.from_numpy(b2).to(dev)
 
     l1_ids, l2_ids, key = labels_to_tensors(l1, l2)
     matched_expected = np.zeros(len(expected_positions), bool)
+    matched_actual = np.zeros(len(b2), bool)
     for lbl in range(len(key)):
         rev_exp = np.where(l1_ids == lbl)[0]
         rev_act = np.where(l2_ids == lbl)[0]
@@ -248,8 +317,13 @@ def finalize_via_ransac(solution: Set[Tuple], b1, b2, l1: Sequence,
                     continue
                 used[j] = True
                 matched_expected[rev_exp[i]] = True
+                matched_actual[rev_act[j]] = True
 
     missing = np.where(~matched_expected)[0]
     missing_labels = tensors_to_labels(key, l1_ids[missing])[0]
-    return (matched_expected, missing, expected_positions[missing],
-            missing_labels)
+    out = [matched_expected]
+    if return_matched_actual:
+        out.append(matched_actual)
+    if return_expected_positions:
+        out.append(expected_positions)
+    return (*out, missing, expected_positions[missing], missing_labels)

@@ -1,10 +1,23 @@
 """Adversarial inputs for the port's kernels: the one source of the edge
 cases that `tests/test_torch_cuda.py` (under pytest) and `chip_smoke.py`
 (in the smoke run on the card) both hold K1, K2, K3 and K4 to their
-plain versions on. Numpy only; the callers move the arrays to the card."""
+plain versions on. Numpy only; the callers move the arrays to the card.
+
+Also seeded state_dicts in the reference checkpoints' layouts
+(torchvision resnet50 and vgg16(_bn) `features`, the reference MACVGG's
+block slices, the reference GaussianLayerNetwork), for the checkpoint
+loaders: numpy draws in torch tensors, with the key sets, shapes and
+draw order of the JAX package's tests' builders
+(tests/test_model_parity.py, tests/test_checkpoint_import.py).
+"""
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
+import torch
+
+from .cli.common import MACVGG_BLOCK2_OFFSET
 
 # K1, called through nms_keep_sorted on score-sorted boxes
 NMS_EDGE_CASES = ("identical", "walk_lt_n", "n4693", "ragged_walks",
@@ -187,3 +200,146 @@ def pool_case(case: str, rng: np.random.Generator):
     scale = rng.uniform(1e-5, 1e-4, cout).astype(np.float32)
     bias = rng.normal(0, 0.1, cout).astype(np.float32)
     return bf16_round(x.astype(np.float32)), kq, a_scale, scale, bias
+
+
+# ------------------------------------------- reference-layout checkpoints
+
+RESNET50_STAGES = (3, 4, 6, 3)
+RESNET50_WIDTHS = (64, 128, 256, 512)
+VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+             512, 512, 512, "M", 512, 512, 512, "M")
+
+
+def _rand_conv(rng: np.random.Generator, cout: int, cin: int,
+               k: int) -> torch.Tensor:
+    w = rng.normal(size=(cout, cin, k, k)) * (2.0 / np.sqrt(cin * k * k)) \
+        * 0.5
+    return torch.tensor(w.astype(np.float32))
+
+
+def _rand_bn(rng: np.random.Generator, sd: Dict, prefix: str,
+             c: int) -> None:
+    """Non-trivial BatchNorm statistics: scale and var in [0.5, 1.5]."""
+    sd[f"{prefix}.weight"] = torch.tensor(
+        rng.uniform(0.5, 1.5, c).astype(np.float32))
+    sd[f"{prefix}.bias"] = torch.tensor(
+        rng.normal(0, 0.1, c).astype(np.float32))
+    sd[f"{prefix}.running_mean"] = torch.tensor(
+        rng.normal(0, 0.1, c).astype(np.float32))
+    sd[f"{prefix}.running_var"] = torch.tensor(
+        rng.uniform(0.5, 1.5, c).astype(np.float32))
+
+
+def resnet50_state_dict(rng: np.random.Generator) -> Dict[str, torch.Tensor]:
+    """torchvision resnet50 trunk names (`layer1.0.downsample.0.weight`,
+    ...), no fc head."""
+    sd = {"conv1.weight": _rand_conv(rng, 64, 3, 7)}
+    _rand_bn(rng, sd, "bn1", 64)
+    cin = 64
+    for si, blocks in enumerate(RESNET50_STAGES):
+        width = RESNET50_WIDTHS[si]
+        for bi in range(blocks):
+            p = f"layer{si + 1}.{bi}"
+            sd[f"{p}.conv1.weight"] = _rand_conv(rng, width, cin, 1)
+            _rand_bn(rng, sd, f"{p}.bn1", width)
+            sd[f"{p}.conv2.weight"] = _rand_conv(rng, width, width, 3)
+            _rand_bn(rng, sd, f"{p}.bn2", width)
+            sd[f"{p}.conv3.weight"] = _rand_conv(rng, width * 4, width, 1)
+            _rand_bn(rng, sd, f"{p}.bn3", width * 4)
+            if bi == 0:
+                sd[f"{p}.downsample.0.weight"] = _rand_conv(
+                    rng, width * 4, cin, 1)
+                _rand_bn(rng, sd, f"{p}.downsample.1", width * 4)
+            cin = width * 4
+    return sd
+
+
+def vgg16_features_state_dict(rng: np.random.Generator,
+                              batch_norm: bool = True
+                              ) -> Dict[str, torch.Tensor]:
+    """torchvision vgg16_bn (or, without `batch_norm`, vgg16) `features.*`
+    convs and BatchNorms."""
+    sd = {}
+    idx = 0
+    cin = 3
+    for entry in VGG16_CFG:
+        if entry == "M":
+            idx += 1
+            continue
+        sd[f"features.{idx}.weight"] = _rand_conv(rng, entry, cin, 3)
+        sd[f"features.{idx}.bias"] = torch.tensor(
+            rng.normal(0, 0.05, entry).astype(np.float32))
+        idx += 1
+        if batch_norm:
+            _rand_bn(rng, sd, f"features.{idx}", entry)
+            idx += 1
+        idx += 1  # relu
+        cin = entry
+    return sd
+
+
+# the reference MACVGG cuts vgg.features after block 4's last ReLU and
+# after block 5's: block1 = features[:cut], block2 = features[cut:end],
+# each renumbered from 0
+MACVGG_SLICES = {bn: (MACVGG_BLOCK2_OFFSET[bn], end)
+                 for bn, end in ((True, 43), (False, 30))}
+
+
+def macvgg_reference_state_dict(rng: np.random.Generator,
+                                batch_norm: bool = True
+                                ) -> Dict[str, torch.Tensor]:
+    """A reference MACVGG checkpoint: `block1.{i}` / `block2.{i}` slices
+    of seeded vgg16(_bn) features."""
+    return macvgg_slices(vgg16_features_state_dict(rng, batch_norm),
+                         batch_norm)
+
+
+def macvgg_slices(features: Dict[str, torch.Tensor],
+                  batch_norm: bool = True) -> Dict[str, torch.Tensor]:
+    """vgg16(_bn) `features.*` -> the reference MACVGG's `block1.{i}` /
+    `block2.{i}` slices of them."""
+    cut, end = MACVGG_SLICES[batch_norm]
+    sliced = {}
+    for k, v in features.items():
+        idx = int(k.split(".")[1])
+        tail = k.split(".", 2)[2]
+        if idx < cut:
+            sliced[f"block1.{idx}.{tail}"] = v
+        elif idx < end:
+            sliced[f"block2.{idx - cut}.{tail}"] = v
+    return sliced
+
+
+def gln_reference_state_dict(rng: np.random.Generator
+                             ) -> Dict[str, torch.Tensor]:
+    """A reference GaussianLayerNetwork checkpoint: torchvision's RetinaNet
+    layout (resnet50 body, FPN with P6/P7, classification and regression
+    heads) plus `backbone.gaussian_layer` and `backbone.gaussian_subnet`."""
+    sd = {f"backbone.body.{k}": v
+          for k, v in resnet50_state_dict(rng).items()}
+
+    def conv_wb(prefix, cout, cin, k):
+        sd[f"{prefix}.weight"] = _rand_conv(rng, cout, cin, k)
+        sd[f"{prefix}.bias"] = torch.tensor(
+            rng.normal(0, 0.02, cout).astype(np.float32))
+
+    for i, cin in enumerate((512, 1024, 2048)):
+        conv_wb(f"backbone.fpn.inner_blocks.{i}", 256, cin, 1)
+        conv_wb(f"backbone.fpn.layer_blocks.{i}", 256, 256, 3)
+    conv_wb("backbone.fpn.extra_blocks.p6", 256, 256, 3)
+    conv_wb("backbone.fpn.extra_blocks.p7", 256, 256, 3)
+    conv_wb("backbone.gaussian_layer.lateral", 256, 256, 1)
+    conv_wb("backbone.gaussian_layer.block1.conv", 128, 256, 3)
+    _rand_bn(rng, sd, "backbone.gaussian_layer.block1.norm", 128)
+    conv_wb("backbone.gaussian_layer.block2.conv", 64, 128, 3)
+    _rand_bn(rng, sd, "backbone.gaussian_layer.block2.norm", 64)
+    for i, (cin, cout, k) in enumerate(
+            [(64, 32, 3), (32, 32, 3), (32, 16, 3), (16, 16, 1), (16, 1, 1)]):
+        conv_wb(f"backbone.gaussian_subnet.blocks.{i}.conv", cout, cin, k)
+    for head, final in (("classification_head", "cls_logits"),
+                        ("regression_head", "bbox_reg")):
+        for i in range(4):
+            conv_wb(f"head.{head}.conv.{2 * i}", 256, 256, 3)
+        conv_wb(f"head.{head}.{final}", 9 if final == "cls_logits" else 36,
+                256, 3)
+    return sd

@@ -3,7 +3,7 @@ state_dicts.
 
 Input trees are nested dicts of numpy arrays, as the JAX serving
 loaders return them (`{params, frozen, batch_stats}` for GLN;
-`(params, batch_stats)` for MACVGG). This module reads no checkpoint
+`(params, batch_stats)` for MACVGG and MACResNet). This module reads no checkpoint
 itself. Layout changes: conv kernels HWIO -> OIHW; FrozenBN
 `scale/bias/mean/var` -> `weight/bias/running_mean/running_var`; flax
 BatchNorm likewise plus a `num_batches_tracked` counter. Module paths
@@ -79,6 +79,16 @@ def macvgg_state_dict(params: Mapping, batch_stats: Mapping
 
     return _convert([("params", params), ("batch_stats", batch_stats)],
                     rename)
+
+
+def macresnet_state_dict(params: Mapping, batch_stats: Mapping
+                         ) -> Dict[str, torch.Tensor]:
+    """MACResNet (params, batch_stats) -> models.embedders.MACResNet
+    state_dict: `trunk/.../bnZ/bn/{scale,bias}` -> `trunk....bnZ.weight /
+    .bias`, `batch_stats/.../{mean,var}` -> `running_mean / running_var`,
+    conv kernels HWIO -> OIHW."""
+    return _convert([("params", params), ("batch_stats", batch_stats)],
+                    lambda mods: [m for m in mods if m != "bn"])
 
 
 # a JAX `act_scales` tree (numpy or float leaves) -> the Int8Conv buffers

@@ -164,9 +164,24 @@ def test_archetype_gallery_set_matches_jax():
 
 
 def test_perspective_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        syn.PlanogramSceneDetectionSet(2, 64, 96, perspective=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        syn.PlanogramQuerySet(syn.product_styles(4), perspective=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        syn.SyntheticShelfDataset(2, 64, 96, perspective=0.1)
+    """The name predates the port of perspective_scene: the three sets
+    that raised NotImplementedError for perspective > 0 now warp, and
+    give the JAX sets' boxes and (within the blur's bound) images;
+    tests/test_torch_perspective.py holds the warp itself to cv2."""
+    styles, j_styles = syn.product_styles(4), j_syn.product_styles(4)
+    for got, want in (
+            (syn.PlanogramSceneDetectionSet(2, 64, 96, perspective=0.5),
+             j_syn.PlanogramSceneDetectionSet(2, 64, 96, perspective=0.5)),
+            (syn.SyntheticShelfDataset(2, 64, 96, perspective=0.1),
+             j_syn.SyntheticShelfDataset(2, 64, 96, perspective=0.1))):
+        for i in range(2):
+            np.testing.assert_array_equal(got[i]["boxes"], want[i]["boxes"])
+            np.testing.assert_allclose(got[i]["image"], want[i]["image"],
+                                       atol=BLUR_TOL)
+    got = syn.PlanogramQuerySet(styles, n=1, canvas_h=64, canvas_w=96,
+                                perspective=0.5)[0]
+    want = j_syn.PlanogramQuerySet(j_styles, n=1, canvas_h=64, canvas_w=96,
+                                   perspective=0.5)[0]
+    np.testing.assert_allclose(got[0], want[0], atol=BLUR_TOL)
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[2], want[2])

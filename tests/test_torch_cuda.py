@@ -54,7 +54,10 @@ def test_kernel_wrappers_refuse_what_kernels_cannot_take(cuda):
         knn.nearest_neighbors_fused(g, misaligned, 1)
     with pytest.raises(ValueError, match="multiple of 4"):
         knn.nearest_neighbors_fused(g[:, :1022], q[:, :1022], 1)
-    wide = knn._lib().knn_fused_max_dim() + 4
+    # the streamed-query scan takes MACResNet's widest descriptor (c1..c5)
+    assert knn.knn_fused_resident_max_dim() < 1536
+    assert knn.knn_fused_max_dim() >= 3904
+    wide = knn.knn_fused_max_dim() + 4
     with pytest.raises(ValueError, match="at most"):
         knn.nearest_neighbors_fused(torch.zeros((4096, wide), device=cuda),
                                     torch.zeros((2, wide), device=cuda), 1)
@@ -74,12 +77,18 @@ def test_kernel_wrappers_refuse_what_kernels_cannot_take(cuda):
 
 
 # D = 1000 ends in a partial depth stage; D = 256 is a single one; Q = 200
-# runs 7 query tiles through one block's ring at the serving gallery
+# runs 7 query tiles through one block's ring at the serving gallery.
+# D = 1284 and up stream the queries through the ring: 1284 is the first
+# such D and ends in a 4-deep chunk, 1536 is MACResNet's c3 + c4, 3904
+# its c1..c5
 @pytest.mark.parametrize("nq,na,k,cached_norms,dim", [
     (40, 5000, 1, False, 1024), (40, 5000, 1, True, 1024),
     (200, 8192, 8, True, 1024),
     (40, 5000, 8, False, 1024), (40, 5000, 8, True, 1024),
-    (67, 4097, 5, True, 1000), (5, 20000, 8, True, 256)] + [
+    (67, 4097, 5, True, 1000), (5, 20000, 8, True, 256),
+    (32, 8192, 1, True, 1536), (67, 4097, 5, False, 1536),
+    (1, 4096, 1, True, 1284), (33, 4097, 8, True, 3904),
+    (200, 4096, 8, False, 3904)] + [
     (nq, na, k, True, 1024) for nq in testing.KNN_QUERIES
     for na in testing.KNN_GALLERIES for k in testing.KNN_KS])
 def test_knn_kernel_matches_plain(cuda, nq, na, k, cached_norms, dim):

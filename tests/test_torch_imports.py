@@ -23,7 +23,9 @@ REQUIRED = {"cvpce_tpu_torch.ops.metrics", "cvpce_tpu_torch.eval",
             "cvpce_tpu_torch.pipeline.calibrate",
             "cvpce_tpu_torch.pipeline.serving",
             "cvpce_tpu_torch.pipeline.colorcorrect",
-            "cvpce_tpu_torch.pipeline.native"}
+            "cvpce_tpu_torch.pipeline.native",
+            "cvpce_tpu_torch.cli.common",
+            "cvpce_tpu_torch.utils.torch_import"}
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -53,4 +55,4 @@ def test_port_imports_no_missing_package():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 31
+    assert count >= 34
