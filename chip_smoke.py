@@ -56,7 +56,21 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   loaded through cli/common.py onto the card, every parameter and
   output held bit for bit against the same dict loaded directly;
 - data.perspective: eval_dihe through the MACResNet index on
-  perspective-warped query scenes (the warp is the port's numpy one).
+  perspective-warped query scenes (the warp is the port's numpy one);
+- train.parity: one GLN train step on the card and one on the CPU at
+  256x384, batch 2 (tanh, simple Gaussians), from the same seeded
+  reference-layout checkpoint loaded through cli/common.py and the same
+  collated SyntheticShelfDataset batch: losses, updated parameters and
+  the Gaussian branch's running statistics held within stated
+  tolerances, the frozen stem and every FrozenBN buffer unchanged;
+- train.gln: train_proposal_generator at 832x1344 (the best model's
+  recipe), batch 2, 8 scenes, 2 epochs, rotating checkpoints every 2
+  steps, an eval on 4 held-out scenes after each epoch with K1 launched
+  in each; its files, finite losses, and epoch 1's scores differing from
+  epoch 0's; seconds per step, per eval and the peak memory;
+- train.resume: at 256x384, 2 epochs in one go against 1 epoch and a
+  resume=True epoch: the iteration counter continues, the momentum
+  buffers come back as saved, the resumed epoch's losses agree.
 
 Prints one JSON line per phase with its elapsed seconds, then the
 `{"kernels": [...]}` line, the card's name and power limit as nvidia-smi
@@ -70,12 +84,17 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Dict
+from unittest import mock
 
 import numpy as np
 import torch
@@ -84,6 +103,7 @@ from cvpce_tpu_torch import _build, testing
 from cvpce_tpu_torch.cli.common import load_embedder, load_gln_state_dict
 from cvpce_tpu_torch.data import synthetic
 from cvpce_tpu_torch.data import transforms as T
+from cvpce_tpu_torch.data.sku110k import collate_detection
 from cvpce_tpu_torch.eval import (eval_dihe, evaluate_detections,
                                   evaluate_gln, evaluate_planograms,
                                   mean_average_metrics)
@@ -95,6 +115,7 @@ from cvpce_tpu_torch.models.gln import GLN, GLNConfig, fold_gln_backbone
 from cvpce_tpu_torch.ops import conv_fused
 from cvpce_tpu_torch.ops import knn as knn_ops
 from cvpce_tpu_torch.ops import nms as nms_ops
+from cvpce_tpu_torch.ops.matching import match_anchors
 from cvpce_tpu_torch.ops.metrics import calculate_metrics
 from cvpce_tpu_torch.pipeline import native
 from cvpce_tpu_torch.pipeline.calibrate import (calibrate_confidence,
@@ -107,6 +128,10 @@ from cvpce_tpu_torch.pipeline.classifier import Classifier
 from cvpce_tpu_torch.pipeline.evaluator import (PlanogramComparator,
                                                 PlanogramEvaluator)
 from cvpce_tpu_torch.pipeline.proposals import ProposalGenerator
+from cvpce_tpu_torch.train import gln as gln_train
+from cvpce_tpu_torch.train.checkpoint import CheckpointManager
+from cvpce_tpu_torch.train import loops as train_loops
+from cvpce_tpu_torch.train.loops import train_proposal_generator
 from cvpce_tpu_torch.utils.torch_import import (import_gln, import_resnet50,
                                                 import_vgg16_features)
 
@@ -145,6 +170,16 @@ POOL_SITES = (("pool1_conv2_1", 256, 64, 128),
               ("pool3_conv4_1", 64, 256, 512))
 POOL_BATCH = 128
 BUILD = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# training: the parity and resume phases' canvas, the full-width
+# trainer's scenes (batch 2: 4 steps an epoch) and held-out scenes
+TRAIN_SMALL_HW = (256, 384)
+TRAIN_BATCH = 2
+TRAIN_SCENES = 8
+TRAIN_EVAL_SCENES = 4
+# a resumed epoch's losses against the uninterrupted run's (relative,
+# cuDNN deterministic): within this, or 4x a rerun's distance where the
+# card's own spread is wider (atomics outside cuDNN)
+RESUME_LOSS_TOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -1511,6 +1546,266 @@ def phase_data_perspective(ctx, seed):
           "launches": launches, "seconds": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------- training
+
+def reference_gln_checkpoint(seed) -> str:
+    """A seeded reference-layout GLN checkpoint file (the reference's
+    GaussianLayerNetwork names), the training phases' starting point,
+    with torchvision RetinaNet's focal prior (0.01) on the
+    classification bias. With the seeded bias, N(0, 0.02), every anchor
+    scores about 0.5, and SGD at the recipe's LR diverged at 832x1344
+    within 6 steps (PERF.md section 6)."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    path = BUILD / "train_reference_gln.pth"
+    sd = testing.gln_reference_state_dict(np.random.default_rng((seed, 71)))
+    sd["head.classification_head.cls_logits.bias"].fill_(
+        -math.log((1 - 0.01) / 0.01))
+    torch.save({"model_state_dict": sd}, path)
+    return str(path)
+
+
+def train_configs(h=None, w=None, **train_kw):
+    """The best model's recipe (cvpce_tpu/cli/gln.py:84-124 with --tanh
+    --method simple --hyperopt-params) at a canvas of h x w."""
+    canvas = {} if h is None else {"canvas_h": h, "canvas_w": w}
+    return (GLNConfig(tanh=True, **canvas),
+            gln_train.GLNTrainConfig(
+                gauss_method="simple", lr_multiplier=0.995,
+                negative_threshold=-1.0, positive_threshold=0.3,
+                **train_kw))
+
+
+def phase_train_parity(seed, ref):
+    """One train step on the card and one on the CPU, from the same
+    reference-layout checkpoint (through cli/common.py) and the same
+    collated batch of 2 SyntheticShelfDataset scenes at 256x384."""
+    t0 = time.perf_counter()
+    h, w = TRAIN_SMALL_HW
+    config, train_cfg = train_configs(h, w, steps_per_epoch=1)
+    state = load_gln_state_dict(ref, config)
+    scenes = synthetic.SyntheticShelfDataset(TRAIN_BATCH, h, w,
+                                             seed=seed + 500)
+    b = collate_detection([scenes[i] for i in range(TRAIN_BATCH)])
+    batch = (b["images"], b["boxes"], b["box_valid"], b["image_sizes"])
+    steps = testing.train_step_on_devices(config, train_cfg, state, batch)
+    diff = testing.train_step_differences(state, steps["cuda"],
+                                          steps["cpu"])
+    for name, (metrics, _) in steps.items():
+        require(all(np.isfinite(v) for v in metrics.values()),
+                f"non-finite losses on {name}: {metrics}")
+    require(diff["frozen_kept"], "the frozen stem or a FrozenBN buffer "
+            "moved in a train step")
+    for key, tol in testing.TRAIN_STEP_TOL.items():
+        require(diff[key] <= tol, f"train step on the card and the CPU: "
+                f"{key} {diff[key]} > {tol}")
+    emit({"phase": "train.parity", "canvas": [h, w], "batch": TRAIN_BATCH,
+          "gt_boxes": int(b["box_valid"].sum()),
+          "losses": {k: v[0] for k, v in steps.items()}, **diff,
+          "tolerances": testing.TRAIN_STEP_TOL,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_train_gln(seed, ref):
+    """train_proposal_generator at 832x1344, batch 2, 8 scenes (4 steps
+    an epoch), 2 epochs, rotating checkpoints every 2 steps and an eval
+    on 4 held-out scenes after each epoch. evaluate_gln is wrapped to
+    time each eval, count its K1 launches and keep its scores."""
+    t0 = time.perf_counter()
+    config, train_cfg = train_configs()
+    out = BUILD / "train"
+    shutil.rmtree(out, ignore_errors=True)
+    trainset = synthetic.SyntheticShelfDataset(TRAIN_SCENES, seed=seed + 600)
+    evalset = synthetic.SyntheticShelfDataset(TRAIN_EVAL_SCENES,
+                                              seed=seed + 700)
+    evals = []
+    real_eval = train_loops.evaluate_gln
+
+    def timed_eval(*args, **kwargs):
+        _reset_launches()
+        te = time.perf_counter()
+        res, (_, _, confs) = real_eval(*args, return_detections=True,
+                                       **kwargs)
+        torch.cuda.synchronize()
+        evals.append({"seconds": time.perf_counter() - te,
+                      "launches": _launches(),
+                      "scores": np.concatenate(confs)})
+        return res
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(train_loops, "evaluate_gln", timed_eval):
+        result = train_proposal_generator(
+            trainset, evalset, str(out), model_cfg=config,
+            train_cfg=train_cfg, batch_size=TRAIN_BATCH, epochs=2,
+            checkpoint_interval=2, eval_interval=1, eval_threshold=0.5,
+            load_torch=ref, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    with open(out / "stats_1.json") as f:
+        stats = json.load(f)
+    steps = TRAIN_SCENES // TRAIN_BATCH * 2
+    losses = [stats[k] for k in ("class_loss", "reg_loss", "gauss_loss")]
+    require(result["state"].step == steps and all(
+        len(v) == steps for v in losses), f"{result['state'].step} steps")
+    require(np.isfinite(losses).all(), f"non-finite losses {losses}")
+    require(len(evals) == 2, f"{len(evals)} epoch evals")
+    for i, e in enumerate(evals):
+        require(e["launches"]["nms_hard"] >= 1,
+                f"K1 not launched in epoch {i}'s eval")
+    files = sorted(p.name for p in out.iterdir())
+    for name in ("checkpoint", "previous_checkpoint", "stats_0.json",
+                 "stats_1.json", "epoch_0"):
+        require(name in files, f"{name} not written ({files})")
+    s0, s1 = evals[0]["scores"], evals[1]["scores"]
+    require(s0.shape != s1.shape or not np.array_equal(s0, s1),
+            "the epoch-1 eval scored as epoch 0's: the updated weights "
+            "did not reach the inference function")
+    times = stats["batch_times"]
+    breakdown = train_step_breakdown(result["state"], config, train_cfg,
+                                     trainset)
+    emit({"phase": "train.gln", "canvas": [config.canvas_h, config.canvas_w],
+          "batch": TRAIN_BATCH, "steps": steps,
+          "first_step_seconds": times[0],
+          "median_step_seconds": statistics.median(times[1:]),
+          "step_seconds": times,
+          "eval_seconds": [e["seconds"] for e in evals],
+          "eval_launches": [e["launches"] for e in evals],
+          "eval_detections": [int(e["scores"].size) for e in evals],
+          "best": result["best"], "losses": losses, "files": files,
+          "max_memory_allocated": peak,
+          "allocated_before": resident, "step_ms_by_stage": breakdown,
+          "seconds": time.perf_counter() - t0})
+    return sum(e["launches"]["nms_hard"] for e in evals)
+
+
+def train_step_breakdown(state, config, train_cfg, trainset, reps=3):
+    """Device milliseconds of each stage of train/gln.py's step on one
+    batch (median of `reps`, CUDA events, the stages in the step's
+    order): the heatmap targets, the forward, the matcher alone, the
+    losses (the matcher again, focal, L1, heatmap), the backward and the
+    SGD update."""
+    model = state.model
+    b = collate_detection([trainset[i] for i in range(TRAIN_BATCH)])
+    images = torch.from_numpy(b["images"]).cuda()
+    boxes = torch.from_numpy(b["boxes"]).cuda()
+    valid = torch.from_numpy(b["box_valid"]).cuda()
+    sizes = torch.from_numpy(b["image_sizes"]).cuda()
+    anchors = torch.from_numpy(config.anchors()[0]).cuda()
+    stages = ("targets", "forward", "match", "losses", "backward", "sgd")
+    ms = {k: [] for k in stages}
+    for _ in range(reps):
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(stages) + 1)]
+        torch.cuda.synchronize()
+        events[0].record()
+        heat = gln_train.render_heatmap_targets(boxes, valid, sizes, config,
+                                                train_cfg)[..., None]
+        events[1].record()
+        model.train()
+        out = model(images)
+        events[2].record()
+        match_anchors(anchors, boxes, valid, chunk=train_cfg.match_chunk)
+        events[3].record()
+        losses = gln_train.compute_losses(out, anchors, boxes, valid, heat,
+                                          config, train_cfg)
+        total = (train_cfg.scale_class * losses["classification"]
+                 + losses["bbox_regression"]
+                 + train_cfg.scale_gaussian * losses["gaussian"])
+        events[4].record()
+        total.backward()
+        events[5].record()
+        gln_train.apply_gradients(state.optimizer, train_cfg, state.step)
+        events[6].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(stages):
+            ms[k].append(events[i].elapsed_time(events[i + 1]))
+    return {k: statistics.median(v) for k, v in ms.items()}
+
+
+def phase_train_resume(seed, ref):
+    """At 256x384: 2 epochs in one go, twice, against 1 epoch and then
+    resume=True for 1 more, with cuDNN's deterministic algorithms. The
+    rerun measures the card's run-to-run spread; a resume that lost its
+    momentum or its place in the LR schedule would be orders of
+    magnitude further off."""
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _train_resume(seed, ref, t0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _loss_rel(got: Dict, want: Dict, skip: int) -> float:
+    """Largest relative difference of two stats files' loss series, the
+    second's first `skip` steps left out."""
+    worst = 0.0
+    for key in ("class_loss", "reg_loss", "gauss_loss"):
+        a, b = np.asarray(got[key]), np.asarray(want[key][skip:])
+        require(a.shape == b.shape, f"{key}: {len(a)} steps, {len(b)}")
+        worst = max(worst, float((np.abs(a - b) / np.abs(b)).max()))
+    return worst
+
+
+def _train_resume(seed, ref, t0):
+    h, w = TRAIN_SMALL_HW
+    config, train_cfg = train_configs(h, w)
+    out = BUILD / "train_resume"
+    shutil.rmtree(out, ignore_errors=True)
+    trainset = synthetic.SyntheticShelfDataset(4, h, w, seed=seed + 800)
+    evalset = synthetic.SyntheticShelfDataset(2, h, w, seed=seed + 900)
+    common = dict(model_cfg=config, train_cfg=train_cfg,
+                  batch_size=TRAIN_BATCH, checkpoint_interval=100,
+                  eval_interval=10, eval_threshold=0.5, load_torch=ref,
+                  seed=seed, device="cuda")
+    whole = train_proposal_generator(trainset, evalset, str(out / "whole"),
+                                     epochs=2, **common)
+    train_proposal_generator(trainset, evalset, str(out / "rerun"),
+                             epochs=2, **common)
+    split = out / "split"
+    first = train_proposal_generator(trainset, evalset, str(split),
+                                     epochs=1, **common)
+    manager = CheckpointManager(str(split))
+    saved = torch.load(split / "checkpoint", map_location="cpu",
+                       weights_only=True)
+    meta_first = manager.load_meta()
+    fresh = gln_train.init_train_state(config, train_cfg, device="cuda")
+    manager.restore(fresh)
+    restored = fresh.optimizer.state_dict()["state"]
+    require(len(restored) == len(saved["optimizer"]["state"]) > 100,
+            "momentum buffers missing from the checkpoint")
+    for i, s in saved["optimizer"]["state"].items():
+        require(torch.equal(restored[i]["momentum_buffer"].cpu(),
+                            s["momentum_buffer"]),
+                f"momentum buffer {i} differs from the saved one")
+    resumed = train_proposal_generator(trainset, evalset, str(split),
+                                       epochs=1, resume=True, **common)
+    meta = manager.load_meta()
+    steps = whole["state"].step
+    require(meta_first["iteration"] == steps // 2 - 1
+            and meta["iteration"] == steps - 1
+            and resumed["state"].step == steps,
+            f"iterations {meta_first['iteration']} -> {meta['iteration']}, "
+            f"{resumed['state'].step} steps")
+    stats = {}
+    for name, path in (("whole", out / "whole"), ("rerun", out / "rerun"),
+                       ("resumed", split)):
+        with open(path / "stats_1.json") as f:
+            stats[name] = json.load(f)
+    rerun = _loss_rel(stats["rerun"], stats["whole"], 0)
+    worst = _loss_rel(stats["resumed"], stats["whole"], steps // 2)
+    bound = max(RESUME_LOSS_TOL, 4 * rerun)
+    require(worst <= bound, f"the resumed epoch's losses {worst} apart from "
+            f"the uninterrupted run's (a rerun {rerun}, bound {bound})")
+    emit({"phase": "train.resume", "canvas": [h, w], "steps": steps,
+          "iterations": [meta_first["iteration"], meta["iteration"]],
+          "momentum_buffers": len(restored), "loss_rel": worst,
+          "rerun_loss_rel": rerun, "bound": bound,
+          "seconds": time.perf_counter() - t0})
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1557,13 +1852,20 @@ def main(argv=None) -> int:
     mac_launches, knn_mac = phase_serve_macresnet(timer, ctx, args.seed)
     phase_load_reference(args.seed)
     phase_data_perspective(ctx, args.seed)
+    del ctx
+    gc.collect()
+    ref = reference_gln_checkpoint(args.seed)
+    phase_train_parity(args.seed, ref)
+    train_launches = phase_train_gln(args.seed, ref)
+    phase_train_resume(args.seed, ref)
     pool_row = dict(pool_rows[0])
     pool_row["max_abs_err"] = max(r["max_abs_err"] for r in pool_rows)
     # K2's row is this slice's path, MACResNet's 1536-d gallery; the
     # MACVGG serve path's (D = 1024) rides along
     d1024 = {k: knn_serve[k] for k in ("shape", "ms", "plain_ms",
                                         "bound_ms", "library_ms")}
-    rows = {"nms_hard": dict(nms_serve, launches=launches["nms_hard"]),
+    rows = {"nms_hard": dict(nms_serve, launches=launches["nms_hard"],
+                             train_launches=train_launches),
             "knn_fused": dict(knn_mac, launches=mac_launches["knn_fused"],
                               d1024=dict(d1024,
                                          launches=launches["knn_fused"])),
@@ -1582,7 +1884,7 @@ def main(argv=None) -> int:
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    extra = {"knn_fused": ("d1024",)}
+    extra = {"nms_hard": ("train_launches",), "knn_fused": ("d1024",)}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],
          "replaces": replaces[name][1],

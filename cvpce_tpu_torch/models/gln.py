@@ -41,7 +41,7 @@ from ..ops.nms import nms_mask_fused, soft_nms_scores_fused
 from .fpn import FPN
 from .layers import cast_float_convs_, conv, upsample_nearest_2x
 from .quant import Int8Conv
-from .resnet import ResNet50, fold_frozen_bn
+from .resnet import BatchNorm, ResNet50, fold_frozen_bn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,18 +141,18 @@ class GaussianBranch(nn.Module):
         self.tanh = tanh
         self.lateral = conv(256, 256, 1, bias=True)
         self.block1_conv = conv(256, 128, 3, bias=True)
-        self.block1_bn = nn.BatchNorm2d(128, eps=1e-5)
+        self.block1_bn = BatchNorm(128)
         self.block2_conv = conv(128, 64, 3, bias=True)
-        self.block2_bn = nn.BatchNorm2d(64, eps=1e-5)
+        self.block2_bn = BatchNorm(64)
         for i, (cin, cout, k) in enumerate(self.SUBNET):
             setattr(self, f"subnet_{i}", conv(cin, cout, k, bias=True))
         self.subnet_4 = conv(16, 1, 1, bias=True)
 
     def forward(self, c2: torch.Tensor, p3: torch.Tensor) -> torch.Tensor:
         x = self.lateral(c2) + upsample_nearest_2x(p3)
-        # BatchNorm in f32, cast back to the compute dtype (as flax's)
-        x = F.relu(self.block1_bn(self.block1_conv(x).float()).to(x.dtype))
-        x = F.relu(self.block2_bn(self.block2_conv(x).float()).to(x.dtype))
+        # flax's BatchNorm: f32 inside, the compute dtype out
+        x = F.relu(self.block1_bn(self.block1_conv(x)))
+        x = F.relu(self.block2_bn(self.block2_conv(x)))
         x = upsample_nearest_2x(x)
         for i in range(len(self.SUBNET)):
             x = F.relu(getattr(self, f"subnet_{i}")(x))
@@ -163,7 +163,10 @@ class GaussianBranch(nn.Module):
 class GLN(nn.Module):
     """Full detector: NHWC images in; cls_logits (B, A, K),
     bbox_regression (B, A, 4) and, with `with_gaussians`, the heatmap
-    (B, H/2, W/2, 1) out. Inference only (BatchNorms in eval mode)."""
+    (B, H/2, W/2, 1) out, in train mode as in eval mode (JAX's
+    GLN(train=True) returns the same dict). `train()` switches only the
+    Gaussian branch's two BatchNorms to batch statistics, as
+    GLN(train=True) does; the body's FrozenBN stays frozen."""
 
     def __init__(self, config: GLNConfig = GLNConfig(),
                  generator: Optional[torch.Generator] = None):
@@ -179,6 +182,13 @@ class GLN(nn.Module):
         init_gln_(self, generator)
         cast_float_convs_(self, dt)
         self.eval()
+
+    def train(self, mode: bool = True) -> "GLN":
+        super().train(False)
+        self.training = mode
+        self.gaussian.block1_bn.train(mode)
+        self.gaussian.block2_bn.train(mode)
+        return self
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = images.permute(0, 3, 1, 2).to(self.config.dtype)

@@ -1,8 +1,8 @@
 """ResNet-50 trunk; counterpart of cvpce_tpu/models/resnet.py:ResNet50.
 `norm='frozen'` is the GLN body (FrozenBatchNorm), `norm='batch'` the
-MACResNet trunk (eval-mode BatchNorm over its running statistics, eps
-1e-5), `norm='none'` the folded serving twin. Module names follow the
-JAX parameter tree (`layer2_0.downsample_conv`, `layer2_0.bn1`, ...).
+MACResNet trunk (`BatchNorm`: flax's, in eval and train mode),
+`norm='none'` the folded serving twin. Module names follow the JAX
+parameter tree (`layer2_0.downsample_conv`, `layer2_0.bn1`, ...).
 
 `quant` runs every stage conv as an int8 conv (models/quant.py modes
 'static' / 'calibrate' / 'dynamic'); the 7x7 stem stays in `dtype`.
@@ -25,25 +25,36 @@ STAGE_FEATURES = (64, 128, 256, 512)
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Eval-mode BatchNorm over the running statistics (nn.BatchNorm2d's
-    parameters and buffers, eps 1e-5), normalising in f32 in flax's
-    order and returning its input's dtype, as flax's BatchNorm with a
-    bf16 compute dtype does. Train mode comes with training (ROADMAP.md,
-    Queue 1 item 4): flax's momentum and running-variance update differ
-    from torch's."""
+    """flax's BatchNorm (momentum 0.9, eps 1e-5) on nn.BatchNorm2d's
+    parameters and buffers, normalising in f32 in flax's order,
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, and returning its
+    input's dtype. Eval mode uses the running statistics. Train mode
+    uses the batch's, in f32: mean(x) and the biased
+    mean(x^2) - mean(x)^2 (clipped at 0), and moves the running ones by
+    0.9 * running + 0.1 * batch, the biased variance included (torch's
+    own update takes the unbiased one)."""
 
     def __init__(self, features: int):
-        super().__init__(features, eps=1e-5)
+        super().__init__(features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm in train mode is not ported yet (ROADMAP.md, "
-                "Queue 1 item 4); call .eval()")
-        # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
         c = (None, slice(None), None, None)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean[c]) * mul[c] + self.bias[c]
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.copy_(keep * self.running_mean
+                                        + self.momentum * mean)
+                self.running_var.copy_(keep * self.running_var
+                                       + self.momentum * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[c]) * mul[c] + self.bias[c]
         return y.to(x.dtype)
 
 

@@ -35,6 +35,16 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return x / norm.clamp(min=eps)
 
 
+def cosine_distance(a: torch.Tensor, b: torch.Tensor, axis: int = -1,
+                    eps: float = 1e-8) -> torch.Tensor:
+    """1 - cosine similarity along `axis`, each vector's norm clamped to
+    at least `eps` (F.cosine_similarity's semantics)."""
+    an = torch.linalg.vector_norm(a, dim=axis, keepdim=True)
+    bn = torch.linalg.vector_norm(b, dim=axis, keepdim=True)
+    sim = ((a / an.clamp(min=eps)) * (b / bn.clamp(min=eps))).sum(axis)
+    return 1.0 - sim
+
+
 def distance_matrix(queries: torch.Tensor, anchors: torch.Tensor,
                     eps: float = 1e-8) -> torch.Tensor:
     """(Q, D) x (A, D) -> (Q, A) cosine distances, f32."""

@@ -2,6 +2,9 @@
 cases that `tests/test_torch_cuda.py` (under pytest) and `chip_smoke.py`
 (in the smoke run on the card) both hold K1, K2, K3 and K4 to their
 plain versions on. Numpy only; the callers move the arrays to the card.
+Likewise the card-against-CPU check of one GLN train step and its
+tolerances (`train_step_on_devices`, `train_step_differences`,
+`TRAIN_STEP_TOL`).
 
 Also seeded state_dicts in the reference checkpoints' layouts
 (torchvision resnet50 and vgg16(_bn) `features`, the reference MACVGG's
@@ -343,3 +346,76 @@ def gln_reference_state_dict(rng: np.random.Generator
         conv_wb(f"head.{head}.{final}", 9 if final == "cls_logits" else 36,
                 256, 3)
     return sd
+
+
+# ------------------------------------------------------------ training
+
+# one GLN train step on the card against the CPU, from the same weights
+# and batch (train_step_differences' keys): the losses, each trained
+# tensor (over its largest update), the Gaussian branch's running
+# statistics, all relative
+TRAIN_STEP_TOL = {"loss_rel": 1e-4, "param_rel_to_update": 5e-2,
+                  "stat_rel": 1e-4}
+
+def train_step_on_devices(model_cfg, train_cfg, state_dict: Dict, batch,
+                          devices=("cpu", "cuda")) -> Dict:
+    """One GLN train step from `state_dict` on each device, on the same
+    collated batch (images, boxes, box_valid, image_sizes): {device:
+    (metrics as floats, the state_dict after it, on the CPU)}. For the
+    card-against-CPU checks of chip_smoke.py and tests/test_torch_cuda.py."""
+    from .train import gln as gln_train
+
+    step = gln_train.make_train_step(model_cfg, train_cfg,
+                                     model_cfg.anchors()[0])
+    out = {}
+    for dev in devices:
+        state = gln_train.init_train_state(model_cfg, train_cfg,
+                                           state_dict=state_dict, device=dev)
+        state, metrics = step(state, *batch)
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {k: v.cpu() for k, v in state.model.state_dict().items()})
+    return out
+
+
+def train_step_differences(before: Dict, a, b,
+                           trainable_layers: int = 4) -> Dict:
+    """How far apart two devices' steps from the same `before` state_dict
+    came out (`a`, `b` as train_step_on_devices gives them): the largest
+    relative loss difference; over the trained tensors, the largest
+    |a - b| over the larger of the tensor's largest |update| and 1e-6 x
+    max(1, its largest magnitude) (the convolution biases in front of a
+    BatchNorm have a zero gradient and move by rounding noise only); the
+    largest |a - b| of the Gaussian branch's running statistics over
+    max(1, their magnitude); and whether every frozen tensor (the stem
+    and every FrozenBN buffer) kept its value on both devices. Also the
+    name of the tensor furthest apart (`param_worst`)."""
+    from .models.gln import GLN, GLNConfig
+    from .train.gln import _freeze_mask
+
+    (ma, sa), (mb, sb) = a, b
+    mask = _freeze_mask(GLN(GLNConfig(canvas_h=64, canvas_w=64)),
+                        trainable_layers)
+    loss_rel, param_rel, stat_rel, frozen_kept = 0.0, 0.0, 0.0, True
+    param_worst = None
+    for key in ma:
+        loss_rel = max(loss_rel, abs(ma[key] - mb[key])
+                       / max(abs(mb[key]), 1e-30))
+    for key, old in before.items():
+        old = old.cpu()
+        if key.endswith("num_batches_tracked"):
+            continue
+        err = (sa[key] - sb[key]).abs().max().item()
+        if key.startswith("body.") and not mask.get(key, False):
+            frozen_kept &= torch.equal(sa[key], old) and torch.equal(
+                sb[key], old)
+        elif key.endswith(("running_mean", "running_var")):
+            stat_rel = max(stat_rel, err / max(1.0, sb[key].abs().max()
+                                               .item()))
+        else:
+            floor = 1e-6 * max(1.0, old.abs().max().item())
+            update = (sb[key] - old).abs().max().item()
+            if err / max(update, floor) > param_rel:
+                param_rel, param_worst = err / max(update, floor), key
+    return {"loss_rel": loss_rel, "param_rel_to_update": param_rel,
+            "param_worst": param_worst, "stat_rel": stat_rel,
+            "frozen_kept": frozen_kept}

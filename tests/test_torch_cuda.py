@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a
-card. Marked `cuda`; they skip without one. This file imports no JAX,
+"""The port's CUDA kernels against their plain PyTorch versions, and one
+GLN train step against the same step on the CPU, on a card. Marked
+`cuda`; they skip without one. This file imports no JAX,
 so it runs on the GPU machine:
 
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -271,3 +272,44 @@ def test_pool_int8_conv_wrapper_refuses_what_the_tiles_cannot_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         call(x=flat[4:].view(1, 8, 8, 64))
     assert call().shape == (1, 4, 4, 64)
+
+
+def test_train_step_on_card_matches_cpu(cuda, tmp_path):
+    """One GLN train step at 64x64, batch 2 (an image without a valid
+    gt), on the card and on the CPU from the same seeded reference-layout
+    checkpoint (focal prior on the classification bias, as chip_smoke.py
+    trains from), within testing.TRAIN_STEP_TOL; the frozen stem and
+    FrozenBN stay put."""
+    import math
+
+    from cvpce_tpu_torch.cli.common import load_gln_state_dict
+    from cvpce_tpu_torch.models.gln import GLNConfig
+    from cvpce_tpu_torch.train.gln import GLNTrainConfig
+
+    config = GLNConfig(canvas_h=64, canvas_w=64, tanh=True)
+    train_cfg = GLNTrainConfig(match_chunk=256, min_negatives=64,
+                               steps_per_epoch=4)
+    sd = testing.gln_reference_state_dict(np.random.default_rng(3))
+    sd["head.classification_head.cls_logits.bias"].fill_(-math.log(99.0))
+    torch.save(sd, tmp_path / "gln.pth")
+    state = load_gln_state_dict(str(tmp_path / "gln.pth"), config)
+    rng = np.random.default_rng(0)
+    boxes = np.zeros((2, 8, 4), np.float32)
+    boxes[..., :2] = rng.uniform(0, 40, (2, 8, 2))
+    boxes[..., 2:] = boxes[..., :2] + rng.uniform(8, 24, (2, 8, 2))
+    valid = np.zeros((2, 8), bool)
+    valid[0, :6] = True
+    batch = (rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32), boxes,
+             valid, np.array([[64, 64], [48, 56]], np.int32))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # f32 convolutions, as served
+    try:
+        steps = testing.train_step_on_devices(config, train_cfg, state,
+                                              batch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    diff = testing.train_step_differences(state, steps["cuda"],
+                                          steps["cpu"])
+    assert diff["frozen_kept"]
+    for key, tol in testing.TRAIN_STEP_TOL.items():
+        assert diff[key] <= tol, (key, diff)

@@ -1,7 +1,7 @@
 """Import guard: the port and chip_smoke.py import no package that the
-GPU machine lacks. A subprocess refuses jax, flax, orbax, networkx, cv2,
-PIL, click, torchvision, matplotlib and the JAX package itself at import
-time, then imports every module of cvpce_tpu_torch (the modules listed
+GPU machine lacks. A subprocess refuses jax, flax, optax, orbax, grain,
+networkx, cv2, PIL, click, torchvision, matplotlib and the JAX package
+itself at import time, then imports every module of cvpce_tpu_torch (the modules listed
 in REQUIRED among them) and chip_smoke (without running it)."""
 import os
 import subprocess
@@ -12,8 +12,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BANNED = {"jax", "jaxlib", "flax", "orbax", "networkx", "cv2", "PIL",
-          "click", "torchvision", "matplotlib", "cvpce_tpu"}
+BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "grain", "networkx",
+          "cv2", "PIL", "click", "torchvision", "matplotlib", "cvpce_tpu"}
 REQUIRED = {"cvpce_tpu_torch.ops.metrics", "cvpce_tpu_torch.eval",
             "cvpce_tpu_torch.eval.coco_protocol",
             "cvpce_tpu_torch.eval.proposals",
@@ -25,7 +25,12 @@ REQUIRED = {"cvpce_tpu_torch.ops.metrics", "cvpce_tpu_torch.eval",
             "cvpce_tpu_torch.pipeline.colorcorrect",
             "cvpce_tpu_torch.pipeline.native",
             "cvpce_tpu_torch.cli.common",
-            "cvpce_tpu_torch.utils.torch_import"}
+            "cvpce_tpu_torch.utils.torch_import",
+            "cvpce_tpu_torch.ops.matching", "cvpce_tpu_torch.ops.losses",
+            "cvpce_tpu_torch.ops.gaussians", "cvpce_tpu_torch.data.loader",
+            "cvpce_tpu_torch.data.sku110k", "cvpce_tpu_torch.train",
+            "cvpce_tpu_torch.train.gln", "cvpce_tpu_torch.train.checkpoint",
+            "cvpce_tpu_torch.train.loops"}
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -55,4 +60,4 @@ def test_port_imports_no_missing_package():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
-    assert count >= 34
+    assert count >= 43
