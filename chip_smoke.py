@@ -70,7 +70,26 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   epoch 0's; seconds per step, per eval and the peak memory;
 - train.resume: at 256x384, 2 epochs in one go against 1 epoch and a
   resume=True epoch: the iteration counter continues, the momentum
-  buffers come back as saved, the resumed epoch's losses agree.
+  buffers come back as saved, the resumed epoch's losses agree;
+- train.dihe.parity: one DIHE three-player step and one GAN pretraining
+  step on the card and on the CPU at 128x128 (gen_downs 7), batch 2,
+  from the same seeded weights: losses, first moments, updates and
+  running statistics within testing.DIHE_STEP_TOL, every BatchNorm's
+  update count the JAX step's, and the generator sub-step on the card
+  leaving the embedder's and discriminator's statistics bit for bit;
+- train.gan: pretrain_gan at 256x256 (gen_downs 8, ngf = ndf = 64,
+  batch 4), ArchetypeGallerySet / SceneCropSet items, 2 epochs of 4
+  steps, a rotating checkpoint every 2 steps; seconds per step, peak
+  memory;
+- train.dihe: train_dihe at 256x256 (MACVGG with BatchNorm, gen_downs 8,
+  batch 4) from train.gan's players, 2 epochs of 4 steps, an eval_dihe
+  after each against a 4096-entry gallery with K2 launched in each;
+  seconds per step and per sub-step (CUDA events), per eval, peak
+  memory, the embedder's movement, BestKeeper's epoch files;
+- train.dihe.resume: at 64x64, both loops for 2 epochs against 1 epoch
+  and a resume=True epoch, cuDNN deterministic: the iteration counter
+  continues, the Adam moments come back bit for bit, the resumed losses
+  agree.
 
 Prints one JSON line per phase with its elapsed seconds, then the
 `{"kernels": [...]}` line, the card's name and power limit as nvidia-smi
@@ -128,6 +147,7 @@ from cvpce_tpu_torch.pipeline.classifier import Classifier
 from cvpce_tpu_torch.pipeline.evaluator import (PlanogramComparator,
                                                 PlanogramEvaluator)
 from cvpce_tpu_torch.pipeline.proposals import ProposalGenerator
+from cvpce_tpu_torch.train import dihe as dihe_train
 from cvpce_tpu_torch.train import gln as gln_train
 from cvpce_tpu_torch.train.checkpoint import CheckpointManager
 from cvpce_tpu_torch.train import loops as train_loops
@@ -180,6 +200,11 @@ TRAIN_EVAL_SCENES = 4
 # cuDNN deterministic): within this, or 4x a rerun's distance where the
 # card's own spread is wider (atomics outside cuDNN)
 RESUME_LOSS_TOL = 1e-5
+# DIHE and GAN training: the card-against-CPU step's canvas (gen_downs 7),
+# the CLI's batch, and the epoch evals' gallery (>= 4096, so K2 serves it)
+DIHE_PARITY_HW = 128
+DIHE_BATCH = 4
+DIHE_GALLERY_SIZE = 4096
 
 
 def emit(obj) -> None:
@@ -1806,6 +1831,351 @@ def _train_resume(seed, ref, t0):
           "seconds": time.perf_counter() - t0})
 
 
+# ------------------------------------------------------- DIHE training
+
+class _Recorder:
+    """Wraps train/loops.py's step factory: every step's metrics (as
+    floats, which waits for the card) and its host seconds."""
+
+    def __init__(self, factory, gan: bool):
+        self.factory, self.gan = factory, gan
+        self.metrics, self.seconds = [], []
+
+    def __call__(self, cfg):
+        made = self.factory(cfg)
+        init, step = made if self.gan else (None, made)
+
+        def timed(*args):
+            t = time.perf_counter()
+            state, metrics = step(*args)
+            self.metrics.append({k: float(v) for k, v in metrics.items()})
+            self.seconds.append(time.perf_counter() - t)
+            return state, metrics
+
+        return (init, timed) if self.gan else timed
+
+
+def _finite_losses(recorder, steps, label):
+    require(len(recorder.metrics) == steps,
+            f"{label}: {len(recorder.metrics)} steps, not {steps}")
+    require(all(np.isfinite(v) for m in recorder.metrics
+                for v in m.values()), f"{label}: non-finite losses")
+
+
+def phase_train_dihe_parity(seed):
+    """One DIHE three-player step and one GAN pretraining step on the
+    card and on the CPU at 128x128 (gen_downs 7), batch 2, from the same
+    seeded weights and batch, within testing.DIHE_STEP_TOL; every
+    BatchNorm counted the statistics updates the JAX step keeps, and the
+    generator sub-step on the card leaves the embedder's and the
+    discriminator's running statistics bit for bit where they were."""
+    t0 = time.perf_counter()
+    hw = DIHE_PARITY_HW
+    cfg = dihe_train.DIHETrainConfig(gen_downs=7, steps_per_epoch=10)
+    state = dihe_train.init_dihe_state(cfg, seed=seed + 31, device="cpu")
+    before = {k: getattr(state, k).state_dict()
+              for k in testing.DIHE_STAT_UPDATES}
+    rng = np.random.default_rng(seed + 32)
+    pos, neg, gen, disc = (rng.uniform(-1, 1, (2, hw, hw, 3)).astype(
+        np.float32) for _ in range(4))
+    sim = np.float32([0.5, 1.0])
+    out = {}
+    for loop, updates in (("dihe", testing.DIHE_STAT_UPDATES),
+                          ("gan", testing.GAN_STAT_UPDATES)):
+        start = {k: before[k] for k in updates}
+        if loop == "dihe":
+            steps = testing.dihe_step_on_devices(cfg, start,
+                                                 (pos, neg, gen, disc, sim))
+        else:
+            steps = testing.gan_step_on_devices(
+                dihe_train.GANPretrainConfig(gen_downs=7), start,
+                (gen, disc))
+        diff = testing.dihe_step_differences(start, steps["cuda"],
+                                             steps["cpu"], updates)
+        for name, (metrics, _) in steps.items():
+            require(all(np.isfinite(v) for v in metrics.values()),
+                    f"{loop}: non-finite losses on {name}: {metrics}")
+        require(diff["stat_updates_kept"], f"{loop}: a BatchNorm moved its "
+                "statistics in a forward whose statistics JAX discards")
+        for key, tol in testing.DIHE_STEP_TOL.items():
+            require(diff[key] <= tol, f"{loop} step on the card and the "
+                    f"CPU: {key} {diff[key]} > {tol}")
+        out[loop] = dict(diff, losses={k: v[0] for k, v in steps.items()})
+    # the generator sub-step alone on the card: its embedder and
+    # discriminator forwards run with batch statistics and keep none
+    state = dihe_train.init_dihe_state(cfg, state_dicts=before,
+                                       device="cuda")
+    kept = {k: v.clone() for name in ("embedder", "discriminator")
+            for k, v in getattr(state, name).state_dict().items()
+            if "running" in k or "num_batches" in k}
+    batch = [torch.from_numpy(a).cuda() for a in (pos, gen)]
+    dihe_train.generator_substep(state, cfg, *batch)
+    after = {k: v for name in ("embedder", "discriminator")
+             for k, v in getattr(state, name).state_dict().items()
+             if k in kept}
+    require(all(torch.equal(after[k], v) for k, v in kept.items()),
+            "the generator sub-step moved a running statistic of the "
+            "embedder or the discriminator")
+    emit({"phase": "train.dihe.parity", "canvas": [hw, hw], "batch": 2,
+          "gen_downs": 7, **out, "discarded_forwards_kept": len(kept),
+          "tolerances": testing.DIHE_STEP_TOL,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_train_gan(seed):
+    """pretrain_gan at full width (256x256, gen_downs 8, ngf = ndf = 64,
+    batch 4, the CLI's default): ArchetypeGallerySet items as the
+    generator's input, SceneCropSet crops as the discriminator's real
+    ones, 2 epochs of 4 steps, a rotating checkpoint every 2 steps."""
+    t0 = time.perf_counter()
+    styles = synthetic.product_styles(N_STYLES, seed=seed)
+    data = synthetic.ArchetypeGallerySet(styles[:4], views=4,
+                                         seed=seed + 40)
+    crops = synthetic.SceneCropSet(styles, n=32, seed=seed + 41)
+    out = BUILD / "train_gan"
+    shutil.rmtree(out, ignore_errors=True)
+    rec = _Recorder(train_loops.make_gan_pretrain_step, gan=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(train_loops, "make_gan_pretrain_step", rec):
+        result = train_loops.pretrain_gan(
+            data, crops, str(out), epochs=2, batch_size=DIHE_BATCH,
+            checkpoint_interval=2, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    steps = 2 * len(data) // DIHE_BATCH
+    _finite_losses(rec, steps, "train.gan")
+    files = sorted(p.name for p in out.iterdir())
+    for name in ("gan_checkpoint", "previous_gan_checkpoint",
+                 "gan_checkpoint.meta.json"):
+        require(name in files, f"{name} not written ({files})")
+    meta = CheckpointManager(str(out), name="gan_checkpoint").load_meta()
+    require(meta == {"epoch": 1, "iteration": steps - 1,
+                     "epoch_step": steps // 2 - 1}, f"gan meta {meta}")
+    emit({"phase": "train.gan", "canvas": [256, 256], "gen_downs": 8,
+          "batch": DIHE_BATCH, "steps": steps,
+          "first_step_seconds": rec.seconds[0],
+          "median_step_seconds": statistics.median(rec.seconds[1:]),
+          "step_seconds": rec.seconds, "losses": rec.metrics,
+          "files": files, "max_memory_allocated": peak,
+          "seconds": time.perf_counter() - t0})
+    return result["state"]
+
+
+def phase_train_dihe(seed, gan_state):
+    """train_dihe at full width (256x256, MACVGG with BatchNorm,
+    gen_downs 8, batch 4 = 8 items a loader batch, f32 with TF32 off)
+    from train.gan's generator and discriminator: 32 ArchetypeGallerySet
+    items, 2 epochs of 4 steps, an eval_dihe after each epoch against a
+    DIHE_GALLERY_SIZE-entry gallery on 2 planogram query scenes, K2
+    launched and counted in each. eval_dihe is wrapped to time each eval
+    and count its launches; then each sub-step's device time."""
+    t0 = time.perf_counter()
+    styles = synthetic.product_styles(N_STYLES, seed=seed)
+    data = synthetic.ArchetypeGallerySet(styles[:8], views=4,
+                                         seed=seed + 50)
+    crops = synthetic.SceneCropSet(styles, n=32, seed=seed + 41)
+    gallery = GallerySet(styles, DIHE_GALLERY_SIZE, seed + 51)
+    queries = synthetic.PlanogramQuerySet(styles, n=2, seed=seed + 52)
+    queries = [queries[i] for i in range(len(queries))]
+    out = BUILD / "train_dihe"
+    shutil.rmtree(out, ignore_errors=True)
+    rec = _Recorder(train_loops.make_dihe_train_step, gan=False)
+    evals = []
+    real_eval = train_loops.eval_dihe
+
+    def timed_eval(*args, **kwargs):
+        _reset_launches()
+        te = time.perf_counter()
+        acc = real_eval(*args, **kwargs)
+        torch.cuda.synchronize()
+        evals.append({"seconds": time.perf_counter() - te,
+                      "knn_fused": knn_ops.nearest_neighbors_fused.launches,
+                      "accuracy": acc.get(1, 0.0)})
+        return acc
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(train_loops, "make_dihe_train_step", rec), \
+            mock.patch.object(train_loops, "eval_dihe", timed_eval):
+        result = train_loops.train_dihe(
+            data, crops, gallery, queries, str(out), gan_state=gan_state,
+            epochs=2, batch_size=DIHE_BATCH, checkpoint_interval=2,
+            seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    state = result["state"]
+    steps = 2 * len(data) // (2 * DIHE_BATCH)
+    _finite_losses(rec, steps, "train.dihe")
+    require(state.step == steps and steps >= 8, f"{state.step} steps")
+    require(len(evals) == 2, f"{len(evals)} epoch evals")
+    for i, e in enumerate(evals):
+        require(e["knn_fused"] >= 1, f"K2 not launched in epoch {i}'s eval")
+    files = sorted(p.name for p in out.iterdir())
+    for name in ("embedder_checkpoint", "previous_embedder_checkpoint",
+                 "epoch_1"):
+        require(name in files, f"{name} not written ({files})")
+    seeded = dict(dihe_train.init_dihe_state(
+        dihe_train.DIHETrainConfig(), seed=seed,
+        device="cpu").embedder.named_parameters())
+    moved = max((p.detach().cpu() - seeded[k]).abs().max().item()
+                for k, p in state.embedder.named_parameters())
+    require(moved > 0, "the embedder's parameters did not move")
+    pretrained = dict(gan_state.generator.named_parameters())
+    gen_moved = max((p - pretrained[k]).abs().max().item()
+                    for k, p in state.generator.named_parameters())
+    breakdown = dihe_substep_breakdown(state, data)
+    emit({"phase": "train.dihe", "canvas": [256, 256], "gen_downs": 8,
+          "batch": DIHE_BATCH, "steps": steps,
+          "first_step_seconds": rec.seconds[0],
+          "median_step_seconds": statistics.median(rec.seconds[1:]),
+          "step_seconds": rec.seconds, "losses": rec.metrics,
+          "substep_ms": breakdown,
+          "eval_seconds": [e["seconds"] for e in evals],
+          "eval_knn_fused_launches": [e["knn_fused"] for e in evals],
+          "eval_accuracy": [e["accuracy"] for e in evals],
+          "gallery": len(gallery), "best": result["best"],
+          "embedder_moved": moved, "generator_moved": gen_moved,
+          "files": files, "max_memory_allocated": peak,
+          "allocated_before": resident,
+          "seconds": time.perf_counter() - t0})
+    return sum(e["knn_fused"] for e in evals)
+
+
+def dihe_substep_breakdown(state, data, reps=3):
+    """Device milliseconds of the three sub-steps of one DIHE step on a
+    loader batch of `data` (median of `reps`, CUDA events): encoder,
+    discriminator, generator. They update the state, as a step does."""
+    cfg = dihe_train.DIHETrainConfig(steps_per_epoch=4)
+    items = [data[i] for i in range(2 * DIHE_BATCH)]
+    emb = torch.from_numpy(np.stack([it[0] for it in items])).cuda()
+    gen = torch.from_numpy(np.stack([it[1] for it in items[:DIHE_BATCH]]))
+    gen = gen.cuda()
+    sim = torch.from_numpy(dihe_train.hierarchy_similarity(
+        [it[2] for it in items[:DIHE_BATCH]],
+        [it[2] for it in items[DIHE_BATCH:]])).cuda()
+    pos, neg = emb[:DIHE_BATCH], emb[DIHE_BATCH:]
+    stages = ("encoder", "discriminator", "generator")
+    ms = {k: [] for k in stages}
+    for _ in range(reps):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        events[0].record()
+        dihe_train.encoder_substep(state, cfg, pos, neg, gen, sim)
+        events[1].record()
+        dihe_train.discriminator_substep(state, gen, pos)
+        events[2].record()
+        dihe_train.generator_substep(state, cfg, pos, gen)
+        events[3].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(stages):
+            ms[k].append(events[i].elapsed_time(events[i + 1]))
+    return {k: statistics.median(v) for k, v in ms.items()}
+
+
+def phase_train_dihe_resume(seed):
+    """At 64x64 (gen_downs 4, batch 2, 8 items): both loops for 2
+    epochs in one go, twice, against 1 epoch and then resume=True for 1
+    more, with cuDNN's deterministic algorithms. The rerun measures the
+    card's run-to-run spread. Checks: the iteration counter continues,
+    the Adam moments come back from the checkpoint bit for bit, the
+    resumed epoch's losses agree with the uninterrupted run's."""
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {loop: _dihe_resume(seed, loop) for loop in ("gan", "dihe")}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    emit({"phase": "train.dihe.resume", "canvas": [64, 64], "batch": 2,
+          **out, "seconds": time.perf_counter() - t0})
+
+
+def _dihe_resume(seed, loop):
+    rng = np.random.default_rng(seed + 60)
+    data = [(rng.uniform(-1, 1, (64, 64, 3)).astype(np.float32),
+             rng.uniform(-1, 1, (64, 64, 3)).astype(np.float32),
+             ["Food", f"Cat{i % 2}", f"Sub{i % 4}"], f"p{i}")
+            for i in range(8)]
+    crops = rng.uniform(0, 1, (8, 64, 64, 3)).astype(np.float32)
+    root = BUILD / f"train_{loop}_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    if loop == "gan":
+        factory, name = "make_gan_pretrain_step", "gan_checkpoint"
+        opt = "gen_opt"
+        gan_cfg = dihe_train.GANPretrainConfig(gen_downs=4)
+
+        def fresh():
+            return dihe_train.make_gan_pretrain_step(gan_cfg)[0](
+                device="cuda")
+
+        def run(path, **kw):
+            return train_loops.pretrain_gan(
+                data, crops, str(path), batch_size=2, seed=seed,
+                checkpoint_interval=100, device="cuda",
+                train_cfg=gan_cfg, **kw)
+    else:
+        factory, name = "make_dihe_train_step", "embedder_checkpoint"
+        opt = "emb_opt"
+
+        def fresh():
+            return dihe_train.init_dihe_state(
+                dihe_train.DIHETrainConfig(gen_downs=4), device="cuda")
+
+        def run(path, **kw):
+            return train_loops.train_dihe(
+                data, crops, data, [], str(path), batch_size=2,
+                seed=seed, checkpoint_interval=100, eval_interval=10,
+                device="cuda",
+                train_cfg=dihe_train.DIHETrainConfig(gen_downs=4), **kw)
+
+    losses = {}
+    for key, path, kw in (("whole", root / "whole", {"epochs": 2}),
+                          ("rerun", root / "rerun", {"epochs": 2}),
+                          ("first", root / "split", {"epochs": 1}),
+                          ("resumed", root / "split",
+                           {"epochs": 1, "resume": True})):
+        rec = _Recorder(getattr(train_loops, factory), gan=loop == "gan")
+        with mock.patch.object(train_loops, factory, rec):
+            run(path, **kw)
+        losses[key] = rec.metrics
+        if key == "first":
+            manager = CheckpointManager(str(path), name=name)
+            meta_first = manager.load_meta()
+            saved = torch.load(path / name, map_location="cpu",
+                               weights_only=True)
+            restored = manager.restore(fresh()).state_dict()[opt]["state"]
+            require(len(restored) == len(saved[opt]["state"]) > 10,
+                    f"{loop}: Adam state missing from the checkpoint")
+            for i, s in saved[opt]["state"].items():
+                for k in ("exp_avg", "exp_avg_sq", "step"):
+                    require(torch.equal(restored[i][k].cpu(), s[k]),
+                            f"{loop}: Adam {k} {i} differs from the saved")
+    meta = manager.load_meta()
+    steps = len(losses["whole"])
+    require(meta_first["iteration"] == steps // 2 - 1
+            and meta["iteration"] == steps - 1
+            and len(losses["resumed"]) == steps // 2,
+            f"{loop}: iterations {meta_first['iteration']} -> "
+            f"{meta['iteration']}, {len(losses['resumed'])} resumed steps")
+
+    def rel(got, want):
+        return max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                   for g, w in zip(got, want) for k in w)
+
+    rerun = rel(losses["rerun"], losses["whole"])
+    worst = rel(losses["resumed"], losses["whole"][steps // 2:])
+    bound = max(RESUME_LOSS_TOL, 4 * rerun)
+    require(worst <= bound, f"{loop}: the resumed epoch's losses {worst} "
+            f"apart from the uninterrupted run's (a rerun {rerun}, bound "
+            f"{bound})")
+    return {"steps": steps, "iterations": [meta_first["iteration"],
+                                           meta["iteration"]],
+            "adam_states": len(restored), "loss_rel": worst,
+            "rerun_loss_rel": rerun, "bound": bound}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1858,17 +2228,23 @@ def main(argv=None) -> int:
     phase_train_parity(args.seed, ref)
     train_launches = phase_train_gln(args.seed, ref)
     phase_train_resume(args.seed, ref)
+    phase_train_dihe_parity(args.seed)
+    gan_state = phase_train_gan(args.seed)
+    dihe_launches = phase_train_dihe(args.seed, gan_state)
+    del gan_state
+    phase_train_dihe_resume(args.seed)
     pool_row = dict(pool_rows[0])
     pool_row["max_abs_err"] = max(r["max_abs_err"] for r in pool_rows)
-    # K2's row is this slice's path, MACResNet's 1536-d gallery; the
-    # MACVGG serve path's (D = 1024) rides along
+    # K2's row times serve.macresnet's 1536-d search; the MACVGG serve
+    # path's (D = 1024) rides along, and the DIHE epoch evals' launches
     d1024 = {k: knn_serve[k] for k in ("shape", "ms", "plain_ms",
                                         "bound_ms", "library_ms")}
     rows = {"nms_hard": dict(nms_serve, launches=launches["nms_hard"],
                              train_launches=train_launches),
             "knn_fused": dict(knn_mac, launches=mac_launches["knn_fused"],
                               d1024=dict(d1024,
-                                         launches=launches["knn_fused"])),
+                                         launches=launches["knn_fused"]),
+                              dihe_train_launches=dihe_launches),
             "soft_nms": dict(soft_serve,
                              launches=soft_launches["soft_nms"]),
             "pool_int8_conv": dict(pool_row, launches=pool_launches)}
@@ -1884,7 +2260,8 @@ def main(argv=None) -> int:
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    extra = {"nms_hard": ("train_launches",), "knn_fused": ("d1024",)}
+    extra = {"nms_hard": ("train_launches",),
+             "knn_fused": ("d1024", "dihe_train_launches")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],
          "replaces": replaces[name][1],

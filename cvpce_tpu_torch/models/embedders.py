@@ -6,7 +6,10 @@ last ReLU of block 5. The descriptor is the concat of the spatial max
 (MAC) after the last ReLU of block 4 and of block 5 -> 1024-d,
 L2-normalized with an eps-clamped norm. Input: NHWC images in tanh scale
 ([-1, 1]); ImageNet normalization (rescaled to that range) happens in
-the forward, as in the JAX module.
+the forward, as in the JAX module. Its BatchNorms are flax's
+(models/resnet.py:BatchNorm): eval mode for serving, and in train mode
+(DIHE training, `MACVGG(train=True)` in the JAX package) batch
+statistics with flax's update of the running ones.
 
 `dtype` is the conv stack's compute dtype (f32 or bf16). The int8
 serving path (models/quant.py) runs the INT8_FAVORED_CONVS (`int8`) or
@@ -35,7 +38,7 @@ from ..utils import resolve_device
 from .layers import cast_float_convs_, conv
 from .quant import (Int8Conv, act_scale_tree, calibrate_act_scales,
                     int8_convs, load_act_scales)
-from .resnet import ResNet50
+from .resnet import BatchNorm, ResNet50
 
 VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
              512, 512, 512, "M", 512, 512, 512, "M")
@@ -94,7 +97,7 @@ class MACVGG(nn.Module):
                     if ordinal in int8_set else conv(cin, ch, 3, bias=True))
                 cin = ch
             elif kind == "bn":
-                layers.append(nn.BatchNorm2d(ch, eps=1e-5))
+                layers.append(BatchNorm(ch))
             elif kind == "relu":
                 layers.append(nn.ReLU())
             else:
@@ -126,11 +129,8 @@ class MACVGG(nn.Module):
                     descs.append(torch.amax(x, dim=(2, 3)))
                 if pools == 5:
                     break
-            if isinstance(layer, nn.BatchNorm2d):
-                # in f32, cast back to the compute dtype (as flax's)
-                x = layer(x.float()).to(self.dtype)
-            else:
-                x = layer(x)
+            # a BatchNorm normalises in f32 and returns the compute dtype
+            x = layer(x)
         desc = torch.cat(descs, 1).float()
         norm = torch.linalg.vector_norm(desc, dim=1, keepdim=True)
         return desc / norm.clamp(min=self.EPS)

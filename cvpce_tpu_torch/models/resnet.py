@@ -11,6 +11,7 @@ whose affines `fold_frozen_bn` has folded into the conv weights and
 biases."""
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -26,36 +27,58 @@ STAGE_FEATURES = (64, 128, 256, 512)
 
 class BatchNorm(nn.BatchNorm2d):
     """flax's BatchNorm (momentum 0.9, eps 1e-5) on nn.BatchNorm2d's
-    parameters and buffers, normalising in f32 in flax's order,
-    (x - mean) * (rsqrt(var + eps) * scale) + bias, and returning its
-    input's dtype. Eval mode uses the running statistics. Train mode
-    uses the batch's, in f32: mean(x) and the biased
+    parameters and buffers, normalising in f32 (f64 for f64 inputs) in
+    flax's order, (x - mean) * (rsqrt(var + eps) * scale) + bias, and
+    returning its input's dtype. Eval mode uses the running statistics.
+    Train mode uses the batch's, in that precision: mean(x) and the biased
     mean(x^2) - mean(x)^2 (clipped at 0), and moves the running ones by
     0.9 * running + 0.1 * batch, the biased variance included (torch's
-    own update takes the unbiased one)."""
+    own update takes the unbiased one).
+
+    `update_stats = False` keeps the train mode's batch statistics but
+    leaves the running ones untouched: flax's train-mode apply whose
+    mutated `batch_stats` the caller throws away (`frozen_statistics`)."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = (None, slice(None), None, None)
-        xf = x.float()
-        if self.training:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
                               min=0.0)
-            with torch.no_grad():
-                keep = 1.0 - self.momentum
-                self.running_mean.copy_(keep * self.running_mean
-                                        + self.momentum * mean)
-                self.running_var.copy_(keep * self.running_var
-                                       + self.momentum * var)
-                self.num_batches_tracked.add_(1)
-        else:
-            mean, var = self.running_mean, self.running_var
+            if self.update_stats:
+                with torch.no_grad():
+                    keep = 1.0 - self.momentum
+                    self.running_mean.copy_(keep * self.running_mean
+                                            + self.momentum * mean)
+                    self.running_var.copy_(keep * self.running_var
+                                           + self.momentum * var)
+                    self.num_batches_tracked.add_(1)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[c]) * mul[c] + self.bias[c]
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_statistics(*modules: nn.Module):
+    """Within the block, every `BatchNorm` of `modules` normalises by
+    its batch's statistics in train mode without moving its running
+    ones."""
+    norms = [m for module in modules for m in module.modules()
+             if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
 
 
 def _norm(kind: str, features: int) -> nn.Module:

@@ -2,9 +2,10 @@
 cases that `tests/test_torch_cuda.py` (under pytest) and `chip_smoke.py`
 (in the smoke run on the card) both hold K1, K2, K3 and K4 to their
 plain versions on. Numpy only; the callers move the arrays to the card.
-Likewise the card-against-CPU check of one GLN train step and its
-tolerances (`train_step_on_devices`, `train_step_differences`,
-`TRAIN_STEP_TOL`).
+Likewise the card-against-CPU checks of one GLN train step
+(`train_step_on_devices`, `train_step_differences`, `TRAIN_STEP_TOL`)
+and of one DIHE or GAN pretraining step (`dihe_step_on_devices`,
+`gan_step_on_devices`, `dihe_step_differences`, `DIHE_STEP_TOL`).
 
 Also seeded state_dicts in the reference checkpoints' layouts
 (torchvision resnet50 and vgg16(_bn) `features`, the reference MACVGG's
@@ -419,3 +420,136 @@ def train_step_differences(before: Dict, a, b,
     return {"loss_rel": loss_rel, "param_rel_to_update": param_rel,
             "param_worst": param_worst, "stat_rel": stat_rel,
             "frozen_kept": frozen_kept}
+
+
+# one DIHE three-player step, or one GAN pretraining step, on the card
+# against the CPU (dihe_step_differences' keys): the losses and the
+# running statistics, relative; each player's gradient (Adam's first
+# moment) as L2 over the player relative to the CPU's; the parameter
+# updates where the two gradients resolve Adam's step, relative to the
+# tensor's largest update. Adam's first step moves each element by about
+# lr x sign(grad), and MACVGG's max pools and MAC maxima route their
+# gradient to one of several near-equal positions, so f32 rounding alone
+# flips single elements (tests/test_torch_train_dihe.py)
+DIHE_STEP_TOL = {"loss_rel": 1e-3, "stat_rel": 1e-3, "moment_l2": 5e-2,
+                 "update_rel_resolved": 1e-2}
+# BatchNorm updates a step keeps (the JAX step's): the rest leave the
+# running statistics alone
+DIHE_STAT_UPDATES = {"embedder": 3, "generator": 3, "discriminator": 2}
+GAN_STAT_UPDATES = {"generator": 2, "discriminator": 2}
+
+
+def _player_record(state, players) -> Dict:
+    """{player: (state_dict, first moments by parameter name)} on the
+    CPU."""
+    opts = {"embedder": "emb_opt", "generator": "gen_opt",
+            "discriminator": "disc_opt"}
+    out = {}
+    for name in players:
+        module = getattr(state, name)
+        opt = getattr(state, opts[name])
+        out[name] = ({k: v.detach().cpu() for k, v in
+                      module.state_dict().items()},
+                     {n: opt.state[p]["exp_avg"].cpu()
+                      for n, p in module.named_parameters()})
+    return out
+
+
+def dihe_step_on_devices(cfg, state_dicts: Dict, batch,
+                         devices=("cpu", "cuda")) -> Dict:
+    """One DIHE train step from `state_dicts` ({"embedder", "generator",
+    "discriminator"}) on each device, on the same batch (positives,
+    negatives, gen_batch, disc_batch, similarity): {device: (metrics as
+    floats, {player: (state_dict, first moments)} on the CPU)}."""
+    from .train import dihe
+
+    step = dihe.make_dihe_train_step(cfg)
+    out = {}
+    for dev in devices:
+        state = dihe.init_dihe_state(
+            cfg, state_dicts=state_dicts,
+            gen_channels=state_dicts["generator"]["down_0.weight"].shape[1],
+            device=dev)
+        state, metrics = step(state, *batch)
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    _player_record(state, DIHE_STAT_UPDATES))
+    return out
+
+
+def gan_step_on_devices(cfg, state_dicts: Dict, batch,
+                        devices=("cpu", "cuda")) -> Dict:
+    """One GAN pretraining step from `state_dicts` ({"generator",
+    "discriminator"}) on each device, on the same (gen_batch,
+    disc_batch), as dihe_step_on_devices returns it."""
+    from .train import dihe
+
+    init, step = dihe.make_gan_pretrain_step(cfg)
+    out = {}
+    for dev in devices:
+        state = init(gen_channels=state_dicts["generator"][
+            "down_0.weight"].shape[1], device=dev)
+        state.generator.load_state_dict(state_dicts["generator"])
+        state.discriminator.load_state_dict(state_dicts["discriminator"])
+        state, metrics = step(state, *batch)
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    _player_record(state, GAN_STAT_UPDATES))
+    return out
+
+
+def _l2(a: Dict, b: Dict, keys) -> float:
+    num = sum(float((a[k] - b[k]).double().pow(2).sum()) for k in keys)
+    den = sum(float(b[k].double().pow(2).sum()) for k in keys)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def dihe_step_differences(before: Dict, a, b, updates: Dict) -> Dict:
+    """How far apart two devices' steps from the same `before` state_dicts
+    came out (`a`, `b` as dihe_step_on_devices gives them; `b` the
+    reference): the largest relative loss difference; the largest |a -
+    b| of a running statistic over max(1, its magnitude); per player the
+    L2 distance of the first moments relative to `b`'s (the worst player
+    named); over the elements whose gradient the two resolve (|b's first
+    moment| above twice the tensor's largest first-moment difference and
+    above 100 x Adam's eps x 0.1), the largest |update a - update b|
+    beyond one f32 ulp of the parameter, over the tensor's largest
+    update; the share of elements not resolved, and the L2 distance of
+    all updates (both reported only); and whether every BatchNorm
+    counted `updates[player]` statistics updates on both."""
+    (ma, pa), (mb, pb) = a, b
+    out = {"loss_rel": max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-30)
+                           for k in mb),
+           "stat_rel": 0.0, "moment_l2": 0.0, "update_rel_resolved": 0.0,
+           "update_l2": 0.0, "stat_updates_kept": True}
+    unresolved = total = 0
+    for name, (sd_b, mu_b) in pb.items():
+        sd_a, mu_a = pa[name]
+        old = {k: v.cpu() for k, v in before[name].items()}
+        for key, v in sd_b.items():
+            if key.endswith("num_batches_tracked"):
+                out["stat_updates_kept"] &= (
+                    int(sd_a[key]) == int(v) == updates[name])
+            elif key.endswith(("running_mean", "running_var")):
+                out["stat_rel"] = max(out["stat_rel"], (sd_a[key] - v).abs()
+                                      .max().item() / max(
+                                          1.0, v.abs().max().item()))
+        moment = _l2(mu_a, mu_b, mu_b)
+        if moment >= out["moment_l2"]:
+            out["moment_l2"], out["moment_worst"] = moment, name
+        upd_a = {k: sd_a[k] - old[k] for k in mu_b}
+        upd_b = {k: sd_b[k] - old[k] for k in mu_b}
+        out["update_l2"] = max(out["update_l2"], _l2(upd_a, upd_b, mu_b))
+        for key, m in mu_b.items():
+            err = (mu_a[key] - m).abs().max().item()
+            resolved = m.abs() > max(2 * err, 1e-7)
+            excess = ((upd_a[key] - upd_b[key]).abs()
+                      - 1.2e-7 * old[key].abs() - 1e-8).clamp(min=0)
+            scale = max(upd_b[key].abs().max().item(), 1e-30)
+            worst = (excess[resolved].max().item() / scale
+                     if resolved.any() else 0.0)
+            if worst >= out["update_rel_resolved"]:
+                out["update_rel_resolved"] = worst
+                out["update_worst"] = f"{name}.{key}"
+            unresolved += int((~resolved).sum())
+            total += m.numel()
+    out["unresolved_share"] = unresolved / max(total, 1)
+    return out

@@ -1,15 +1,17 @@
-"""Host training loop around the GLN train step; counterpart of
-cvpce_tpu/train/loops.py:train_proposal_generator.
+"""Host training loops around the train steps; counterpart of
+cvpce_tpu/train/loops.py: `train_proposal_generator` (GLN),
+`pretrain_gan` and `train_dihe`.
 
-The reference's loop semantics (cvpce/proposals_training.py:123-271):
-loss logging every 50 steps, rotating checkpoints every
-`checkpoint_interval` steps and at the end of every epoch, per-epoch
-stats dumps deleting the one two epochs back, an eval every
-`eval_interval` epochs and on the final one keeping the best-AP model,
-the exploded-loss guard (> 5000), resume. One process on one device:
-data-parallel training over several cards is ROADMAP.md Queue 1 item 5,
-and the loop refuses to start where it would need it. The DIHE and GAN
-loops come with the DIHE slice.
+The reference's loop semantics (cvpce/proposals_training.py:123-271,
+cvpce/classification_training.py:257-541): loss logging every 50 steps,
+rotating checkpoints every `checkpoint_interval` steps and at the end of
+every epoch, an eval every `eval_interval` epochs and on the final one
+keeping the best model, resume. The GLN loop also dumps per-epoch loss
+stats (deleting the one two epochs back) and guards against exploded
+losses (> 5000). One process on one device: data-parallel training over
+several cards is ROADMAP.md Queue 1 item 5, and the GLN and DIHE loops
+refuse to start where it would need it. The checkpoint-time sample
+pictures of the JAX loops (utils/viz.py, matplotlib) are left out.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import json
 import os
 import time
 from os import path
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -26,11 +28,17 @@ import torch
 from ..cli.common import load_gln_state_dict
 from ..data.loader import PrefetchLoader
 from ..data.sku110k import collate_detection
+from ..data.transforms import scale_to_tanh
+from ..eval.classification import eval_dihe
 from ..eval.proposals import evaluate_gln, make_variables_inference_fn
+from ..models.embedders import EmbedFn, MACVGG
 from ..models.gln import GLNConfig
 from ..utils import resolve_device
 from . import gln as gln_train
 from .checkpoint import BestKeeper, CheckpointManager
+from .dihe import (DIHETrainConfig, GANPretrainConfig, hierarchy_similarity,
+                   init_dihe_state, make_dihe_train_step,
+                   make_gan_pretrain_step)
 
 EXPLODED_LOSS = 5000.0  # cvpce/proposals_training.py:238
 
@@ -246,4 +254,219 @@ def train_proposal_generator(
             if hyperopt_report is not None:
                 hyperopt_report(average_precision=stats["ap"], **{
                     k: v for k, v in stats.items() if k != "raw"})
+    return {"state": state, "best": keeper.best}
+
+
+def _discriminator_batch(discriminatorset, n: int, seed: int, stream: int,
+                         epoch: int, step: int) -> np.ndarray:
+    """n target-domain crops in tanh scale, drawn from (seed, stream,
+    epoch, step): a resumed run draws what an uninterrupted one would."""
+    idx = np.random.default_rng((seed, stream, epoch, step)).integers(
+        0, len(discriminatorset), n)
+    return scale_to_tanh(np.stack([discriminatorset[int(j)] for j in idx]))
+
+
+def _log_metrics(iteration: int, metrics: Dict) -> None:
+    if iteration % 50 == 0:
+        print(f"batch:{iteration}\t" + "\t".join(
+            f"{k}:{float(v):.4f}" for k, v in metrics.items()))
+
+
+def pretrain_gan(dataset, discriminatorset, output_path: str,
+                 epochs: int = 1, batch_size: int = 4,
+                 checkpoint_interval: int = 200, masks: bool = False,
+                 seed: int = 0, resume: bool = False,
+                 train_cfg: Optional[GANPretrainConfig] = None,
+                 loader_cls: type = PrefetchLoader,
+                 device="cuda") -> Dict:
+    """GAN pretraining loop (cvpce/classification_training.py:257-332)
+    on `device`. Returns {"state": GANTrainState}.
+
+    `dataset` items carry the generator's input at index 1 (tanh scale,
+    3 channels, or 4 with `masks`); `discriminatorset` items are [0, 1]
+    target-domain crops. The rotating `gan_checkpoint` holds both
+    players and their Adam states; `resume` continues from it, inside
+    the epoch with a loader that has `iter_from`. The discriminator's
+    samples of each step come from (seed, 17, epoch, step)."""
+    dev = resolve_device(device)
+    os.makedirs(output_path, exist_ok=True)
+    cfg = train_cfg or GANPretrainConfig(masks=masks)
+    init, step = make_gan_pretrain_step(cfg)
+    state = init(seed, gen_channels=4 if cfg.masks else 3, device=dev)
+    manager = CheckpointManager(output_path, name="gan_checkpoint")
+
+    def collate(items):
+        return (np.stack([it[1] for it in items]),)
+
+    loader = loader_cls(dataset, batch_size, collate, shuffle=True,
+                        seed=seed)
+    steps_per_epoch = max(len(loader), 1)
+
+    start_epoch = 0
+    iteration = 0
+    skip_batches = 0
+    if resume:
+        meta = manager.load_meta()
+        if meta:
+            state = manager.restore(state)
+            iteration = meta.get("iteration", -1) + 1
+            start_epoch, skip_batches = _resume_position(
+                meta, steps_per_epoch, loader)
+
+    end_epoch = start_epoch + epochs
+    for e in range(start_epoch, end_epoch):
+        epoch_step = skip_batches - 1 if e == start_epoch else -1
+        for (gen_batch,) in _epoch_iter(loader, e, start_epoch,
+                                        skip_batches, steps_per_epoch):
+            bstep = epoch_step + 1
+            disc_batch = _discriminator_batch(discriminatorset,
+                                              len(gen_batch), seed, 17, e,
+                                              bstep)
+            state, metrics = step(state, gen_batch, disc_batch)
+            _log_metrics(iteration, metrics)
+            if iteration % checkpoint_interval == 0:
+                manager.save_rotating(state, {"epoch": e,
+                                              "iteration": iteration,
+                                              "epoch_step": bstep})
+            iteration += 1
+            epoch_step = bstep
+        manager.save_rotating(state, {"epoch": e,
+                                      "iteration": iteration - 1,
+                                      "epoch_step": epoch_step})
+    return {"state": state}
+
+
+def _overlay_embedder(embedder: torch.nn.Module, update: Mapping) -> None:
+    """Copy a partial MACVGG state_dict (utils/torch_import.py's
+    vgg16(_bn) import) over `embedder`'s tensors in place; an unknown
+    key or another shape raises."""
+    own = embedder.state_dict()
+    for k, v in update.items():
+        if k not in own or tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(
+                f"init_embedder entry {k}: shape {tuple(v.shape)} vs "
+                f"{tuple(own[k].shape) if k in own else 'no such entry'}")
+    with torch.no_grad():
+        for k, v in update.items():
+            own[k].copy_(torch.as_tensor(v))
+
+
+def train_dihe(dataset, discriminatorset, evaldata, evalset,
+               output_path: str, gan_state=None,
+               epochs: int = 1, batch_size: int = 4,
+               checkpoint_interval: int = 200, eval_interval: int = 1,
+               train_cfg: Optional[DIHETrainConfig] = None, seed: int = 0,
+               use_mesh: bool = True, hyperopt_report=None,
+               resume: bool = False,
+               init_embedder: Optional[Mapping] = None,
+               loader_cls: type = PrefetchLoader,
+               device="cuda") -> Dict:
+    """DIHE training loop (cvpce/classification_training.py:334-541) on
+    `device`. Returns {"state": DIHETrainState, "best": keeper record}.
+
+    `dataset` items are (emb image, gen image, hierarchy, annotation) in
+    tanh scale; a loader batch of 2 x `batch_size` splits into positives
+    and negatives (classification_training.py:474-477).
+    `discriminatorset` items are [0, 1] target-domain crops, drawn from
+    (seed, 29, epoch, step). `gan_state`: a GANTrainState or its
+    state_dict (a `gan_checkpoint` file) whose generator and
+    discriminator replace the seeded ones (their optimizers start
+    fresh). `init_embedder`: a partial MACVGG state_dict laid over the
+    seeded embedder (utils/torch_import.py:import_vgg16_features).
+    After every `eval_interval` epochs and the last, `eval_dihe` scores
+    an eval-mode copy of the embedder against the gallery `evaldata` on
+    `evalset`; `BestKeeper` keeps the best top-1 accuracy's epoch and the
+    final one, and `hyperopt_report(accuracy=...)` gets each. The
+    rotating `embedder_checkpoint` holds all three players and their
+    Adam states; `resume` continues from it as the GLN loop does.
+    """
+    dev = resolve_device(device)
+    os.makedirs(output_path, exist_ok=True)
+
+    def collate(items):
+        # first half positives, second half negatives
+        embs = np.stack([it[0] for it in items])
+        gens = np.stack([it[1] for it in items])
+        hiers = [it[2] for it in items]
+        return embs, gens, hiers
+
+    shard_index, num_shards, local_bs = _host_sharding(use_mesh, batch_size,
+                                                       dev)
+    loader = loader_cls(dataset, local_bs * 2, collate, shuffle=True,
+                        seed=seed, shard_index=shard_index,
+                        num_shards=num_shards)
+    steps_per_epoch = max(len(loader), 1)
+    cfg = train_cfg or DIHETrainConfig()
+    cfg = DIHETrainConfig(**{**cfg.__dict__,
+                             "steps_per_epoch": steps_per_epoch})
+
+    state = init_dihe_state(cfg, seed, gen_channels=4 if cfg.masks else 3,
+                            device=dev)
+    if init_embedder is not None:
+        _overlay_embedder(state.embedder, init_embedder)
+    if gan_state is not None:
+        sd = (gan_state.state_dict() if hasattr(gan_state, "state_dict")
+              else gan_state)
+        state.generator.load_state_dict(sd["generator"])
+        state.discriminator.load_state_dict(sd["discriminator"])
+    step = make_dihe_train_step(cfg)
+
+    manager = CheckpointManager(output_path, name="embedder_checkpoint")
+    keeper = BestKeeper(manager, "accuracy")
+    # the epoch evals' embedder: an eval-mode copy, reloaded each eval
+    encode = EmbedFn(MACVGG(batch_norm=cfg.batchnorm), device=dev)
+
+    start_epoch = 0
+    iteration = 0
+    skip_batches = 0
+    if resume:
+        meta = manager.load_meta()
+        if meta:
+            state = manager.restore(state)
+            iteration = meta.get("iteration", -1) + 1
+            keeper.best = meta.get("best", keeper.best)
+            start_epoch, skip_batches = _resume_position(
+                meta, steps_per_epoch, loader)
+
+    end_epoch = start_epoch + epochs
+    for e in range(start_epoch, end_epoch):
+        epoch_step = skip_batches - 1 if e == start_epoch else -1
+        for embs, gens, hiers in _epoch_iter(loader, e, start_epoch,
+                                             skip_batches,
+                                             steps_per_epoch):
+            block = len(embs) // 2
+            if block == 0:
+                continue
+            sim = hierarchy_similarity(hiers[:block],
+                                       hiers[block:2 * block])
+            disc_batch = _discriminator_batch(discriminatorset, block, seed,
+                                              29, e, epoch_step + 1)
+            state, metrics = step(state, embs[:block],
+                                  embs[block:2 * block], gens[:block],
+                                  disc_batch, sim)
+            _log_metrics(iteration, metrics)
+            iteration += 1
+            epoch_step += 1
+            if (iteration - 1) % checkpoint_interval == 0:
+                manager.save_rotating(state, {"epoch": e,
+                                              "iteration": iteration - 1,
+                                              "epoch_step": epoch_step,
+                                              "best": keeper.best})
+
+        manager.save_rotating(state, {"epoch": e,
+                                      "iteration": iteration - 1,
+                                      "epoch_step": epoch_step,
+                                      "best": keeper.best})
+
+        final = e == end_epoch - 1
+        if e % eval_interval == 0 or final:
+            encode.model.load_state_dict(state.embedder.state_dict())
+            acc = eval_dihe(encode, MACVGG.embedding_size, evaldata,
+                            evalset, batch_size=batch_size, k=(1,),
+                            verbose=False, device=dev)
+            accuracy = acc.get(1, 0.0)
+            print(f"epoch {e}: top-1 accuracy {accuracy:.4f}")
+            keeper.update(state, e, accuracy, final=final)
+            if hyperopt_report is not None:
+                hyperopt_report(accuracy=accuracy)
     return {"state": state, "best": keeper.best}

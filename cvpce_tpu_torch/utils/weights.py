@@ -3,10 +3,11 @@ state_dicts.
 
 Input trees are nested dicts of numpy arrays, as the JAX serving
 loaders return them (`{params, frozen, batch_stats}` for GLN;
-`(params, batch_stats)` for MACVGG and MACResNet). This module reads no checkpoint
-itself. Layout changes: conv kernels HWIO -> OIHW; FrozenBN
-`scale/bias/mean/var` -> `weight/bias/running_mean/running_var`; flax
-BatchNorm likewise plus a `num_batches_tracked` counter. Module paths
+`(params, batch_stats)` for MACVGG, MACResNet and the GAN players).
+This module reads no checkpoint itself. Layout changes: conv kernels
+HWIO -> OIHW (ConvTranspose kernels -> (in, out, kh, kw), flipped);
+FrozenBN `scale/bias/mean/var` -> `weight/bias/running_mean/running_var`;
+flax BatchNorm likewise plus a `num_batches_tracked` counter. Module paths
 keep the JAX names (`body.layer2_0.conv1`), and the detector head needs
 no reordering: the port flattens its NCHW outputs in the same
 (y, x, anchor) order the JAX head uses.
@@ -19,6 +20,7 @@ so int8 models take the same state_dicts.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
@@ -38,8 +40,8 @@ def _leaves(tree, trail=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
         yield trail, np.asarray(tree)
 
 
-def _convert(trees, rename_module=lambda path: path
-             ) -> Dict[str, torch.Tensor]:
+def _convert(trees, rename_module=lambda path: path,
+             transposed=lambda mods: False) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     bn_modules = set()
     for coll, tree in trees:
@@ -48,7 +50,11 @@ def _convert(trees, rename_module=lambda path: path
             mods = [m for m in mods if m != "fbn"]
             if leaf not in _LEAF:
                 raise KeyError(f"unexpected leaf {'/'.join(path)}")
-            if leaf == "kernel" and arr.ndim == 4:
+            if leaf == "kernel" and arr.ndim == 4 and transposed(mods):
+                # flax applies a ConvTranspose kernel unflipped, torch's
+                # ConvTranspose2d flipped
+                arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+            elif leaf == "kernel" and arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             name = ".".join(rename_module(mods))
             out[f"{name}.{_LEAF[leaf]}"] = torch.from_numpy(
@@ -89,6 +95,38 @@ def macresnet_state_dict(params: Mapping, batch_stats: Mapping
     conv kernels HWIO -> OIHW."""
     return _convert([("params", params), ("batch_stats", batch_stats)],
                     lambda mods: [m for m in mods if m != "bn"])
+
+
+_GAN_MODULE = re.compile(r"(down|down_bn|up|up_bn|conv|bn)_\d+")
+
+
+def gan_state_dict(params: Mapping, batch_stats: Mapping
+                   ) -> Dict[str, torch.Tensor]:
+    """UNetGenerator or AveragingPatchGAN (params, batch_stats) ->
+    models.gan state_dict, module names kept (`down_bn_1`,
+    `d.conv_3`). Conv kernels HWIO -> OIHW; the generator's
+    ConvTranspose kernels (`up_{i}`) HWIO -> (in, out, kh, kw), flipped
+    in both spatial axes."""
+    def rename(mods):
+        if not mods or not _GAN_MODULE.fullmatch(mods[-1]) or any(
+                m != "d" for m in mods[:-1]):
+            raise KeyError(f"not a GAN layer: {'/'.join(mods)}")
+        return mods
+
+    return _convert([("params", params), ("batch_stats", batch_stats)],
+                    rename, lambda mods: re.fullmatch(r"up_\d+", mods[-1])
+                    is not None)
+
+
+def dihe_state_dict(state) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The three players of a JAX `DIHETrainState` (anything with its
+    `emb_params`, `emb_stats`, `gen_params`, ... attributes, as numpy
+    trees) -> {"embedder", "generator", "discriminator"} state_dicts of
+    MACVGG, UNetGenerator and AveragingPatchGAN."""
+    return {"embedder": macvgg_state_dict(state.emb_params, state.emb_stats),
+            "generator": gan_state_dict(state.gen_params, state.gen_stats),
+            "discriminator": gan_state_dict(state.disc_params,
+                                            state.disc_stats)}
 
 
 # a JAX `act_scales` tree (numpy or float leaves) -> the Int8Conv buffers

@@ -313,3 +313,40 @@ def test_train_step_on_card_matches_cpu(cuda, tmp_path):
     assert diff["frozen_kept"]
     for key, tol in testing.TRAIN_STEP_TOL.items():
         assert diff[key] <= tol, (key, diff)
+
+
+@pytest.mark.parametrize("loop", ["dihe", "gan"])
+def test_dihe_and_gan_steps_on_card_match_cpu(cuda, loop):
+    """One DIHE three-player step and one GAN pretraining step at 64 px,
+    gen_downs 4, batch 2, on the card and on the CPU from the same seeded
+    weights, within testing.DIHE_STEP_TOL; each BatchNorm counted the
+    statistics updates the JAX step keeps."""
+    from cvpce_tpu_torch.train import dihe
+
+    rng = np.random.default_rng(0)
+    pos, neg, gen, disc = (rng.uniform(-1, 1, (2, 64, 64, 3)).astype(
+        np.float32) for _ in range(4))
+    cfg = dihe.DIHETrainConfig(gen_downs=4, steps_per_epoch=10)
+    state = dihe.init_dihe_state(cfg, seed=3, device="cpu")
+    before = {k: getattr(state, k).state_dict()
+              for k in testing.DIHE_STAT_UPDATES}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        if loop == "dihe":
+            steps = testing.dihe_step_on_devices(
+                cfg, before, (pos, neg, gen, disc,
+                              np.float32([0.5, 1.0])))
+            updates = testing.DIHE_STAT_UPDATES
+        else:
+            before = {k: before[k] for k in testing.GAN_STAT_UPDATES}
+            steps = testing.gan_step_on_devices(
+                dihe.GANPretrainConfig(gen_downs=4), before, (gen, disc))
+            updates = testing.GAN_STAT_UPDATES
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    diff = testing.dihe_step_differences(before, steps["cuda"],
+                                         steps["cpu"], updates)
+    assert diff["stat_updates_kept"]
+    for key, tol in testing.DIHE_STEP_TOL.items():
+        assert diff[key] <= tol, (key, diff)
