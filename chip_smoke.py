@@ -103,10 +103,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import gc
+import hashlib
 import json
 import math
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -117,6 +120,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cvpce_tpu_torch import _build, testing
 from cvpce_tpu_torch.cli.common import load_embedder, load_gln_state_dict
@@ -134,7 +138,12 @@ from cvpce_tpu_torch.models.gln import GLN, GLNConfig, fold_gln_backbone
 from cvpce_tpu_torch.ops import conv_fused
 from cvpce_tpu_torch.ops import knn as knn_ops
 from cvpce_tpu_torch.ops import nms as nms_ops
+from cvpce_tpu_torch.ops.knn_sharded import (gallery_sharding,
+                                              make_sharded_nn, pad_gallery)
 from cvpce_tpu_torch.ops.matching import match_anchors
+from cvpce_tpu_torch.parallel import (data_parallel_mesh, make_dp_train_step,
+                                      put_replicated, put_sharded)
+from cvpce_tpu_torch.parallel.multihost import initialize_multihost
 from cvpce_tpu_torch.ops.metrics import calculate_metrics
 from cvpce_tpu_torch.pipeline import native
 from cvpce_tpu_torch.pipeline.calibrate import (calibrate_confidence,
@@ -2176,6 +2185,408 @@ def _dihe_resume(seed, loop):
             "rerun_loss_rel": rerun, "bound": bound}
 
 
+# --------------------------------------------------------------- parallel
+
+PARALLEL_TIMEOUT = 600  # seconds, the two ranks of parallel.ranks2
+PARALLEL_GALLERY = 8192  # 4096 rows a rank: K2 on each
+PARALLEL_QUERIES = 67
+PARALLEL_EVAL_SCENES = 2
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _digest(sd: Dict) -> str:
+    h = hashlib.sha256()
+    for key in sorted(sd):
+        h.update(key.encode())
+        h.update(sd[key].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _same_metrics(a: Dict, b: Dict) -> bool:
+    """Equal evaluate_gln results, their raw curves included."""
+    if a.keys() != b.keys():
+        return False
+    for t in a:
+        for key, v in a[t].items():
+            if key == "raw":
+                if not all(np.array_equal(v[k], b[t][key][k]) for k in v):
+                    return False
+            elif v != b[t][key]:
+                return False
+    return True
+
+
+def phase_parallel_init():
+    """initialize_multihost at world size 1 over NCCL on a free port:
+    the rendezvous and the warm-up all-reduce of ones."""
+    t0 = time.perf_counter()
+    initialize_multihost(f"tcp://127.0.0.1:{_free_port()}", 1, 0,
+                         local_rank=0,
+                         timeout=datetime.timedelta(seconds=120))
+    require(dist.is_initialized() and dist.get_world_size() == 1,
+            "the process group did not come up")
+    emit({"phase": "parallel.init", "backend": dist.get_backend(),
+          "world_size": dist.get_world_size(),
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_parallel_serve(par, seed):
+    """The mesh paths at world size 1 over NCCL: ProposalGenerator(mesh=)
+    on the serve phase's 4 scenes against the non-mesh detect_batch, bit
+    for bit, with K1 in the mesh path; Classifier(mesh=) over a
+    4096-entry 1024-d MACVGG gallery (the non-mesh index saved and
+    loaded into it) against the non-mesh search, with K2 in the mesh
+    path."""
+    t0 = time.perf_counter()
+    mesh = data_parallel_mesh()
+    images = par["scenes"]
+    torch.cuda.reset_peak_memory_stats()
+    pg, pg_mesh = (ProposalGenerator(par["gln_state"], par["config"],
+                                     confidence_threshold=0.5,
+                                     input_norm="raw01", mesh=m,
+                                     device="cuda")
+                   for m in (None, mesh))
+    _reset_launches()
+    ts = time.perf_counter()
+    got = pg_mesh.detect_batch(images)
+    torch.cuda.synchronize()
+    detect_s = time.perf_counter() - ts
+    k1 = _launches()["nms_hard"]
+    ts = time.perf_counter()
+    want = pg.detect_batch(images)
+    torch.cuda.synchronize()
+    plain_detect_s = time.perf_counter() - ts
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in ("valid", "boxes", "scores"):
+            require(np.array_equal(g[key], w[key]),
+                    f"scene {i}: detect_batch(mesh) {key} differs from "
+                    "the non-mesh path")
+    require(k1 > 0, "K1 was not launched in the mesh detect_batch")
+
+    vgg = MACVGG(batch_norm=True)
+    vgg.load_state_dict(par["vgg_state"])
+    encoder = EmbedFn(fold_bn_variables(vgg.cuda()), device="cuda")
+    clf = Classifier(encoder, encoder.embedding_size,
+                     sample_set=GallerySet(par["styles"], DIHE_GALLERY_SIZE,
+                                           seed), k=1, device="cuda")
+    index = BUILD / "parallel_index.npz"
+    clf.save_index(str(index))
+    clf_mesh = Classifier(encoder, encoder.embedding_size, load=str(index),
+                          k=1, mesh=mesh, device="cuda")
+    crops = torch.cat([pg.crop_boxes(img, r["boxes"][
+        r["valid"] & (r["scores"] > pg.confidence_threshold)])
+        for img, r in zip(images, want)])
+    require(len(crops) > 0, "no detections to classify")
+    _reset_launches()
+    ts = time.perf_counter()
+    labels_mesh = clf_mesh.classify(crops)
+    torch.cuda.synchronize()
+    classify_s = time.perf_counter() - ts
+    k2 = _launches()["knn_fused"]
+    labels = clf.classify(crops)
+    mismatches = 0
+    with torch.inference_mode():
+        for s0 in range(0, len(crops), clf.batch_size):
+            emb = clf._embed(crops[s0:s0 + clf.batch_size])
+            mismatches += int((clf_mesh.search(emb) != clf.search(emb))
+                              .sum())
+    require(mismatches == 0 and labels_mesh == labels,
+            f"Classifier(mesh) indices differ from the non-mesh search "
+            f"({mismatches})")
+    require(k2 > 0, "K2 was not launched in the mesh classify")
+    dist.destroy_process_group()
+    emit({"phase": "parallel.serve", "world_size": mesh.size,
+          "scenes": len(images),
+          "detections": int(sum(
+              (r["valid"] & (r["scores"] > pg.confidence_threshold)).sum()
+              for r in want)),
+          "crops": int(len(crops)), "gallery": len(clf.embedding),
+          "launches": {"nms_hard": k1, "knn_fused": k2},
+          "detect_seconds": detect_s, "plain_detect_seconds": plain_detect_s,
+          "classify_seconds": classify_s,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t0})
+    return {"nms_hard": k1, "knn_fused": k2}
+
+
+def parallel_inputs(par, seed, ref) -> Dict:
+    """What both ranks of parallel.ranks2 take: the GLN step's checkpoint
+    and global batch (256x384, 2 scenes), the DIHE step's seed and global
+    batch (128x128, 2 samples), a gallery of PARALLEL_GALLERY rows whose
+    row 4101 (rank 1's) repeats row 5 (rank 0's) and its queries, and
+    the serve phase's detector with PARALLEL_EVAL_SCENES eval scenes at
+    832x1344."""
+    h, w = TRAIN_SMALL_HW
+    scenes = synthetic.SyntheticShelfDataset(TRAIN_BATCH, h, w,
+                                             seed=seed + 500)
+    b = collate_detection([scenes[i] for i in range(TRAIN_BATCH)])
+    rng = np.random.default_rng(seed + 32)
+    hw = DIHE_PARITY_HW
+    pos, neg, gen, disc = (rng.uniform(-1, 1, (2, hw, hw, 3)).astype(
+        np.float32) for _ in range(4))
+    grng = np.random.default_rng(seed + 61)
+    gallery = grng.standard_normal((PARALLEL_GALLERY, 1024)).astype(
+        np.float32)
+    gallery[4101] = gallery[5]
+    queries = np.concatenate([gallery[[5, 4101, 8191]], grng.standard_normal(
+        (PARALLEL_QUERIES - 3, 1024))]).astype(np.float32)
+    config = par["config"]
+    evalset = synthetic.PlanogramSceneDetectionSet(
+        PARALLEL_EVAL_SCENES, config.canvas_h, config.canvas_w, seed=seed)
+    items = [{k: v.cpu().numpy() if torch.is_tensor(v) else v
+              for k, v in evalset[i].items()}
+             for i in range(PARALLEL_EVAL_SCENES)]
+    return {"ref": ref,
+            "gln_batch": (b["images"], b["boxes"], b["box_valid"],
+                          b["image_sizes"]),
+            "dihe_seed": seed + 31,
+            "dihe_batch": (pos, neg, gen, disc, np.float32([0.5, 1.0])),
+            "gallery": gallery, "queries": queries,
+            "eval_state": par["gln_state"], "eval_config": config,
+            "eval_items": items}
+
+
+def parallel_worker(rank: int, port: int, work: Path) -> int:
+    """One of parallel.ranks2's two ranks, both on cuda:0 over gloo (NCCL
+    refuses two ranks on one device): the DP GLN step, the DP DIHE step,
+    the sharded search and evaluate_gln(mesh=) on the inputs in `work`;
+    the results go to work/rank<r>.pt."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(f"tcp://127.0.0.1:{port}", 2, rank, local_rank=0,
+                         backend="gloo",
+                         timeout=datetime.timedelta(seconds=300))
+    mesh = data_parallel_mesh()
+    inputs = torch.load(work / "inputs.pt", weights_only=False)
+    out = {}
+
+    t0 = time.perf_counter()
+    h, w = TRAIN_SMALL_HW
+    config, train_cfg = train_configs(h, w, steps_per_epoch=1)
+    state = gln_train.init_train_state(
+        config, train_cfg, state_dict=load_gln_state_dict(inputs["ref"],
+                                                          config),
+        device="cuda")
+    put_replicated(state, mesh)
+    step = make_dp_train_step(gln_train.make_train_step(
+        config, train_cfg, config.anchors()[0]), mesh)
+    batch = put_sharded(inputs["gln_batch"], mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ts = time.perf_counter()
+    state, metrics = step(state, *batch)
+    torch.cuda.synchronize()
+    sd = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    out["gln"] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                  "state": sd if rank == 0 else None, "digest": _digest(sd),
+                  "step_seconds": time.perf_counter() - ts,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "seconds": time.perf_counter() - t0}
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = dihe_train.DIHETrainConfig(gen_downs=7, steps_per_epoch=10)
+    state = dihe_train.init_dihe_state(cfg, seed=inputs["dihe_seed"],
+                                       device="cuda")
+    put_replicated(state, mesh)
+    step = make_dp_train_step(dihe_train.make_dihe_train_step(cfg), mesh)
+    batch = put_sharded(inputs["dihe_batch"], mesh)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    state, metrics = step(state, *batch)
+    torch.cuda.synchronize()
+    record = testing._player_record(state, testing.DIHE_STAT_UPDATES)
+    out["dihe"] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                   "players": record if rank == 0 else None,
+                   "digest": _digest({f"{p}.{k}": v for p, (sd, _) in
+                                      record.items() for k, v in sd.items()}),
+                   "step_seconds": time.perf_counter() - ts,
+                   "seconds": time.perf_counter() - t0}
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    padded, valid = pad_gallery(inputs["gallery"], mesh.size)
+    place = gallery_sharding(mesh)
+    block, block_valid = place(padded), place(valid)
+    queries = torch.from_numpy(inputs["queries"]).cuda()
+    out["knn"] = {}
+    for k in (1, 8):
+        search = make_sharded_nn(mesh, k)
+        _reset_launches()
+        kernels = knn_ops.kernels_launched()
+        d, i = search(block, block_valid, queries)
+        torch.cuda.synchronize()
+        out["knn"][k] = {"dists": d.cpu(), "idx": i.cpu(),
+                         "launches": _launches()["knn_fused"],
+                         "kernels": knn_ops.kernels_launched() - kernels}
+    out["knn_seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    out["eval"] = evaluate_gln(inputs["eval_state"], inputs["eval_items"],
+                               inputs["eval_config"], thresholds=(0.5,),
+                               batch_size=PARALLEL_EVAL_SCENES, mesh=mesh,
+                               device="cuda")
+    torch.cuda.synchronize()
+    out["eval_launches"] = _launches()["nms_hard"]
+    out["eval_seconds"] = time.perf_counter() - t0
+    torch.save(out, work / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(work: Path) -> list:
+    """Start both ranks of parallel.ranks2, wait up to PARALLEL_TIMEOUT,
+    end them all whatever happens; every rank's results."""
+    port = _free_port()
+    procs, logs = [], []
+    for rank in range(2):
+        log = open(work / f"rank{rank}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--parallel-rank", str(rank), "--parallel-port", str(port),
+             "--parallel-dir", str(work)],
+            stdout=log, stderr=subprocess.STDOUT))
+    end = time.monotonic() + PARALLEL_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.returncode not in (None, 0)]
+            require(not failed and time.monotonic() < end,
+                    f"parallel.ranks2: rank {failed[:1]} failed or ran past "
+                    f"{PARALLEL_TIMEOUT} s:\n"
+                    + (work / f"rank{(failed or [0])[0]}.log").read_text()[
+                        -3000:])
+            time.sleep(0.2)
+        for r, p in enumerate(procs):
+            require(p.returncode == 0, f"parallel.ranks2: rank {r} exited "
+                    f"{p.returncode}:\n"
+                    + (work / f"rank{r}.log").read_text()[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    return [torch.load(work / f"rank{r}.pt", weights_only=False)
+            for r in range(2)]
+
+
+def phase_parallel_ranks2(par, seed, ref):
+    """Two ranks on the one card over gloo, each with half of every
+    global batch: the DP GLN step at 256x384 and the DP DIHE step at
+    128x128 against the one-process step on the same global batch on the
+    card (testing.TRAIN_STEP_TOL, testing.DIHE_STEP_TOL), the ranks bit
+    for bit alike; the gallery-sharded search over PARALLEL_GALLERY rows
+    (K2 on each rank's 4096) against the one search over all of them;
+    evaluate_gln(mesh=) on PARALLEL_EVAL_SCENES scenes (one a rank, K1 on
+    each) against the non-mesh evaluate_gln at batch 1, equal."""
+    t0 = time.perf_counter()
+    work = BUILD / "parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    inputs = parallel_inputs(par, seed, ref)
+    torch.save(inputs, work / "inputs.pt")
+    ts = time.perf_counter()
+    ranks = _run_ranks(work)
+    ranks_s = time.perf_counter() - ts
+
+    h, w = TRAIN_SMALL_HW
+    config, train_cfg = train_configs(h, w, steps_per_epoch=1)
+    state = load_gln_state_dict(ref, config)
+    one = testing.train_step_on_devices(config, train_cfg, state,
+                                        inputs["gln_batch"],
+                                        devices=("cuda",))["cuda"]
+    dp = (ranks[0]["gln"]["metrics"], ranks[0]["gln"]["state"])
+    gln_diff = testing.train_step_differences(state, dp, one)
+    require(ranks[0]["gln"]["digest"] == ranks[1]["gln"]["digest"],
+            "the ranks' GLN states differ after the DP step")
+    require(gln_diff["frozen_kept"], "a frozen tensor moved in the DP step")
+    for key, tol in testing.TRAIN_STEP_TOL.items():
+        require(gln_diff[key] <= tol, f"DP GLN step against one process: "
+                f"{key} {gln_diff[key]} > {tol}")
+
+    cfg = dihe_train.DIHETrainConfig(gen_downs=7, steps_per_epoch=10)
+    init = dihe_train.init_dihe_state(cfg, seed=inputs["dihe_seed"],
+                                      device="cpu")
+    before = {k: getattr(init, k).state_dict()
+              for k in testing.DIHE_STAT_UPDATES}
+    one = testing.dihe_step_on_devices(cfg, before, inputs["dihe_batch"],
+                                       devices=("cuda",))["cuda"]
+    dp = (ranks[0]["dihe"]["metrics"], ranks[0]["dihe"]["players"])
+    dihe_diff = testing.dihe_step_differences(before, dp, one,
+                                              testing.DIHE_STAT_UPDATES)
+    require(ranks[0]["dihe"]["digest"] == ranks[1]["dihe"]["digest"],
+            "the ranks' DIHE players differ after the DP step")
+    require(dihe_diff["stat_updates_kept"], "DP DIHE step: a BatchNorm's "
+            "update count differs from the JAX step's")
+    for key, tol in testing.DIHE_STEP_TOL.items():
+        require(dihe_diff[key] <= tol, f"DP DIHE step against one process: "
+                f"{key} {dihe_diff[key]} > {tol}")
+
+    gallery = torch.from_numpy(inputs["gallery"]).cuda()
+    queries = torch.from_numpy(inputs["queries"]).cuda()
+    knn_rows = {}
+    for k in (1, 8):
+        d1, i1 = knn_ops.nearest_neighbors_fused(gallery, queries, k)
+        for r, out in enumerate(ranks):
+            got = out["knn"][k]
+            require(torch.equal(got["idx"], i1.cpu()),
+                    f"sharded search (k={k}) on rank {r} differs from the "
+                    "single search")
+            require(float((got["dists"] - d1.cpu()).abs().max()) <= KNN_TOL,
+                    f"sharded search (k={k}) distances on rank {r}")
+            require(got["launches"] == 1 and got["kernels"] == 3,
+                    f"rank {r}: K2 launches {got['launches']}, kernels "
+                    f"{got['kernels']} (norms, scan, merge)")
+        require(bool((i1[:2, 0] == 5).all()), "the tie across the ranks "
+                "did not go to the lowest index")
+        knn_rows[k] = [out["knn"][k]["launches"] for out in ranks]
+
+    want = evaluate_gln(inputs["eval_state"], inputs["eval_items"],
+                        inputs["eval_config"], thresholds=(0.5,),
+                        batch_size=1, device="cuda")
+    for r, out in enumerate(ranks):
+        require(_same_metrics(out["eval"], want),
+                f"evaluate_gln(mesh) on rank {r} differs from the non-mesh "
+                "metrics")
+        require(out["eval_launches"] > 0, f"rank {r}: K1 not launched in "
+                "evaluate_gln(mesh)")
+    launches = {"nms_hard": [out["eval_launches"] for out in ranks],
+                "knn_fused": knn_rows[1]}
+    emit({"phase": "parallel.ranks2", "backend": "gloo", "world_size": 2,
+          "device": "cuda:0 (both ranks)",
+          "gln": {"canvas": [h, w], "global_batch": TRAIN_BATCH, **gln_diff,
+                  "losses": ranks[0]["gln"]["metrics"],
+                  "step_seconds": [o["gln"]["step_seconds"] for o in ranks],
+                  "max_memory_allocated": [o["gln"]["max_memory_allocated"]
+                                           for o in ranks]},
+          "dihe": {"canvas": [DIHE_PARITY_HW] * 2, "global_batch": 2,
+                   **dihe_diff,
+                   "step_seconds": [o["dihe"]["step_seconds"]
+                                    for o in ranks]},
+          "knn": {"gallery": PARALLEL_GALLERY,
+                  "queries": PARALLEL_QUERIES, "launches": knn_rows,
+                  "seconds": [o["knn_seconds"] for o in ranks]},
+          "eval": {"scenes": PARALLEL_EVAL_SCENES,
+                   "ap": float(want[0.5]["ap"]),
+                   "seconds": [o["eval_seconds"] for o in ranks]},
+          "launches": launches, "ranks_seconds": ranks_s,
+          "tolerances": {"train": testing.TRAIN_STEP_TOL,
+                         "dihe": testing.DIHE_STEP_TOL, "knn": KNN_TOL},
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2189,10 +2600,17 @@ def _leaves(tree):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # parallel.ranks2 starts this script again as each of its two ranks
+    ap.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-dir", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if args.parallel_rank is not None:
+        return parallel_worker(args.parallel_rank, args.parallel_port,
+                               args.parallel_dir)
     t0 = time.perf_counter()
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2222,6 +2640,14 @@ def main(argv=None) -> int:
     mac_launches, knn_mac = phase_serve_macresnet(timer, ctx, args.seed)
     phase_load_reference(args.seed)
     phase_data_perspective(ctx, args.seed)
+    # the parallel phases' detector (its head calibrated), embedder and
+    # scenes, on the host: the phases between keep the card as they had it
+    par = {"gln_state": {k: v.cpu() for k, v in
+                         ctx["pg"].model.state_dict().items()},
+           "config": ctx["pg"].config,
+           "vgg_state": {k: v.cpu() for k, v in
+                         ctx["vgg"].state_dict().items()},
+           "styles": ctx["styles"], "scenes": [s[0] for s in ctx["scenes"]]}
     del ctx
     gc.collect()
     ref = reference_gln_checkpoint(args.seed)
@@ -2233,18 +2659,26 @@ def main(argv=None) -> int:
     dihe_launches = phase_train_dihe(args.seed, gan_state)
     del gan_state
     phase_train_dihe_resume(args.seed)
+    phase_parallel_init()
+    serve_par = phase_parallel_serve(par, args.seed)
+    ranks_par = phase_parallel_ranks2(par, args.seed, ref)
+    del par
     pool_row = dict(pool_rows[0])
     pool_row["max_abs_err"] = max(r["max_abs_err"] for r in pool_rows)
     # K2's row times serve.macresnet's 1536-d search; the MACVGG serve
     # path's (D = 1024) rides along, and the DIHE epoch evals' launches
     d1024 = {k: knn_serve[k] for k in ("shape", "ms", "plain_ms",
                                         "bound_ms", "library_ms")}
+    parallel = {name: {"serve": serve_par[name], "ranks2": ranks_par[name]}
+                for name in ("nms_hard", "knn_fused")}
     rows = {"nms_hard": dict(nms_serve, launches=launches["nms_hard"],
-                             train_launches=train_launches),
+                             train_launches=train_launches,
+                             parallel_launches=parallel["nms_hard"]),
             "knn_fused": dict(knn_mac, launches=mac_launches["knn_fused"],
                               d1024=dict(d1024,
                                          launches=launches["knn_fused"]),
-                              dihe_train_launches=dihe_launches),
+                              dihe_train_launches=dihe_launches,
+                              parallel_launches=parallel["knn_fused"]),
             "soft_nms": dict(soft_serve,
                              launches=soft_launches["soft_nms"]),
             "pool_int8_conv": dict(pool_row, launches=pool_launches)}
@@ -2260,8 +2694,9 @@ def main(argv=None) -> int:
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    extra = {"nms_hard": ("train_launches",),
-             "knn_fused": ("d1024", "dihe_train_launches")}
+    extra = {"nms_hard": ("train_launches", "parallel_launches"),
+             "knn_fused": ("d1024", "dihe_train_launches",
+                           "parallel_launches")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],
          "replaces": replaces[name][1],

@@ -20,14 +20,17 @@ def eval_dihe(encoder_fn, embedding_size: int, sampleset, testset,
               batch_size: int = 32, k: Sequence[int] = (1,),
               load_index: str | None = None,
               verbose: bool = True, index_average: int = 1,
-              device="cuda") -> Dict[int, float]:
+              mesh=None, device="cuda") -> Dict[int, float]:
+    """Top-k accuracy per k. `mesh`: the gallery is held row-sharded
+    over its ranks (pipeline/classifier.py), every rank scoring every
+    query and returning the same accuracies."""
     dev = resolve_device(device)
     if verbose:
         print("Preparing classifier...")
     classifier = Classifier(encoder_fn, embedding_size, sampleset,
                             batch_size=batch_size, k=max(k),
                             load=load_index, index_average=index_average,
-                            device=dev)
+                            mesh=mesh, device=dev)
 
     total = 0
     correct = {knn: 0 for knn in k}

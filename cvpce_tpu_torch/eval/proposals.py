@@ -3,8 +3,11 @@ of cvpce_tpu/eval/proposals.py.
 
 The detector is the port's GLN + postprocess_detections, so every batch
 runs the hard-NMS kernel (K1) on the card; the matcher of ops/metrics.py
-runs on the same device. Batch-sharded evaluation (`mesh=`) waits for
-the parallel queue, and the P/R/F1 plots for utils/viz.py.
+runs on the same device. With `mesh=` (parallel/mesh.py) every rank is
+given the same batch, runs the forward and the postprocess on its own
+slice of it and gathers the others' (`shard_inference`), so every rank
+returns the whole batch's detections and the same metrics. The P/R/F1
+plots wait for utils/viz.py.
 """
 from __future__ import annotations
 
@@ -16,23 +19,57 @@ import torch
 from ..data import transforms as T
 from ..models.gln import GLN, GLNConfig, postprocess_detections
 from ..ops import metrics as M
+from ..parallel.mesh import all_gather
 from ..utils import resolve_device
 
 
-def make_variables_inference_fn(config: GLNConfig, device="cuda"
-                                ) -> Callable:
+def shard_inference(infer: Callable, mesh) -> Callable:
+    """(images (B, ...), image_sizes (B, 2)) -> detections over a mesh:
+    the batch, padded to a multiple of the rank count (zero images of
+    content size 1 x 1, as the JAX package pads), is split into
+    contiguous slices; each rank runs `infer` on its own and gathers
+    every output, and the pad rows are dropped. Every rank must call it
+    with the same batch."""
+    def sharded(images, image_sizes) -> Dict:
+        n = len(images)
+        local = -(-n // mesh.size)
+        pad = local * mesh.size - n
+        if pad:
+            images = torch.cat([images, images.new_zeros(
+                (pad, *images.shape[1:]))])
+            image_sizes = torch.cat([image_sizes, image_sizes.new_ones(
+                (pad, 2))])
+        rows = slice(mesh.rank * local, (mesh.rank + 1) * local)
+        res = infer(images[rows], image_sizes[rows])
+        return {k: torch.cat(all_gather(v, mesh))[:n]
+                for k, v in res.items()}
+    return sharded
+
+
+def make_variables_inference_fn(config: GLNConfig, mesh=None,
+                                device="cuda") -> Callable:
     """(state_dict, images (B, H, W, 3), image_sizes (B, 2)) ->
     detections, with the weights as an argument: one GLN module serves
     every checkpoint, and each call runs the weights it is given, as the
     JAX function applies its variables on every call. The state_dict is
     loaded again unless every tensor in it is the one loaded last and
     unchanged since (same storage, same `_version`), so an in-place
-    update, as an optimizer step makes, reaches the next call."""
+    update, as an optimizer step makes, reaches the next call.
+
+    `mesh`: the batch is shared out over the ranks (`shard_inference`);
+    every rank passes the same weights and batch and gets every image's
+    detections."""
     dev = resolve_device(device)
     model = GLN(config).to(dev)
     anchors, counts = config.anchors()
     anchors_t = torch.from_numpy(anchors).to(dev)
     loaded = None  # (the tensors loaded last, their versions)
+
+    def detect(images, sizes) -> Dict:
+        return postprocess_detections(model(images), anchors_t, counts,
+                                      sizes, config)
+
+    run = detect if mesh is None else shard_inference(detect, mesh)
 
     @torch.inference_mode()
     def infer(state_dict: Dict, images, image_sizes) -> Dict:
@@ -42,10 +79,8 @@ def make_variables_inference_fn(config: GLNConfig, device="cuda"
             model.load_state_dict(state_dict)
             # holding the tensors keeps their storage from being reused
             loaded = (list(state_dict.values()), key)
-        outputs = model(torch.as_tensor(images).to(dev, torch.float32))
-        sizes = torch.as_tensor(image_sizes).to(dev, torch.float32)
-        return postprocess_detections(outputs, anchors_t, counts, sizes,
-                                      config)
+        return run(torch.as_tensor(images).to(dev, torch.float32),
+                   torch.as_tensor(image_sizes).to(dev, torch.float32))
 
     return infer
 
@@ -64,7 +99,7 @@ def _weights_key(state_dict: Dict):
 def make_inference_fn(state_dict: Dict, config: GLNConfig, device="cuda"
                       ) -> Callable:
     """(images, image_sizes) -> detections with `state_dict` loaded."""
-    infer = make_variables_inference_fn(config, device)
+    infer = make_variables_inference_fn(config, device=device)
     return lambda images, image_sizes: infer(state_dict, images,
                                              image_sizes)
 
@@ -110,18 +145,25 @@ def evaluate_gln(state_dict: Dict, dataset, config: GLNConfig,
                  plot_out: str | None = None,
                  return_detections: bool = False,
                  infer_fn: Callable | None = None,
-                 device="cuda") -> Dict:
+                 mesh=None, device="cuda") -> Dict:
     """Run detection over `dataset` (items with image/image_size/scale/
     orig_boxes fields) and compute the metric suite (AP, AR@300, max-F1
     P/R/C) per IoU threshold, with detections mapped back to original
     image coordinates. `infer_fn(state_dict, images, sizes)` replaces
     the port's GLN (make_variables_inference_fn, shared across
-    calls)."""
+    calls). `mesh` (without an infer_fn): every batch is shared out over
+    the ranks, `batch_size` a multiple of their count; every rank
+    returns the same metrics."""
     if plot_out:
         raise NotImplementedError(
             "plot_out needs utils/viz.py (matplotlib), which is not "
             "ported yet (ROADMAP.md Queue 1)")
     dev = resolve_device(device)
+    if infer_fn is None and mesh is not None:
+        assert batch_size % mesh.size == 0, (
+            f"batch_size {batch_size} not divisible over {mesh.size} "
+            "ranks")
+        infer_fn = make_variables_inference_fn(config, mesh, device=dev)
     if infer_fn is not None:
         def infer(images, sizes):
             return infer_fn(state_dict, images, sizes)

@@ -12,12 +12,13 @@ biases."""
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import active_mesh, all_reduce_sum
 from .layers import FrozenBatchNorm, cast_float_convs_, conv, max_pool
 from .quant import qconv
 
@@ -37,7 +38,12 @@ class BatchNorm(nn.BatchNorm2d):
 
     `update_stats = False` keeps the train mode's batch statistics but
     leaves the running ones untouched: flax's train-mode apply whose
-    mutated `batch_stats` the caller throws away (`frozen_statistics`)."""
+    mutated `batch_stats` the caller throws away (`frozen_statistics`).
+
+    Inside a data-parallel step over several ranks
+    (parallel/mesh.py:active_mesh) the batch is the global one, as under
+    the JAX package's sharded batch: `batch_moments` takes the count,
+    sum and sum of squares over every rank."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
@@ -49,9 +55,7 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            mean, var = batch_moments(xf, active_mesh())
             if self.update_stats:
                 with torch.no_grad():
                     keep = 1.0 - self.momentum
@@ -63,6 +67,27 @@ class BatchNorm(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[c]) * mul[c] + self.bias[c]
         return y.to(x.dtype)
+
+
+def batch_moments(x: torch.Tensor, mesh=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel mean and biased variance, mean(x^2) - mean(x)^2
+    clipped at 0, of an NCHW batch. With a `mesh`, over the batch of
+    every rank: the count, sum and sum of squares are all-reduced in
+    x's dtype, and in backward the gradients of the sums, so the input
+    gradient is the global batch's."""
+    dims = (0, 2, 3)
+    if mesh is None:
+        mean = x.mean(dim=dims)
+        return mean, torch.clamp((x * x).mean(dim=dims) - mean * mean,
+                                 min=0.0)
+    c = x.shape[1]
+    sums = all_reduce_sum(torch.cat([
+        x.sum(dim=dims), (x * x).sum(dim=dims),
+        x.new_full((1,), x.numel() // c)]), mesh)
+    count = sums[2 * c]
+    mean = sums[:c] / count
+    return mean, torch.clamp(sums[c:2 * c] / count - mean * mean, min=0.0)
 
 
 @contextlib.contextmanager

@@ -28,6 +28,9 @@ import torch
 from .. import _build
 
 MAX_K = 8
+# the smallest gallery the callers search with the fused kernel; smaller
+# ones take the plain distance matrix, as in the JAX package
+FUSED_MIN_ROWS = 4096
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -66,6 +69,26 @@ def nearest_neighbors(anchors: torch.Tensor, queries: torch.Tensor,
                       k: int = 1) -> torch.Tensor:
     """Indices (Q, k) of the k nearest anchors per query."""
     return knn_plain(anchors, queries, k)[1]
+
+
+def knn_masked(anchors: torch.Tensor, anchor_valid: torch.Tensor,
+               queries: torch.Tensor, k: int = 1
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`knn_plain` over a padded gallery: rows where `anchor_valid` is
+    False get +inf distance (and rank after every valid row)."""
+    dists = distance_matrix(queries, anchors)
+    dists = torch.where(anchor_valid[None, :], dists,
+                        torch.full_like(dists, float("inf")))
+    sd, si = torch.sort(dists, dim=1, stable=True)
+    return sd[:, :k], si[:, :k]
+
+
+def nearest_neighbors_masked(anchors: torch.Tensor,
+                             anchor_valid: torch.Tensor,
+                             queries: torch.Tensor,
+                             k: int = 1) -> torch.Tensor:
+    """Indices (Q, k) of the k nearest valid anchors per query."""
+    return knn_masked(anchors, anchor_valid, queries, k)[1]
 
 
 def inverse_norms(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -4,7 +4,9 @@ cvpce_tpu/ops/losses.py.
 - sigmoid focal loss (torchvision RetinaNet's) with a stable BCE;
 - the Gaussian heatmap loss with hard-negative mining: the top
   k = max(min_negatives, 3 * #pos) negatives are a descending sort and a
-  prefix sum read at k, a tensor index, so no host sync;
+  prefix sum read at k, a tensor index, so no host sync; inside a
+  data-parallel step over several ranks the mining runs over the global
+  batch (`_mined_over_ranks`);
 - the hierarchical triplet loss and ZNCC of the DIHE trainer.
 
 Every function is plain torch and differentiable, with jnp's gradients
@@ -14,7 +16,9 @@ split it), |x| has 0 at 0.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import active_mesh, all_gather
 from .knn import cosine_distance
 
 
@@ -50,13 +54,19 @@ def gaussian_heatmap_loss(predictions: torch.Tensor, targets: torch.Tensor,
     pixel (target >= positive_threshold) counts, the largest
     max(min_negatives, 3 * #pos) errors among the negative pixels
     (target <= negative_threshold) count, normalised by their number.
-    `tanh` is accepted for the JAX signature; the thresholds carry it."""
+    `tanh` is accepted for the JAX signature; the thresholds carry it.
+    Inside a data-parallel step the batch is the global one
+    (`_mined_over_ranks`)."""
     pred = predictions.reshape(-1)
     tgt = targets.reshape(-1)
     se = (pred - tgt) ** 2
 
     pos_mask = tgt >= positive_threshold
     neg_mask = tgt <= negative_threshold
+    mesh = active_mesh()
+    if mesh is not None:
+        return _mined_over_ranks(se, pos_mask, neg_mask, mesh,
+                                 min_negatives, negatives_per_positive)
     n_pos = pos_mask.sum()
     pos_sum = torch.where(pos_mask, se, torch.zeros_like(se)).sum()
 
@@ -73,6 +83,47 @@ def gaussian_heatmap_loss(predictions: torch.Tensor, targets: torch.Tensor,
     neg_sum = torch.where(n_top > 0, picked, torch.zeros_like(picked))
     denom = (n_pos + n_top).clamp(min=1)
     return (pos_sum + neg_sum) / denom
+
+
+def _mined_over_ranks(se: torch.Tensor, pos_mask: torch.Tensor,
+                      neg_mask: torch.Tensor, mesh, min_negatives: int,
+                      negatives_per_positive: int) -> torch.Tensor:
+    """The heatmap loss over the global batch, of which this rank holds
+    the slice `se` (rank-major, as the global batch is laid out).
+
+    #pos and the positives' sum are all-reduced; every rank's negative
+    errors (detached) are gathered and sorted once, descending and
+    stable, so the kept negatives are the first n_top of that order and
+    ties at the cut go to the lowest global index, as JAX's one stable
+    sort of the whole batch breaks them. The value is the global loss on
+    every rank. Its gradient reaches this rank's kept pixels scaled by the
+    rank count, so the gradients averaged over the ranks are the global
+    loss's."""
+    zero = torch.zeros_like(se)
+    pos_sum = torch.where(pos_mask, se, zero).sum()
+    totals = torch.stack([pos_mask.sum().double(), pos_sum.detach().double()])
+    dist.all_reduce(totals, group=mesh.group)
+    n_pos = totals[0].long()
+
+    neg_se = torch.where(neg_mask, se, torch.full_like(se, -1.0)).detach()
+    every = torch.cat(all_gather(neg_se, mesh))
+    ranked, order = torch.sort(every, descending=True, stable=True)
+    n_top = torch.clamp(negatives_per_positive * n_pos, min=min_negatives)
+    n_top = torch.minimum(n_top, (every >= 0).sum())
+    neg_cumsum = torch.cumsum(torch.where(ranked >= 0, ranked,
+                                          torch.zeros_like(ranked)), 0)
+    picked = neg_cumsum[(n_top - 1).clamp(min=0)]
+    neg_sum = torch.where(n_top > 0, picked, torch.zeros_like(picked))
+    denom = (n_pos + n_top).clamp(min=1)
+    value = ((totals[1] + neg_sum) / denom).to(se.dtype)
+
+    position = torch.empty_like(order)
+    position[order] = torch.arange(len(order), device=order.device)
+    n = se.numel()
+    kept = position[mesh.rank * n:(mesh.rank + 1) * n] < n_top
+    local = (pos_sum + torch.where(kept, se, zero).sum()) * (
+        mesh.size / denom.to(se.dtype))
+    return value + (local - local.detach())
 
 
 def hierarchical_triplet_loss(anchor_emb: torch.Tensor,

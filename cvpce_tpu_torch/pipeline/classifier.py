@@ -4,7 +4,11 @@ cosine kNN (torch); counterpart of cvpce_tpu/pipeline/classifier.py.
 The gallery stays resident on the device. Galleries of >= 4096 entries
 with k <= 8 search through the fused CUDA kernel
 (ops/knn.py:nearest_neighbors_fused), smaller ones through the plain
-distance matrix, as in the JAX package. The saved index is the same
+distance matrix, as in the JAX package. With a `mesh`
+(parallel/mesh.py), each rank holds one row block of the padded gallery
+and searches it locally (ops/knn_sharded.py: K2 for a block of >= 4096
+valid rows), and the ranks merge their candidates: every rank gets the
+single-process result. The saved index is the same
 `np.savez` file (`embedding`, `annotations` and, for an int8
 static-scale encoder, `act_scales`: a one-element object array holding
 the plain float tree `{'f2': {'scale': s}, ...}`), so an index saved by
@@ -18,25 +22,26 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from ..ops.knn import (inverse_norms, nearest_neighbors,
-                       nearest_neighbors_fused)
+from ..ops.knn import (FUSED_MIN_ROWS, MAX_K, inverse_norms,
+                       nearest_neighbors, nearest_neighbors_fused)
+from ..ops.knn_sharded import gallery_sharding, make_sharded_nn, pad_gallery
 from ..utils import resolve_device
-
-FUSED_MIN_GALLERY = 4096
-FUSED_MAX_K = 8
 
 
 class Classifier:
     def __init__(self, encoder_fn: Callable, embedding_size: int,
                  sample_set=None, batch_size: int = 32, k: int = 1,
                  load: Optional[str] = None, index_average: int = 1,
-                 device="cuda"):
+                 mesh=None, device="cuda"):
         """encoder_fn: (B, 256, 256, 3) tanh-scale -> (B, D) embeddings.
         sample_set: items (emb_img, gen_img, hierarchy, annotation) or
         (img, img, cls, cls). index_average > 1 collapses each run of
         that many consecutive sample_set items (which must share an
         annotation) into one index entry holding their mean embedding;
-        it applies when the index is built, not when it is loaded."""
+        it applies when the index is built, not when it is loaded.
+        mesh: a parallel/mesh.py mesh; every rank builds or loads the
+        whole index (`embedding` and `annotations` stay whole, for
+        save_index) and keeps its row block on the mesh's device."""
         self.device = resolve_device(device)
         self.encoder_fn = encoder_fn
         self.embedding_size = embedding_size
@@ -57,10 +62,20 @@ class Classifier:
             raise ValueError("pass a sample_set to index, or load=")
         else:
             self.embedding, self.annotations = self.build_index(sample_set)
+        self.mesh = mesh
+        if mesh is not None:
+            padded, valid = pad_gallery(
+                np.asarray(self.embedding, np.float32), mesh.size)
+            place = gallery_sharding(mesh)
+            self._anchors_dev, self._valid_dev = place(padded), place(valid)
+            self._sharded_search = make_sharded_nn(mesh, k)
+            self._use_fused = False
+            self._anchor_inv_norms = None
+            return
         self._anchors_dev = torch.from_numpy(
             np.asarray(self.embedding, np.float32)).to(self.device)
-        self._use_fused = (len(self.embedding) >= FUSED_MIN_GALLERY
-                           and k <= FUSED_MAX_K)
+        self._use_fused = (len(self.embedding) >= FUSED_MIN_ROWS
+                           and k <= MAX_K)
         # the resident gallery's norms, taken once for every search
         self._anchor_inv_norms = (inverse_norms(self._anchors_dev)
                                   if self._use_fused else None)
@@ -128,6 +143,9 @@ class Classifier:
 
     def search(self, emb: torch.Tensor) -> torch.Tensor:
         """(Q, k) gallery indices for (Q, D) embeddings on the device."""
+        if self.mesh is not None:
+            return self._sharded_search(self._anchors_dev, self._valid_dev,
+                                        emb)[1]
         if self._use_fused:
             return nearest_neighbors_fused(
                 self._anchors_dev, emb, self.k, self._anchor_inv_norms)[1]

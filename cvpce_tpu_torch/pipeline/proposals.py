@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..data import transforms as T
+from ..eval.proposals import shard_inference
 from ..models.gln import GLN, GLNConfig, postprocess_detections
 from ..models.quant import calibrate_act_scales
 from ..ops.image import crop_resize_square, scale_to_tanh
@@ -31,7 +32,12 @@ class ProposalGenerator:
     def __init__(self, state_dict: Dict[str, torch.Tensor],
                  config: GLNConfig, confidence_threshold: float = 0.5,
                  max_proposals: int = 256, input_norm: str = "imagenet",
-                 device="cuda"):
+                 mesh=None, device="cuda"):
+        """`mesh`: a parallel/mesh.py mesh; `detect_batch` shares the
+        image batch out over its ranks (every rank called with the same
+        images, the weights the same on each) and every rank gets every
+        image's detections. The postprocess is per image, so the split
+        is exact."""
         if input_norm not in ("imagenet", "raw01"):
             raise ValueError(f"unknown input_norm: {input_norm!r}")
         self.device = resolve_device(device)
@@ -44,6 +50,9 @@ class ProposalGenerator:
         self.model.to(self.device).eval()
         anchors, self.level_counts = config.anchors()
         self.anchors = torch.from_numpy(anchors).to(self.device)
+        self.mesh = mesh
+        self._infer_batch = (self.infer if mesh is None
+                             else shard_inference(self.infer, mesh))
 
     def _canvas(self, image: np.ndarray):
         return T.detection_canvas(
@@ -78,9 +87,11 @@ class ProposalGenerator:
 
     def detect_batch(self, images: List[np.ndarray]) -> List[Dict]:
         """Detections per image (HWC [0, 1]) in image coordinates, the
-        images forward in one batch."""
+        images forward in one batch; with a mesh, the batch padded to a
+        multiple of the rank count and shared out, the pad results
+        dropped."""
         canvases, sizes, scales = self._canvases(images)
-        res = self.infer(canvases, sizes)
+        res = self._infer_batch(canvases, sizes)
         out = []
         for i, scale in enumerate(scales):
             item = {"boxes": (res["boxes"][i] / scale).cpu().numpy(),

@@ -8,6 +8,10 @@ sidecar of scalars. A checkpoint is one file written by torch.save:
 the state's `state_dict()` (for GLN training the model's state_dict,
 the SGD momentum buffers and the step count), read back with
 `torch.load(weights_only=True)` onto the state's own tensors.
+
+Under data parallelism one rank writes (`writer=True` on rank 0 only):
+the state is replicated, so one copy is the whole of it, and no two
+ranks write the same file.
 """
 from __future__ import annotations
 
@@ -20,15 +24,21 @@ import torch
 
 
 class CheckpointManager:
-    def __init__(self, output_dir: str, name: str = "checkpoint"):
+    def __init__(self, output_dir: str, name: str = "checkpoint",
+                 writer: bool = True):
+        """`writer=False`: the saves write nothing (a data-parallel rank
+        other than 0)."""
         self.output_dir = path.abspath(output_dir)
         self.name = name
+        self.writer = writer
         os.makedirs(self.output_dir, exist_ok=True)
 
     def _path(self, name: str) -> str:
         return path.join(self.output_dir, name)
 
     def _write(self, state: Any, target: str, meta: Dict) -> None:
+        if not self.writer:
+            return
         tmp = target + ".tmp"
         torch.save(state.state_dict(), tmp)
         os.replace(tmp, target)
@@ -39,7 +49,7 @@ class CheckpointManager:
         """Save `state` as <name>, the existing one becoming
         previous_<name> (proposals_training.py:130-136)."""
         current = self._path(self.name)
-        if path.exists(current):
+        if self.writer and path.exists(current):
             os.replace(current, self._path(f"previous_{self.name}"))
         self._write(state, current, meta)
 
@@ -49,10 +59,13 @@ class CheckpointManager:
     def restore(self, state: Any, name: Optional[str] = None) -> Any:
         """Load the checkpoint into `state` (in place: each tensor is
         copied onto the device of the one it replaces) and return it."""
-        target = self._path(name or self.name)
-        state.load_state_dict(torch.load(target, map_location="cpu",
-                                         weights_only=True))
+        state.load_state_dict(self.read(name))
         return state
+
+    def read(self, name: Optional[str] = None) -> Dict:
+        """The saved state_dict, on the CPU."""
+        return torch.load(self._path(name or self.name), map_location="cpu",
+                          weights_only=True)
 
     def load_meta(self, name: Optional[str] = None) -> Dict:
         target = self._path(name or self.name) + ".meta.json"

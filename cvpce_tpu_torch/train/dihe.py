@@ -28,6 +28,14 @@ torch.optim.Adam, one per player; the encoder's LR is
 `enc_lr * enc_multiplier ** (step // steps_per_epoch)`, set from the
 number of steps taken before the update, as optax counts. A step works
 in place on the state it is given and returns it.
+
+Under parallel/mesh.py:make_dp_train_step every BatchNorm takes the
+global batch's statistics and each player's gradients are averaged over
+the ranks before its update; the losses are batch means over equal
+local batches, so the averages are the global batch's. The ranks stay
+in step without DistributedDataParallel, whose buffer broadcast and
+one-forward-per-backward model the several forwards of each sub-step
+do not fit.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from ..models.gan import AveragingPatchGAN, UNetGenerator
 from ..models.resnet import frozen_statistics
 from ..ops.knn import cosine_distance
 from ..ops.losses import hierarchical_triplet_loss, masked_zncc, zncc
+from ..parallel.mesh import average_gradients
 from ..utils import resolve_device
 
 # optax.adam's defaults (eps_root 0)
@@ -203,10 +212,12 @@ def _inputs(module: torch.nn.Module, *arrays) -> Tuple[torch.Tensor, ...]:
 def _update(opt: torch.optim.Adam, loss: torch.Tensor,
             lr: Optional[float] = None) -> None:
     """One Adam step of `opt`'s parameters on their gradient of `loss`;
-    no other tensor gets a gradient."""
+    no other tensor gets a gradient. Inside a data-parallel step the
+    gradients are first averaged over the ranks."""
     params = opt.param_groups[0]["params"]
     for p, g in zip(params, torch.autograd.grad(loss, params)):
         p.grad = g
+    average_gradients(params)
     if lr is not None:
         opt.param_groups[0]["lr"] = lr
     opt.step()

@@ -15,6 +15,10 @@ cvpce_tpu/train/gln.py.
 - the train step works in place: the model's parameters, its Gaussian
   BatchNorm statistics and the optimizer's momentum buffers are updated
   where they are, and the step returns the state it was given.
+- data parallelism wraps the step in parallel/mesh.py:make_dp_train_step:
+  the Gaussian branch's BatchNorms and the hard-negative mining then see
+  the global batch, the per-image losses average over equal local
+  batches, and `apply_gradients` averages the gradients over the ranks.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from ..ops.boxes import encode_boxes
 from ..ops.gaussians import render_gaussians_batch
 from ..ops.losses import gaussian_heatmap_loss, sigmoid_focal_loss
 from ..ops.matching import match_anchors
+from ..parallel.mesh import average_gradients
 from ..utils import resolve_device
 
 
@@ -118,10 +123,13 @@ def learning_rate(cfg: GLNTrainConfig, step: int) -> float:
 def apply_gradients(optimizer: torch.optim.SGD, cfg: GLNTrainConfig,
                     step: int) -> None:
     """One SGD update at step `step`'s LR from the gradients in `.grad`,
-    which it then clears."""
+    which it then clears. Inside a data-parallel step the gradients are
+    first averaged over the ranks."""
     lr = learning_rate(cfg, step)
     for group in optimizer.param_groups:
         group["lr"] = lr
+    average_gradients(p for group in optimizer.param_groups
+                      for p in group["params"])
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
 

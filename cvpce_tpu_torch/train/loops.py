@@ -8,10 +8,18 @@ rotating checkpoints every `checkpoint_interval` steps and at the end of
 every epoch, an eval every `eval_interval` epochs and on the final one
 keeping the best model, resume. The GLN loop also dumps per-epoch loss
 stats (deleting the one two epochs back) and guards against exploded
-losses (> 5000). One process on one device: data-parallel training over
-several cards is ROADMAP.md Queue 1 item 5, and the GLN and DIHE loops
-refuse to start where it would need it. The checkpoint-time sample
-pictures of the JAX loops (utils/viz.py, matplotlib) are left out.
+losses (> 5000). The checkpoint-time sample pictures of the JAX loops
+(utils/viz.py, matplotlib) are left out.
+
+Data parallelism (`use_mesh` inside a process group of several ranks,
+parallel/multihost.py): each rank loads its own shard of the dataset
+(`host_shard_info` into the loader's shard_index / num_shards) and
+contributes batch_size / world_size rows of the global batch, the step
+runs under parallel/mesh.py:make_dp_train_step, and every rank keeps
+the same state. Logged losses and epoch evals are the ranks' common
+values (the evals share each batch out over the ranks). Rank 0 alone
+writes checkpoints and stats; a resumed run reads them on rank 0 and
+broadcasts them, so the other ranks need not see rank 0's files.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..cli.common import load_gln_state_dict
 from ..data.loader import PrefetchLoader
@@ -33,6 +42,9 @@ from ..eval.classification import eval_dihe
 from ..eval.proposals import evaluate_gln, make_variables_inference_fn
 from ..models.embedders import EmbedFn, MACVGG
 from ..models.gln import GLNConfig
+from ..parallel import (data_parallel_mesh, make_dp_train_step,
+                        put_replicated)
+from ..parallel.multihost import host_shard_info
 from ..utils import resolve_device
 from . import gln as gln_train
 from .checkpoint import BestKeeper, CheckpointManager
@@ -72,16 +84,40 @@ def _epoch_iter(loader, epoch: int, start_epoch: int, skip_batches: int,
     return itertools.islice(it, max(steps_per_epoch - skip, 0))
 
 
-def _host_sharding(use_mesh: bool, batch_size: int, device: torch.device):
-    """(shard_index, num_shards, local_batch): one process loads the
-    whole dataset. With `use_mesh` and more than one visible card this
-    raises rather than train on one of them."""
-    if use_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"use_mesh with {torch.cuda.device_count()} visible cards: "
-            "data-parallel training is not ported yet (ROADMAP.md, "
-            "Queue 1 item 5); pass use_mesh=False or show one card")
-    return 0, 1, batch_size
+def _host_sharding(use_mesh: bool, batch_size: int):
+    """(shard_index, num_shards, local_batch): with `use_mesh` in a
+    process group of several ranks, each rank loads a disjoint shard of
+    the dataset and contributes batch_size / world_size rows of the
+    global batch (DistributedSampler's place)."""
+    if not use_mesh:
+        return 0, 1, batch_size
+    shard_index, num_shards = host_shard_info()
+    if num_shards == 1:
+        return 0, 1, batch_size
+    assert batch_size % num_shards == 0, (
+        f"global batch {batch_size} must divide over {num_shards} ranks")
+    return shard_index, num_shards, batch_size // num_shards
+
+
+def _resume_state(manager: CheckpointManager, state, mesh) -> Dict:
+    """Load the checkpoint to resume from into `state`; its meta, or {}
+    where there is none. Under a mesh rank 0 reads both and broadcasts
+    them."""
+    if mesh is None:
+        meta = manager.load_meta()
+        if meta:
+            manager.restore(state)
+        return meta
+    payload = [None]
+    if mesh.rank == 0:
+        meta = manager.load_meta()
+        payload = [(meta, manager.read() if meta else None)]
+    dist.broadcast_object_list(payload, src=0, group=mesh.group,
+                               device=mesh.device)
+    meta, sd = payload[0]
+    if meta:
+        state.load_state_dict(sd)
+    return meta
 
 
 def train_proposal_generator(
@@ -117,6 +153,9 @@ def train_proposal_generator(
     partially trained epoch on the exact next batch. The JAX package's
     GrainLoader and the checkpoint-time sample pictures (utils/viz.py,
     matplotlib) are not ported (ROADMAP.md, Queue 1 item 6).
+
+    `use_mesh` in a process group of several ranks: data-parallel
+    training over them (module docstring), `device` this rank's.
     """
     dev = resolve_device(device)
     if load_orbax is not None:
@@ -124,12 +163,16 @@ def train_proposal_generator(
             f"load_orbax={load_orbax!r}: orbax exports of the JAX package "
             "cannot be read by the port (ROADMAP.md, Queue 1 item 7)")
     os.makedirs(output_path, exist_ok=True)
-    shard_index, num_shards, local_bs = _host_sharding(use_mesh, batch_size,
-                                                       dev)
+    shard_index, num_shards, local_bs = _host_sharding(use_mesh, batch_size)
     loader = loader_cls(dataset, local_bs, collate_detection,
                         shuffle=True, seed=seed,
                         shard_index=shard_index, num_shards=num_shards)
     steps_per_epoch = max(len(loader), 1)
+    mesh = None
+    if num_shards > 1:
+        # one step count on every rank (shard sizes can differ by one)
+        steps_per_epoch = max((len(dataset) // num_shards) // local_bs, 1)
+        mesh = data_parallel_mesh(device=dev)
     cfg = train_cfg or gln_train.GLNTrainConfig()
     cfg = gln_train.GLNTrainConfig(**{
         **cfg.__dict__, "steps_per_epoch": steps_per_epoch})
@@ -143,16 +186,20 @@ def train_proposal_generator(
     step_fn = gln_train.make_train_step(model_cfg, cfg, anchors)
     if steps_per_call > 1:
         step_fn = gln_train.make_multi_step(step_fn)
+    if mesh is not None:
+        step_fn = make_dp_train_step(
+            step_fn, mesh, batch_axis=1 if steps_per_call > 1 else 0)
+        state = put_replicated(state, mesh)
 
-    manager = CheckpointManager(output_path)
+    manager = CheckpointManager(output_path,
+                                writer=mesh is None or mesh.rank == 0)
     keeper = BestKeeper(manager, "ap")
     start_epoch = 0
     iteration = 0
     skip_batches = 0  # mid-epoch resume offset into start_epoch
     if resume:
-        meta = manager.load_meta()
+        meta = _resume_state(manager, state, mesh)
         if meta:
-            state = manager.restore(state)
             iteration = meta.get("iteration", -1) + 1
             keeper.best = meta.get("best", keeper.best)
             start_epoch, skip_batches = _resume_position(
@@ -161,7 +208,7 @@ def train_proposal_generator(
     # one inference function for every epoch eval of the run: it takes
     # the weights as an argument and reloads them when the optimizer
     # has changed them in place
-    infer_fn = make_variables_inference_fn(model_cfg, device=dev)
+    infer_fn = make_variables_inference_fn(model_cfg, mesh, device=dev)
 
     losses_log = {"class_loss": [], "reg_loss": [], "gauss_loss": [],
                   "batch_times": []}
@@ -229,11 +276,12 @@ def train_proposal_generator(
 
         # per-epoch stats dump with delete-older-than-2
         # (proposals_training.py:141-154)
-        old = path.join(output_path, f"stats_{e - 2}.json")
-        if path.exists(old):
-            os.remove(old)
-        with open(path.join(output_path, f"stats_{e}.json"), "w") as f:
-            json.dump(losses_log, f)
+        if manager.writer:
+            old = path.join(output_path, f"stats_{e - 2}.json")
+            if path.exists(old):
+                os.remove(old)
+            with open(path.join(output_path, f"stats_{e}.json"), "w") as f:
+                json.dump(losses_log, f)
 
         # end-of-epoch rotating save, so resume=True continues from the
         # true epoch boundary
@@ -258,11 +306,15 @@ def train_proposal_generator(
 
 
 def _discriminator_batch(discriminatorset, n: int, seed: int, stream: int,
-                         epoch: int, step: int) -> np.ndarray:
+                         epoch: int, step: int, shard_index: int = 0,
+                         num_shards: int = 1) -> np.ndarray:
     """n target-domain crops in tanh scale, drawn from (seed, stream,
-    epoch, step): a resumed run draws what an uninterrupted one would."""
+    epoch, step): a resumed run draws what an uninterrupted one would.
+    With several shards, the `shard_index`-th slice of n of the step's
+    n x num_shards draws."""
     idx = np.random.default_rng((seed, stream, epoch, step)).integers(
-        0, len(discriminatorset), n)
+        0, len(discriminatorset), n * num_shards)
+    idx = idx[shard_index * n:(shard_index + 1) * n]
     return scale_to_tanh(np.stack([discriminatorset[int(j)] for j in idx]))
 
 
@@ -293,7 +345,10 @@ def pretrain_gan(dataset, discriminatorset, output_path: str,
     cfg = train_cfg or GANPretrainConfig(masks=masks)
     init, step = make_gan_pretrain_step(cfg)
     state = init(seed, gen_channels=4 if cfg.masks else 3, device=dev)
-    manager = CheckpointManager(output_path, name="gan_checkpoint")
+    # JAX's pretrain_gan takes no mesh: in a process group every rank
+    # trains the same players, and rank 0 alone writes them
+    manager = CheckpointManager(output_path, name="gan_checkpoint",
+                                writer=host_shard_info()[0] == 0)
 
     def collate(items):
         return (np.stack([it[1] for it in items]),)
@@ -379,6 +434,11 @@ def train_dihe(dataset, discriminatorset, evaldata, evalset,
     final one, and `hyperopt_report(accuracy=...)` gets each. The
     rotating `embedder_checkpoint` holds all three players and their
     Adam states; `resume` continues from it as the GLN loop does.
+
+    `use_mesh` in a process group of several ranks, with batch_size at
+    least the world size: data-parallel training (module docstring);
+    each rank draws its slice of the step's global discriminator batch,
+    so the ranks train together on what one process would.
     """
     dev = resolve_device(device)
     os.makedirs(output_path, exist_ok=True)
@@ -390,12 +450,16 @@ def train_dihe(dataset, discriminatorset, evaldata, evalset,
         hiers = [it[2] for it in items]
         return embs, gens, hiers
 
-    shard_index, num_shards, local_bs = _host_sharding(use_mesh, batch_size,
-                                                       dev)
+    shard_index, num_shards, local_bs = _host_sharding(use_mesh, batch_size)
     loader = loader_cls(dataset, local_bs * 2, collate, shuffle=True,
                         seed=seed, shard_index=shard_index,
                         num_shards=num_shards)
     steps_per_epoch = max(len(loader), 1)
+    if num_shards > 1:
+        steps_per_epoch = max(
+            (len(dataset) // num_shards) // (local_bs * 2), 1)
+    mesh = (data_parallel_mesh(device=dev)
+            if num_shards > 1 and batch_size >= num_shards else None)
     cfg = train_cfg or DIHETrainConfig()
     cfg = DIHETrainConfig(**{**cfg.__dict__,
                              "steps_per_epoch": steps_per_epoch})
@@ -410,8 +474,12 @@ def train_dihe(dataset, discriminatorset, evaldata, evalset,
         state.generator.load_state_dict(sd["generator"])
         state.discriminator.load_state_dict(sd["discriminator"])
     step = make_dihe_train_step(cfg)
+    if mesh is not None:
+        step = make_dp_train_step(step, mesh)
+        state = put_replicated(state, mesh)
 
-    manager = CheckpointManager(output_path, name="embedder_checkpoint")
+    manager = CheckpointManager(output_path, name="embedder_checkpoint",
+                                writer=mesh is None or mesh.rank == 0)
     keeper = BestKeeper(manager, "accuracy")
     # the epoch evals' embedder: an eval-mode copy, reloaded each eval
     encode = EmbedFn(MACVGG(batch_norm=cfg.batchnorm), device=dev)
@@ -420,9 +488,8 @@ def train_dihe(dataset, discriminatorset, evaldata, evalset,
     iteration = 0
     skip_batches = 0
     if resume:
-        meta = manager.load_meta()
+        meta = _resume_state(manager, state, mesh)
         if meta:
-            state = manager.restore(state)
             iteration = meta.get("iteration", -1) + 1
             keeper.best = meta.get("best", keeper.best)
             start_epoch, skip_batches = _resume_position(
@@ -440,7 +507,8 @@ def train_dihe(dataset, discriminatorset, evaldata, evalset,
             sim = hierarchy_similarity(hiers[:block],
                                        hiers[block:2 * block])
             disc_batch = _discriminator_batch(discriminatorset, block, seed,
-                                              29, e, epoch_step + 1)
+                                              29, e, epoch_step + 1,
+                                              shard_index, num_shards)
             state, metrics = step(state, embs[:block],
                                   embs[block:2 * block], gens[:block],
                                   disc_batch, sim)
@@ -463,7 +531,7 @@ def train_dihe(dataset, discriminatorset, evaldata, evalset,
             encode.model.load_state_dict(state.embedder.state_dict())
             acc = eval_dihe(encode, MACVGG.embedding_size, evaldata,
                             evalset, batch_size=batch_size, k=(1,),
-                            verbose=False, device=dev)
+                            verbose=False, mesh=mesh, device=dev)
             accuracy = acc.get(1, 0.0)
             print(f"epoch {e}: top-1 accuracy {accuracy:.4f}")
             keeper.update(state, e, accuracy, final=final)

@@ -350,3 +350,90 @@ def test_dihe_and_gan_steps_on_card_match_cpu(cuda, loop):
     assert diff["stat_updates_kept"]
     for key, tol in testing.DIHE_STEP_TOL.items():
         assert diff[key] <= tol, (key, diff)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL process group on a free port, on the card, and its
+    mesh; destroyed at the end of the module."""
+    import datetime
+    import socket
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cvpce_tpu_torch.parallel import data_parallel_mesh
+    from cvpce_tpu_torch.parallel.multihost import initialize_multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_multihost(f"tcp://127.0.0.1:{port}", 1, 0, local_rank=0,
+                         timeout=datetime.timedelta(seconds=120))
+    yield data_parallel_mesh()
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_sharded_search_takes_k2_on_a_shorter_valid_prefix(nccl_mesh, k):
+    """A block of 5000 rows whose last 500 are invalid: the search runs
+    K2 on the 4500-row prefix (kernel tail masking inside its last
+    tile), equal to the masked plain search over the whole block; the
+    block's norms are taken once for two searches."""
+    from cvpce_tpu_torch.ops import knn_sharded
+
+    cuda = nccl_mesh.device
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    block = torch.randn((5000, 1024), device=cuda, generator=gen)
+    valid = torch.arange(5000, device=cuda) < 4500
+    block[4500:] = block[:500]  # invalid copies of valid rows never win
+    search = knn_sharded.make_sharded_nn(nccl_mesh, k)
+    for seed in (0, 1):
+        q = torch.randn((67, 1024), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(
+                            seed))
+        before = knn.nearest_neighbors_fused.launches
+        kernels = knn.kernels_launched()
+        d, i = search(block, valid, q)
+        assert knn.nearest_neighbors_fused.launches == before + 1
+        # scan and merge, plus the norm pass on the first search only
+        assert knn.kernels_launched() - kernels == (3 if seed == 0 else 2)
+        pd, pi = knn.knn_masked(block, valid, q, k)
+        assert torch.equal(i, pi)
+        assert (d - pd).abs().max() <= 1e-5
+        assert (i < 4500).all()
+
+
+def test_global_batchnorm_at_world_size_one_matches_plain(nccl_mesh):
+    """batch_moments through the NCCL all-reduce (forward and backward) at
+    world size 1 against the local moments; and a BatchNorm inside
+    batch_sharded(mesh) of one rank is plain train mode, bit for bit."""
+    from cvpce_tpu_torch.models.resnet import BatchNorm, batch_moments
+    from cvpce_tpu_torch.parallel.mesh import batch_sharded
+
+    cuda = nccl_mesh.device
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((4, 64, 17, 23), device=cuda, generator=gen) * 3 + 1
+    g_mean, g_var = (torch.randn(64, device=cuda, generator=gen)
+                     for _ in range(2))
+    grads = []
+    for mesh in (None, nccl_mesh):
+        xi = x.clone().requires_grad_(True)
+        mean, var = batch_moments(xi, mesh)
+        ((mean * g_mean).sum() + (var * g_var).sum()).backward()
+        grads.append((mean.detach(), var.detach(), xi.grad))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+    outs = []
+    for sharded in (False, True):
+        bn = BatchNorm(64).to(cuda).train()
+        xi = x.clone().requires_grad_(True)
+        if sharded:
+            with batch_sharded(nccl_mesh):
+                y = bn(xi)
+        else:
+            y = bn(xi)
+        y.square().sum().backward()
+        outs.append((y.detach(), xi.grad, bn.running_mean, bn.running_var))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

@@ -31,7 +31,10 @@ REQUIRED = {"cvpce_tpu_torch.ops.metrics", "cvpce_tpu_torch.eval",
             "cvpce_tpu_torch.data.sku110k", "cvpce_tpu_torch.train",
             "cvpce_tpu_torch.train.gln", "cvpce_tpu_torch.train.checkpoint",
             "cvpce_tpu_torch.train.loops", "cvpce_tpu_torch.models.gan",
-            "cvpce_tpu_torch.train.dihe", "cvpce_tpu_torch.train.hyperopt"}
+            "cvpce_tpu_torch.train.dihe", "cvpce_tpu_torch.train.hyperopt",
+            "cvpce_tpu_torch.parallel", "cvpce_tpu_torch.parallel.mesh",
+            "cvpce_tpu_torch.parallel.multihost",
+            "cvpce_tpu_torch.ops.knn_sharded"}
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):

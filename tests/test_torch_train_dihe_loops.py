@@ -380,7 +380,8 @@ def test_resume_inside_an_epoch_bit_identical(run_dir, uninterrupted,
 def test_overlays_and_refusals(run_dir, monkeypatch):
     """`init_embedder` takes utils/torch_import.py's vgg16_bn import and
     refuses a shape it does not hold; `gan_state` takes a GAN state;
-    use_mesh with several cards raises."""
+    use_mesh in a process group of 2 ranks refuses an odd global
+    batch."""
     vgg = import_vgg16_features(testing.vgg16_features_state_dict(
         np.random.default_rng(8), batch_norm=True))
     gan_init, _ = pdihe.make_gan_pretrain_step(
@@ -400,7 +401,6 @@ def test_overlays_and_refusals(run_dir, monkeypatch):
     with pytest.raises(ValueError, match="no such entry"):
         _dihe(run_dir / "b", epochs=1, init_embedder={"fc.weight":
                                                       torch.zeros(1)})
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        _dihe(run_dir / "c", device="cuda", use_mesh=True)
+    monkeypatch.setattr(loops, "host_shard_info", lambda: (0, 2))
+    with pytest.raises(AssertionError, match="divide over 2 ranks"):
+        _dihe(run_dir / "c", batch_size=3, use_mesh=True)

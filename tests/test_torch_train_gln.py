@@ -433,10 +433,15 @@ def test_loop_refusals(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="orbax"):
         _run(tmp_path, load_orbax=str(tmp_path))
     assert not os.listdir(tmp_path)
+    # without a process group one process loads everything, however
+    # many cards it sees; in one of 2 ranks, half of an even global batch
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        loops._host_sharding(True, 2, torch.device("cuda"))
-    assert loops._host_sharding(False, 2, torch.device("cuda")) == (0, 1, 2)
+    assert loops._host_sharding(True, 2) == (0, 1, 2)
+    monkeypatch.setattr(loops, "host_shard_info", lambda: (1, 2))
+    assert loops._host_sharding(True, 4) == (1, 2, 2)
+    assert loops._host_sharding(False, 2) == (0, 1, 2)
+    with pytest.raises(AssertionError, match="divide over 2 ranks"):
+        loops._host_sharding(True, 3)
     with pytest.raises(ValueError, match="float32"):
         ptrain.init_train_state(GLNConfig(canvas_h=H, canvas_w=W,
                                           compute_dtype="bfloat16"),
