@@ -134,7 +134,8 @@ from cvpce_tpu_torch.eval.proposals import make_variables_inference_fn
 from cvpce_tpu_torch.models.embedders import (EmbedFn, MACResNet, MACVGG,
                                               fold_bn_state_dict,
                                               fold_bn_variables)
-from cvpce_tpu_torch.models.gln import GLN, GLNConfig, fold_gln_backbone
+from cvpce_tpu_torch.models.gln import (GLN, GLNConfig, fold_gln_backbone,
+                                        postprocess_detections)
 from cvpce_tpu_torch.ops import conv_fused
 from cvpce_tpu_torch.ops import knn as knn_ops
 from cvpce_tpu_torch.ops import nms as nms_ops
@@ -142,7 +143,9 @@ from cvpce_tpu_torch.ops.knn_sharded import (gallery_sharding,
                                               make_sharded_nn, pad_gallery)
 from cvpce_tpu_torch.ops.matching import match_anchors
 from cvpce_tpu_torch.parallel import (data_parallel_mesh, make_dp_train_step,
-                                      put_replicated, put_sharded)
+                                      make_spatial_forward,
+                                      make_spatial_infer, put_replicated,
+                                      put_sharded, spatial_mesh)
 from cvpce_tpu_torch.parallel.multihost import initialize_multihost
 from cvpce_tpu_torch.ops.metrics import calculate_metrics
 from cvpce_tpu_torch.pipeline import native
@@ -161,6 +164,7 @@ from cvpce_tpu_torch.train import gln as gln_train
 from cvpce_tpu_torch.train.checkpoint import CheckpointManager
 from cvpce_tpu_torch.train import loops as train_loops
 from cvpce_tpu_torch.train.loops import train_proposal_generator
+from cvpce_tpu_torch.utils import profiling
 from cvpce_tpu_torch.utils.torch_import import (import_gln, import_resnet50,
                                                 import_vgg16_features)
 
@@ -2299,7 +2303,6 @@ def phase_parallel_serve(par, seed):
             f"Classifier(mesh) indices differ from the non-mesh search "
             f"({mismatches})")
     require(k2 > 0, "K2 was not launched in the mesh classify")
-    dist.destroy_process_group()
     emit({"phase": "parallel.serve", "world_size": mesh.size,
           "scenes": len(images),
           "detections": int(sum(
@@ -2442,18 +2445,19 @@ def parallel_worker(rank: int, port: int, work: Path) -> int:
     return 0
 
 
-def _run_ranks(work: Path) -> list:
-    """Start both ranks of parallel.ranks2, wait up to PARALLEL_TIMEOUT,
-    end them all whatever happens; every rank's results."""
+def _run_ranks(work: Path, job: str = "ranks2", n: int = 2) -> list:
+    """Start the n ranks of parallel.<job> (this script again, with the
+    hidden rank arguments), wait up to PARALLEL_TIMEOUT, end them all
+    whatever happens; every rank's results."""
     port = _free_port()
     procs, logs = [], []
-    for rank in range(2):
+    for rank in range(n):
         log = open(work / f"rank{rank}.log", "w")
         logs.append(log)
         procs.append(subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()),
              "--parallel-rank", str(rank), "--parallel-port", str(port),
-             "--parallel-dir", str(work)],
+             "--parallel-dir", str(work), "--parallel-job", job],
             stdout=log, stderr=subprocess.STDOUT))
     end = time.monotonic() + PARALLEL_TIMEOUT
     try:
@@ -2461,13 +2465,13 @@ def _run_ranks(work: Path) -> list:
             failed = [r for r, p in enumerate(procs)
                       if p.returncode not in (None, 0)]
             require(not failed and time.monotonic() < end,
-                    f"parallel.ranks2: rank {failed[:1]} failed or ran past "
+                    f"parallel.{job}: rank {failed[:1]} failed or ran past "
                     f"{PARALLEL_TIMEOUT} s:\n"
                     + (work / f"rank{(failed or [0])[0]}.log").read_text()[
                         -3000:])
             time.sleep(0.2)
         for r, p in enumerate(procs):
-            require(p.returncode == 0, f"parallel.ranks2: rank {r} exited "
+            require(p.returncode == 0, f"parallel.{job}: rank {r} exited "
                     f"{p.returncode}:\n"
                     + (work / f"rank{r}.log").read_text()[-3000:])
     finally:
@@ -2478,7 +2482,7 @@ def _run_ranks(work: Path) -> list:
         for log in logs:
             log.close()
     return [torch.load(work / f"rank{r}.pt", weights_only=False)
-            for r in range(2)]
+            for r in range(n)]
 
 
 def phase_parallel_ranks2(par, seed, ref):
@@ -2587,6 +2591,244 @@ def phase_parallel_ranks2(par, seed, ref):
     return launches
 
 
+SPATIAL_RANKS = 4
+SPATIAL_STRIP = 1024  # columns a rank: 4 serve scenes side by side
+SPATIAL_ONE_RANK_WIDTH = 1408  # 11 x 128
+SPATIAL_REPS = 3
+SPATIAL_HALOS = 78  # exchanges a GLN forward (parallel/spatial.py)
+SPATIAL_SCORE_TOL = 1e-4  # JAX's own test's bounds (tests/test_parallel_e2e.py)
+SPATIAL_BOX_TOL = 1e-2  # px
+
+
+def spatial_canvases(scenes, h: int, w: int):
+    """The scenes each on an (h, w) canvas as ProposalGenerator(
+    input_norm='raw01') puts them, on the host: (B, h, w, 3), content
+    sizes (B, 2)."""
+    canvases, sizes = [], []
+    for img in scenes:
+        canvas, _, content, _ = T.detection_canvas(img, None, h, w,
+                                                   normalize=False)
+        canvases.append(canvas.cpu())
+        sizes.append(content)
+    return torch.stack(canvases), torch.tensor(sizes, dtype=torch.float32)
+
+
+def spatial_regions(prof) -> Dict:
+    """{name: count, host ms, kernel ms, device span ms} of the traced
+    `spatial.*` regions: the host ranges (their count, wall time, and
+    the device time of the kernels their ops launched) and, on the
+    card, the profiler's device-side copies of each range (the span
+    from its first to its last device activity)."""
+    regions = {}
+    for e in prof.events():
+        if not e.name.startswith("spatial."):
+            continue
+        r = regions.setdefault(e.name, {"count": 0, "host_ms": 0.0,
+                                        "kernel_ms": 0.0,
+                                        "device_span_ms": 0.0})
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            r["count"] += 1
+            r["host_ms"] += e.cpu_time_total / 1e3
+            r["kernel_ms"] += e.device_time_total / 1e3
+        else:
+            r["device_span_ms"] += e.time_range.elapsed_us() / 1e3
+    return regions
+
+
+def spatial_worker(rank: int, port: int, work: Path) -> int:
+    """One of parallel.spatial's SPATIAL_RANKS ranks, all on cuda:0 over
+    gloo: make_spatial_infer on the wide photo in `work`, a warm-up,
+    SPATIAL_REPS timed runs with K1 counted, make_spatial_forward's
+    gathered outputs, and on rank 0 one run under utils.profiling.trace;
+    the results go to work/rank<r>.pt."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(f"tcp://127.0.0.1:{port}", SPATIAL_RANKS, rank,
+                         local_rank=0, backend="gloo",
+                         timeout=datetime.timedelta(seconds=300))
+    mesh = spatial_mesh()
+    inputs = torch.load(work / "inputs.pt", weights_only=False)
+    config = inputs["config"]
+    model = GLN(config)
+    model.load_state_dict(inputs["state"])
+    run = make_spatial_infer(model, config, mesh)
+    image, sizes = inputs["image"], inputs["sizes"]
+    run(image, sizes)
+    torch.cuda.synchronize()
+    seconds, launches = [], []
+    for _ in range(SPATIAL_REPS):
+        dist.barrier()
+        _reset_launches()
+        ts = time.perf_counter()
+        dets = run(image, sizes)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - ts)
+        launches.append(_launches()["nms_hard"])
+    outputs = make_spatial_forward(model, config, mesh)(image)
+    dist.barrier()
+    regions = None
+    if rank == 0:
+        with profiling.trace(str(work / "trace")) as prof:
+            ts = time.perf_counter()
+            run(image, sizes)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - ts
+        regions = spatial_regions(prof)
+        regions["run"] = {"host_ms": traced_s * 1e3}
+    else:
+        run(image, sizes)
+        torch.cuda.synchronize()
+    torch.save({"detections": {k: v.cpu() for k, v in dets.items()},
+                "outputs": ({k: v.cpu() for k, v in outputs.items()}
+                            if rank == 0 else None),
+                "seconds": seconds, "launches": launches,
+                "regions": regions,
+                "max_memory_allocated": torch.cuda.max_memory_allocated()},
+               work / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel_spatial(par, seed):
+    """Width-sharded GLN inference (parallel/spatial.py) on the serve
+    detector. World size 1 over parallel.init's NCCL group at
+    832x1408: make_spatial_infer on the 4 serve scenes bit for bit the
+    one-process forward and postprocess, K1 once a call. Then
+    SPATIAL_RANKS gloo ranks on the one card at 832x4096 (the 4 scenes
+    side by side, a strip of 1024 columns a rank): rank 0's detections
+    within JAX's test bounds of the one-process forward at 832x4096 on
+    the card with no keep-set difference, every rank's equal, K1 once a
+    rank a run, 78 halo exchanges a forward; seconds beside the one
+    process's and the halo / gather / postprocess split."""
+    t0 = time.perf_counter()
+    base = par["config"]
+    mesh = spatial_mesh()
+    config = dataclasses.replace(base, canvas_w=SPATIAL_ONE_RANK_WIDTH)
+    canvases, sizes = spatial_canvases(par["scenes"], base.canvas_h,
+                                       config.canvas_w)
+    model = GLN(config)
+    model.load_state_dict(par["gln_state"])
+    run = make_spatial_infer(model, config, mesh)
+    _reset_launches()
+    ts = time.perf_counter()
+    got = run(canvases, sizes)
+    torch.cuda.synchronize()
+    one_rank_s = time.perf_counter() - ts
+    one_rank_k1 = _launches()["nms_hard"]
+    anchors, counts = config.anchors()
+    with torch.inference_mode():
+        want = postprocess_detections(
+            model(canvases.cuda()), torch.from_numpy(anchors).cuda(),
+            counts, sizes.cuda(), config)
+    for key in want:
+        require(torch.equal(got[key], want[key]),
+                f"make_spatial_infer at world size 1: {key} differs from "
+                "the one-process forward")
+    require(one_rank_k1 == 1, f"K1 launched {one_rank_k1} times in a world "
+                              "size 1 spatial run")
+    one_rank = {"canvas": [config.canvas_h, config.canvas_w],
+                "images": len(canvases), "backend": dist.get_backend(),
+                "detections": int(want["valid"].sum()),
+                "seconds": one_rank_s, "launches": one_rank_k1}
+    dist.destroy_process_group()
+    del model, run, got, want
+    torch.cuda.empty_cache()
+
+    work = BUILD / "spatial"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    config = dataclasses.replace(base, canvas_w=SPATIAL_RANKS
+                                 * SPATIAL_STRIP)
+    strips, _ = spatial_canvases(par["scenes"], base.canvas_h,
+                                 SPATIAL_STRIP)
+    image = torch.cat(list(strips), dim=1)[None]
+    sizes = torch.tensor([[config.canvas_h, config.canvas_w]],
+                         dtype=torch.float32)
+    torch.save({"state": par["gln_state"], "config": config, "image": image,
+                "sizes": sizes}, work / "inputs.pt")
+    ts = time.perf_counter()
+    ranks = _run_ranks(work, "spatial", SPATIAL_RANKS)
+    ranks_s = time.perf_counter() - ts
+
+    model = GLN(config)
+    model.load_state_dict(par["gln_state"])
+    model.cuda()
+    anchors, counts = config.anchors()
+    anchors = torch.from_numpy(anchors).cuda()
+
+    def one_process():
+        with torch.inference_mode():
+            outputs = model(image.cuda())
+            return outputs, postprocess_detections(
+                outputs, anchors, counts, sizes.cuda(), config)
+
+    one_process()
+    torch.cuda.synchronize()
+    one_s = []
+    for _ in range(SPATIAL_REPS):
+        ts = time.perf_counter()
+        outputs, want = one_process()
+        torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - ts)
+    want = {k: v.cpu() for k, v in want.items()}
+    got = ranks[0]["detections"]
+    for r, out in enumerate(ranks):
+        for key, v in out["detections"].items():
+            require(torch.equal(v, got[key]), f"parallel.spatial: rank {r}'s "
+                    f"{key} differs from rank 0's")
+        require(out["launches"] == [1] * SPATIAL_REPS, f"rank {r}: K1 "
+                f"launches {out['launches']} in {SPATIAL_REPS} runs")
+    keep_diff = int((got["valid"] != want["valid"]).sum())
+    keep = want["valid"]
+    score_err = float((got["scores"][keep] - want["scores"][keep]).abs().max())
+    box_err = float((got["boxes"][keep] - want["boxes"][keep]).abs().max())
+    require(keep_diff == 0 and bool(keep.any()),
+            f"parallel.spatial: {keep_diff} keep-set differences from the "
+            f"one-process forward ({int(keep.sum())} kept)")
+    require(score_err <= SPATIAL_SCORE_TOL and box_err <= SPATIAL_BOX_TOL,
+            f"parallel.spatial against one process: scores {score_err}, "
+            f"boxes {box_err} px")
+    gathered = ranks[0]["outputs"]
+    levels, start = [], 0
+    for count in counts:
+        levels.append({key: float((gathered[key][:, start:start + count]
+                                   - outputs[key][:, start:start + count]
+                                   .cpu()).abs().max())
+                       for key in ("cls_logits", "bbox_regression")})
+        start += count
+    regions = ranks[0]["regions"]
+    halos = regions.get("spatial.halo", {}).get("count", 0)
+    require(halos == SPATIAL_HALOS, f"parallel.spatial: {halos} halo "
+            f"exchanges in a traced forward, not {SPATIAL_HALOS}")
+    launches = {"one_rank": one_rank_k1,
+                "ranks4": [out["launches"][-1] for out in ranks]}
+    emit({"phase": "parallel.spatial", "one_rank": one_rank,
+          "ranks": {"world_size": SPATIAL_RANKS, "backend": "gloo",
+                    "device": "cuda:0 (every rank)",
+                    "canvas": [config.canvas_h, config.canvas_w],
+                    "strip": [config.canvas_h, SPATIAL_STRIP],
+                    "detections": int(keep.sum()),
+                    "keep_set_differences": keep_diff,
+                    "max_score_err": score_err, "max_box_err_px": box_err,
+                    "max_gaussians_err": float(
+                        (gathered["gaussians"]
+                         - outputs["gaussians"].cpu()).abs().max()),
+                    "levels": levels,
+                    "run_seconds": [out["seconds"] for out in ranks],
+                    "run_median_s": statistics.median(ranks[0]["seconds"]),
+                    "one_process_s": one_s,
+                    "one_process_median_s": statistics.median(one_s),
+                    "launches_per_run": [out["launches"] for out in ranks],
+                    "halo_exchanges": halos, "regions": regions,
+                    "max_memory_allocated": [out["max_memory_allocated"]
+                                             for out in ranks],
+                    "ranks_seconds": ranks_s},
+          "tolerances": {"score": SPATIAL_SCORE_TOL,
+                         "box_px": SPATIAL_BOX_TOL},
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2600,17 +2842,22 @@ def _leaves(tree):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    # parallel.ranks2 starts this script again as each of its two ranks
+    # parallel.ranks2 and parallel.spatial start this script again as each
+    # of their ranks
     ap.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--parallel-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--parallel-dir", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-job", choices=("ranks2", "spatial"),
+                    default="ranks2", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     if args.parallel_rank is not None:
-        return parallel_worker(args.parallel_rank, args.parallel_port,
-                               args.parallel_dir)
+        worker = {"ranks2": parallel_worker,
+                  "spatial": spatial_worker}[args.parallel_job]
+        return worker(args.parallel_rank, args.parallel_port,
+                      args.parallel_dir)
     t0 = time.perf_counter()
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2662,6 +2909,7 @@ def main(argv=None) -> int:
     phase_parallel_init()
     serve_par = phase_parallel_serve(par, args.seed)
     ranks_par = phase_parallel_ranks2(par, args.seed, ref)
+    spatial_par = phase_parallel_spatial(par, args.seed)
     del par
     pool_row = dict(pool_rows[0])
     pool_row["max_abs_err"] = max(r["max_abs_err"] for r in pool_rows)
@@ -2671,6 +2919,7 @@ def main(argv=None) -> int:
                                         "bound_ms", "library_ms")}
     parallel = {name: {"serve": serve_par[name], "ranks2": ranks_par[name]}
                 for name in ("nms_hard", "knn_fused")}
+    parallel["nms_hard"]["spatial"] = spatial_par
     rows = {"nms_hard": dict(nms_serve, launches=launches["nms_hard"],
                              train_launches=train_launches,
                              parallel_launches=parallel["nms_hard"]),

@@ -6,6 +6,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.spatial import pad_strip
+
 
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with frozen statistics and affine (torchvision's
@@ -31,12 +33,19 @@ class FrozenBatchNorm(nn.Module):
 class Conv2d(nn.Conv2d):
     """nn.Conv2d that, stored in a reduced dtype (bf16), rounds the
     convolution to that dtype before it adds the bias, as a flax nn.Conv
-    with that compute dtype does; in f32 it is nn.Conv2d."""
+    with that compute dtype does; in f32 it is nn.Conv2d. Under
+    parallel/spatial.py:width_sharded its width padding is the
+    neighbouring strips' columns."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, pad_w = pad_strip(x, self.kernel_size[1], self.stride[1],
+                             self.padding[1])
+        padding = (self.padding[0], pad_w)
         if self.bias is None or self.weight.dtype == torch.float32:
-            return super().forward(x)
-        return (self._conv_forward(x, self.weight, None)
+            return F.conv2d(x, self.weight, self.bias, self.stride, padding,
+                            self.dilation, self.groups)
+        return (F.conv2d(x, self.weight, None, self.stride, padding,
+                         self.dilation, self.groups)
                 + self.bias[None, :, None, None])
 
 
@@ -49,12 +58,16 @@ def conv(cin: int, cout: int, kernel: int, stride: int = 1,
 
 def max_pool(x: torch.Tensor, window: int, stride: int,
              padding: int = 0) -> torch.Tensor:
-    """Max pool with symmetric -inf padding."""
-    return F.max_pool2d(x, window, stride, padding)
+    """Max pool with symmetric -inf padding; under width_sharded its
+    width padding is the neighbouring strips' columns."""
+    x, pad_w = pad_strip(x, window, stride, padding, float("-inf"))
+    return F.max_pool2d(x, window, stride, (padding, pad_w))
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
-    """2x nearest-neighbour upsample of an NCHW tensor."""
+    """2x nearest-neighbour upsample of an NCHW tensor. Local under
+    width_sharded: a level's strip r upsamples to strip r of the level
+    above, since every level's width splits evenly."""
     return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
 

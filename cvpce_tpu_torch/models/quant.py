@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..ops.conv_fused import int8_conv_nhwc, quantize
+from ..parallel.spatial import pad_strip, strip_max
 
 MODES = ("dynamic", "static", "calibrate")
 
@@ -68,7 +69,7 @@ class Int8Conv(nn.Module):
     def _activation_scale(self, xf: torch.Tensor) -> torch.Tensor:
         if self.mode == "static":
             return self.act_scale.clamp(min=1e-8)
-        a_scale = xf.abs().amax().clamp(min=1e-8) \
+        a_scale = strip_max(xf.abs().amax()).clamp(min=1e-8) \
             / torch.tensor(127.0, device=xf.device)
         if self.mode == "calibrate":
             with torch.no_grad():
@@ -77,12 +78,16 @@ class Int8Conv(nn.Module):
 
     def accumulate(self, x: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(int32 accumulators (B, Cout, Ho, Wo), activation scale)."""
+        """(int32 accumulators (B, Cout, Ho, Wo), activation scale).
+        Under parallel/spatial.py:width_sharded the halo columns join in
+        float before the elementwise quantize, and a dynamic scale is
+        the whole canvas's."""
         xf = x.float()
         a_scale = self._activation_scale(xf)
         kq, _ = self.quantized_weight()
+        xf, pad_w = pad_strip(xf, self.kernel, self.stride, self.padding)
         xq = quantize(xf.permute(0, 2, 3, 1), a_scale)
-        acc = int8_conv_nhwc(xq, kq, self.stride, self.padding)
+        acc = int8_conv_nhwc(xq, kq, self.stride, (self.padding, pad_w))
         return acc.permute(0, 3, 1, 2), a_scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,7 @@ them bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Union
+from typing import Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -38,15 +38,21 @@ _INT_MM_MIN_ROWS = 17
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 
+def _pads(padding: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
+    return (padding, padding) if isinstance(padding, int) else padding
+
+
 def im2col_nhwc(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
-                padding: int = 0) -> torch.Tensor:
+                padding: Union[int, Tuple[int, int]] = 0) -> torch.Tensor:
     """(B, H, W, C) -> (B * Ho * Wo, kh * kw * C) patch rows, taps in
-    (ky, kx, c) order, zero padding `padding` on each side."""
+    (ky, kx, c) order, zero padding `padding` on each side (or
+    (rows, columns))."""
     b, h, w, c = x.shape
-    ho = (h + 2 * padding - kh) // stride + 1
-    wo = (w + 2 * padding - kw) // stride + 1
-    if padding:
-        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    ph, pw = _pads(padding)
+    ho = (h + 2 * ph - kh) // stride + 1
+    wo = (w + 2 * pw - kw) // stride + 1
+    if ph or pw:
+        x = F.pad(x, (0, 0, pw, pw, ph, ph))
     if kh == 1 and kw == 1:
         patches = x[:, :(ho - 1) * stride + 1:stride,
                     :(wo - 1) * stride + 1:stride, :]
@@ -59,16 +65,18 @@ def im2col_nhwc(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
 
 
 def int8_conv_nhwc(xq: torch.Tensor, kq: torch.Tensor, stride: int = 1,
-                   padding: int = 0) -> torch.Tensor:
+                   padding: Union[int, Tuple[int, int]] = 0) -> torch.Tensor:
     """(B, H, W, Cin) int8 x (kh, kw, Cin, Cout) int8 -> (B, Ho, Wo,
-    Cout) int32, zero padding `padding` on each side. The patch matrix
-    holds taps in (ky, kx, cin) order, matching `kq.reshape(-1, Cout)`.
+    Cout) int32, zero padding `padding` on each side (or (rows,
+    columns)). The patch matrix holds taps in (ky, kx, cin) order,
+    matching `kq.reshape(-1, Cout)`.
     On CUDA, fewer than 17 patch rows are padded with zero rows for
     `torch._int_mm` and cut off again."""
     b, h, w, cin = xq.shape
     kh, kw, _, cout = kq.shape
-    ho = (h + 2 * padding - kh) // stride + 1
-    wo = (w + 2 * padding - kw) // stride + 1
+    ph, pw = _pads(padding)
+    ho = (h + 2 * ph - kh) // stride + 1
+    wo = (w + 2 * pw - kw) // stride + 1
     rows = im2col_nhwc(xq, kh, kw, stride, padding)
     # column-major (K, Cout): both operands contiguous along K, the
     # layout cuBLASLt's int8 product takes without a copy

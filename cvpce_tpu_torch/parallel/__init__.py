@@ -8,3 +8,8 @@ from .mesh import (  # noqa: F401
     replicate,
     shard_batch,
 )
+from .spatial import (  # noqa: F401
+    make_spatial_forward,
+    make_spatial_infer,
+    spatial_mesh,
+)

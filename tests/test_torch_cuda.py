@@ -437,3 +437,43 @@ def test_global_batchnorm_at_world_size_one_matches_plain(nccl_mesh):
         outs.append((y.detach(), xi.grad, bn.running_mean, bn.running_var))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+def test_spatial_infer_at_world_size_one_is_the_one_process_forward(
+        nccl_mesh):
+    """make_spatial_infer over the one-rank NCCL group (no halo, one
+    gather of the whole width) on a seeded GLN whose classification
+    prior is lifted to 0.5, so detections survive: detections, heatmap
+    and make_spatial_forward's outputs bit for bit the one-process
+    forward and postprocess; K1 launched once a call."""
+    from cvpce_tpu_torch.models.gln import (GLN, GLNConfig,
+                                            postprocess_detections)
+    from cvpce_tpu_torch.parallel import (make_spatial_forward,
+                                          make_spatial_infer)
+
+    cuda = nccl_mesh.device
+    cfg = GLNConfig(canvas_h=256, canvas_w=384, max_nms_candidates=1024,
+                    detections_per_img=300)
+    model = GLN(cfg, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.head.cls_logits.bias.zero_()
+    model.to(cuda)
+    rng = np.random.default_rng(0)
+    images = rng.uniform(0, 1, (2, 256, 384, 3)).astype(np.float32)
+    sizes = np.array([[256, 384], [200, 300]], np.float32)
+    run = make_spatial_infer(model, cfg, nccl_mesh)
+    before = nms.nms_keep_sorted.launches
+    got = run(images, sizes)
+    assert nms.nms_keep_sorted.launches == before + 1
+    outputs = make_spatial_forward(model, cfg, nccl_mesh)(images)
+    anchors, counts = cfg.anchors()
+    with torch.inference_mode():
+        whole = model(torch.from_numpy(images).to(cuda))
+        want = postprocess_detections(
+            whole, torch.from_numpy(anchors).to(cuda), counts,
+            torch.from_numpy(sizes).to(cuda), cfg)
+    assert got["valid"].any()
+    for have, ref in ((got, want), (outputs, whole)):
+        assert have.keys() == ref.keys()
+        for key in ref:
+            assert torch.equal(have[key], ref[key]), key

@@ -34,7 +34,9 @@ REQUIRED = {"cvpce_tpu_torch.ops.metrics", "cvpce_tpu_torch.eval",
             "cvpce_tpu_torch.train.dihe", "cvpce_tpu_torch.train.hyperopt",
             "cvpce_tpu_torch.parallel", "cvpce_tpu_torch.parallel.mesh",
             "cvpce_tpu_torch.parallel.multihost",
-            "cvpce_tpu_torch.ops.knn_sharded"}
+            "cvpce_tpu_torch.ops.knn_sharded",
+            "cvpce_tpu_torch.parallel.spatial",
+            "cvpce_tpu_torch.utils.profiling"}
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):

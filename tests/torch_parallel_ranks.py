@@ -392,3 +392,81 @@ def dihe_loop(dataset, discriminatorset, evaldata, evalset, before, cfg_kw,
                               players.items() for k, v in sd.items()}),
             "players": players if mesh.rank == 0 else None,
             "files": _files(out)}
+
+
+# ------------------------------------------------ width-sharded inference
+
+def halo_site_ops() -> dict:
+    """name -> op on an NCHW tensor of 8 channels, for every kind of
+    halo site of the GLN (parallel/spatial.py): the layers' convs at
+    7/2/3, 3/2/1, 3/1/1 and 1/2/0 (kernel/stride/padding), the 3/2/1
+    max-pool, and an Int8Conv 3/1/1's int32 accumulators with a static
+    and with a dynamic scale. Seeded, so every process builds the same
+    weights."""
+    from cvpce_tpu_torch.models.layers import conv, max_pool
+    from cvpce_tpu_torch.models.quant import Int8Conv
+
+    torch.manual_seed(0)
+    convs = {f"conv{k}s{s}p{k // 2}": conv(8, 8, k, s, bias=True)
+             for k, s in ((7, 2), (3, 2), (3, 1), (1, 2))}
+    static = Int8Conv(8, 8, 3, mode="static")
+    dynamic = Int8Conv(8, 8, 3, mode="dynamic")
+    with torch.no_grad():
+        for m in (static, dynamic):
+            torch.nn.init.normal_(m.weight)
+        static.act_scale.fill_(3.0 / 127)
+    return {**convs,
+            "maxpool3s2p1": lambda x: max_pool(x, 3, 2, padding=1),
+            "int8_static3s1p1": lambda x: static.accumulate(x)[0],
+            "int8_dynamic3s1p1": lambda x: dynamic.accumulate(x)[0]}
+
+
+def halo_sites(x):
+    """Every op of `halo_site_ops` on this rank's strip of the NCHW
+    width of `x`, under width_sharded."""
+    from cvpce_tpu_torch.parallel.spatial import width_sharded
+
+    mesh = _mesh()
+    w = x.shape[-1] // mesh.size
+    strip = torch.from_numpy(x[..., mesh.rank * w:(mesh.rank + 1) * w])
+    with torch.no_grad(), width_sharded(mesh):
+        return {name: op(strip).numpy()
+                for name, op in halo_site_ops().items()}
+
+
+def _numpy(outputs: dict) -> dict:
+    return {k: v.numpy() for k, v in outputs.items()}
+
+
+def spatial_infer(state_dict, config_kw, images, sizes, act_scales=None):
+    """make_spatial_infer(...)(images, sizes) on every rank (a GLN with
+    `act_scales` loaded where they are given, else the state_dict), and
+    on rank 0 also make_spatial_forward's gathered outputs beside the
+    one-process forward and postprocess of the whole canvas."""
+    from cvpce_tpu_torch.models.gln import (GLN, GLNConfig,
+                                            postprocess_detections)
+    from cvpce_tpu_torch.models.quant import load_act_scales
+    from cvpce_tpu_torch.parallel import (make_spatial_forward,
+                                          make_spatial_infer, spatial_mesh)
+
+    mesh = spatial_mesh(device="cpu")
+    cfg = GLNConfig(**config_kw)
+    model = GLN(cfg)
+    model.load_state_dict(state_dict)
+    if act_scales is not None:
+        load_act_scales(model, act_scales)
+    weights = model if act_scales is not None else state_dict
+    run = make_spatial_infer(weights, cfg, mesh)
+    out = {"spatial": _numpy(run(images, sizes)),
+           "outputs": _numpy(make_spatial_forward(weights, cfg, mesh)(
+               images))}
+    if mesh.rank == 0:
+        anchors, counts = cfg.anchors()
+        with torch.inference_mode():
+            whole = model(torch.from_numpy(images))
+            one = postprocess_detections(
+                whole, torch.from_numpy(anchors), counts,
+                torch.from_numpy(sizes), cfg)
+        out["single"] = _numpy(one)
+        out["single_outputs"] = _numpy(whole)
+    return out
