@@ -57,6 +57,26 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   output held bit for bit against the same dict loaded directly;
 - data.perspective: eval_dihe through the MACResNet index on
   perspective-warped query scenes (the warp is the port's numpy one);
+- data.files: seeded sets written as PNG files (testing.write_png, row
+  r with filter r % 5) in the datasets' own layouts under
+  build/chip_smoke/data/, every file decoded back equal as uint8 by the
+  port's decoder: 8 shelf photos of 2448x3264 and their SKU-110K CSV
+  (a malformed row, a skip-listed name) through SKU110KDataset
+  (canvases of 832x1344 made on the card) into evaluate_gln with the
+  serve detector (K1), one train_proposal_generator epoch of 4 steps at
+  batch 2 with GrainLoader and its eval (K1), the same epoch cut at its
+  third batch and resumed through GrainLoader.iter_from with the
+  uninterrupted run's losses (cuDNN deterministic), and a
+  CachedDetectionDataset whose batches equal the dataset's; a Grocery
+  Products catalogue of 4096 products (the walk, and TrainingFiles.txt
+  the same) through GroceryProductsDataset into a MACVGG Classifier
+  (K2), and the 4 serve scenes with their CSV annotations and Tonioni
+  planograms through PlanogramTestSet into evaluate_planograms (K1,
+  K2), whose
+  compliance and kept detections equal an in-memory pass over the same
+  uint8 images and planograms; decode seconds per megapixel, read,
+  evaluate and train seconds, launches and the card's name and power
+  limit;
 - train.parity: one GLN train step on the card and one on the CPU at
   256x384, batch 2 (tanh, simple Gaussians), from the same seeded
   reference-layout checkpoint loaded through cli/common.py and the same
@@ -113,7 +133,9 @@ import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 from unittest import mock
@@ -124,9 +146,13 @@ import torch.distributed as dist
 
 from cvpce_tpu_torch import _build, testing
 from cvpce_tpu_torch.cli.common import load_embedder, load_gln_state_dict
-from cvpce_tpu_torch.data import synthetic
+from cvpce_tpu_torch.data import defaults, png, synthetic
 from cvpce_tpu_torch.data import transforms as T
-from cvpce_tpu_torch.data.sku110k import collate_detection
+from cvpce_tpu_torch.data.cache import CachedDetectionDataset
+from cvpce_tpu_torch.data.grain_loader import GrainLoader
+from cvpce_tpu_torch.data.grocery import GroceryProductsDataset
+from cvpce_tpu_torch.data.planograms import PlanogramTestSet
+from cvpce_tpu_torch.data.sku110k import SKU110KDataset, collate_detection
 from cvpce_tpu_torch.eval import (eval_dihe, evaluate_detections,
                                   evaluate_gln, evaluate_planograms,
                                   mean_average_metrics)
@@ -158,6 +184,7 @@ from cvpce_tpu_torch.pipeline.calibrate import (calibrate_confidence,
 from cvpce_tpu_torch.pipeline.classifier import Classifier
 from cvpce_tpu_torch.pipeline.evaluator import (PlanogramComparator,
                                                 PlanogramEvaluator)
+from cvpce_tpu_torch.pipeline.planograms import Graph
 from cvpce_tpu_torch.pipeline.proposals import ProposalGenerator
 from cvpce_tpu_torch.train import dihe as dihe_train
 from cvpce_tpu_torch.train import gln as gln_train
@@ -1584,6 +1611,509 @@ def phase_data_perspective(ctx, seed):
           "launches": launches, "seconds": time.perf_counter() - t0})
 
 
+# ------------------------------------------------------- data from files
+
+DATA_PHOTO_HW = (2448, 3264)  # a phone photo, h x w
+DATA_PHOTOS = 8
+DATA_GALLERY = 4096  # ops/knn.py:FUSED_MIN_ROWS: the Classifier takes K2
+DATA_VIEW_HEIGHT = 48  # px, the gallery's product images
+DATA_RESUME_EVAL = 2  # scenes in the resume runs' epoch eval
+DATA_STORES = (("1", "1"), ("1", "2"), ("2", "1"), ("2", "2"))
+
+
+def _quantise(img) -> np.ndarray:
+    return np.clip(np.rint(np.asarray(img) * 255.0), 0, 255).astype(np.uint8)
+
+
+class _TimedReads:
+    """The first `n` items of a dataset; the seconds spent in its
+    __getitem__ add up in `seconds` (over every loader thread), and the
+    last item read at each index stays in `items`."""
+
+    def __init__(self, base, n=None):
+        self.base = base
+        self.n = len(base) if n is None else n
+        self.seconds = 0.0
+        self.items = {}
+        self._lock = threading.Lock()
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        if not 0 <= i < self.n:
+            raise IndexError(i)
+        t0 = time.perf_counter()
+        item = self.base[i]
+        with self._lock:
+            self.seconds += time.perf_counter() - t0
+            self.items[i] = item
+        return item
+
+
+class _Interrupt(Exception):
+    pass
+
+
+class _InterruptedGrainLoader(GrainLoader):
+    """Stops a run as it asks for its epoch's third batch."""
+
+    def __iter__(self):
+        for i, batch in enumerate(super().__iter__()):
+            if i == 2:
+                raise _Interrupt
+            yield batch
+
+
+class _RecordingComparator(PlanogramComparator):
+    """Keeps the detections (boxes, classes) each comparison is given."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.seen = []
+
+    def compare_detailed(self, expected, actual, image=None,
+                         classifier=None):
+        score, found, path = super().compare_detailed(expected, actual,
+                                                      image, classifier)
+        self.seen.append((np.asarray(actual["boxes"]).copy(),
+                          list(actual["labels"]),
+                          None if found is None else np.asarray(found),
+                          path))
+        return score, found, path
+
+
+def write_sku110k_files(root: Path, seed) -> Dict:
+    """DATA_PHOTOS shelf scenes at the phone photo's size as PNG bytes
+    under SKU-110K's `.jpg` names, and the 8-column annotation CSV with
+    one malformed row and one name of the skip list. Returns
+    {path: the uint8 image written} and the boxes by name."""
+    img_dir = root / "SKU110K_fixed" / "images"
+    ann = root / "SKU110K_fixed" / "annotations" / "annotations_train.csv"
+    img_dir.mkdir(parents=True)
+    ann.parent.mkdir(parents=True)
+    h, w = DATA_PHOTO_HW
+
+    def photo(i):
+        img, boxes = synthetic.shelf_scene(
+            h, w, np.random.default_rng((seed, 83, i)))
+        u8 = _quantise(img)
+        testing.write_png(img_dir / f"train_{i}.jpg", u8, compress_level=1)
+        return u8, np.rint(boxes).astype(int)
+
+    # numpy and zlib let the threads overlap
+    with ThreadPoolExecutor(DATA_PHOTOS) as pool:
+        photos = list(pool.map(photo, range(DATA_PHOTOS)))
+    rows, written, boxes_of = [], {}, {}
+    for i, (u8, boxes) in enumerate(photos):
+        name = f"train_{i}.jpg"
+        written[img_dir / name] = u8
+        boxes_of[name] = boxes
+        rows += [f"{name},{x1},{y1},{x2},{y2},object,{w},{h}"
+                 for x1, y1, x2, y2 in boxes]
+    rows.insert(1, "train_0.jpg,1,2,3")
+    rows.append(f"{defaults.SKU110K_SKIP[0]},10,10,50,50,object,{w},{h}")
+    ann.write_text("\n".join(rows) + "\n")
+    return {"img_dir": str(img_dir), "ann": str(ann), "written": written,
+            "boxes": boxes_of}
+
+
+def _product_path(p: int) -> str:
+    """Product p's place below Training/, and its annotation without
+    the extension: family/line/p, as GP's category/sub/number."""
+    return f"Family{p // 1024}/Line{(p // 64) % 16}/{p}"
+
+
+def tonioni_planogram(plano, styles):
+    """A serve scene's planogram as a GP-180 (Tonioni) grid JSON, with
+    the boxes, labels and Graph that it stands for.
+
+    Each shelf is a row chain (e/w) of its products from left to right,
+    the shelves' first products one column (JSON n = the shelf below in
+    the photo), one object per product with its box's size, named after
+    the product's gallery image. Nodes run from the lowest
+    shelf up, so the reader anchors that shelf: each row starts at
+    x = 0 and packs its products; row r's bottom edge is the summed
+    heights of the first products of the rows below (y up)."""
+    boxes = np.asarray(plano["boxes"])
+    by_label = {s["label"]: i for i, s in enumerate(styles)}
+    shelves = []
+    for y2 in sorted(set(boxes[:, 3].tolist()), reverse=True):
+        idx = np.nonzero(boxes[:, 3] == y2)[0]
+        shelves.append(sorted(idx.tolist(), key=lambda k: boxes[k, 0]))
+    first = np.cumsum([0] + [len(r) for r in shelves])
+    graph, objects, labels, want = [], [], [], []
+    y2 = 0.0
+    for r, row in enumerate(shelves):
+        x1 = 0.0
+        for c, k in enumerate(row):
+            i = int(first[r] + c)
+            graph.append({
+                "ogg": i,
+                "n": int(first[r - 1]) if c == 0 and r else -1,
+                "s": int(first[r + 1]) if c == 0 and r + 1 < len(shelves)
+                else -1,
+                "e": i + 1 if c + 1 < len(row) else -1,
+                "w": i - 1 if c else -1})
+            bw = float(boxes[k, 2] - boxes[k, 0])
+            bh = float(boxes[k, 3] - boxes[k, 1])
+            label = _product_path(by_label[plano["labels"][k]])
+            objects.append({"width": bw, "height": bh,
+                            "img_path": f"{label}.jpg"})
+            labels.append(label)
+            want.append([x1, y2 - bh, x1 + bw, y2])
+            x1 += bw
+        y2 += float(boxes[row[0], 3] - boxes[row[0], 1])
+    g = Graph()
+    dirs = {"n": "S", "s": "N", "e": "E", "w": "W"}
+    for i, entry in enumerate(graph):
+        g.add_node(i)
+        for key, d in dirs.items():
+            if entry[key] >= 0:
+                g.add_edge(i, entry[key], dir=d)
+    for i, label in enumerate(labels):
+        g.nodes[i]["label"] = label
+    return ({"graph": graph, "objects": objects},
+            {"boxes": np.asarray(want, np.float32), "labels": labels,
+             "graph": g, "actual_accuracy": 1.0})
+
+
+def _same_graph(a: Graph, b: Graph) -> bool:
+    return (list(a.nodes.items()) == list(b.nodes.items())
+            and [(u, list(a[u].items())) for u in a]
+            == [(u, list(b[u].items())) for u in b])
+
+
+def write_gp_files(root: Path, styles, scenes, seed) -> Dict:
+    """The Grocery Products layout: a catalogue of DATA_GALLERY products,
+    one image each as PNG bytes under Training/<family>/<line>/<p>.jpg
+    (the serve scenes' styles are products 0-15, seeded grey styles the
+    rest) and the TrainingFiles.txt index; the scenes under
+    Testing/store{s}/images/store{s}_{i}.jpg with their s{s}_{i}.csv
+    annotations (the rendered products) and Tonioni s{s}_{i}.json
+    planograms. Returns the paths, {path: uint8 image} and the
+    in-memory planograms."""
+    gp = root / "Grocery_products"
+    others = synthetic.product_styles(DATA_GALLERY - len(styles),
+                                      seed=seed + 97)
+    for st in others:  # grey: the scenes' products stay nearest their own
+        st["color"] = np.full(3, st["color"].mean(), np.float32)
+        st["band_color"] = np.full(3, st["band_color"].mean(), np.float32)
+    catalogue = list(styles) + others
+    files, written = [], {}
+    for p, style in enumerate(catalogue):
+        path = gp / "Training" / f"{_product_path(p)}.jpg"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        written[path] = _quantise(synthetic.product_gallery_image(
+            style, height=DATA_VIEW_HEIGHT))
+        testing.write_png(path, written[path])
+        files.append(f"Training/{_product_path(p)}.jpg")
+    (gp / "TrainingFiles.txt").write_text("\n".join(files) + "\n")
+    ann_dir = root / "Planogram_Dataset" / "annotations"
+    plano_dir = root / "Planogram_Dataset" / "planograms"
+    ann_dir.mkdir(parents=True)
+    plano_dir.mkdir(parents=True)
+    by_label = {s["label"]: i for i, s in enumerate(styles)}
+    planos, anns = [], []
+    for (s, i), (img, plano, actual, _expected) in zip(DATA_STORES, scenes):
+        path = gp / "Testing" / f"store{s}" / "images" / f"store{s}_{i}.jpg"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        written[path] = _quantise(img)
+        testing.write_png(path, written[path], compress_level=1)
+        labels = [_product_path(by_label[a]) for a in actual["labels"]]
+        ab = np.rint(actual["boxes"]).astype(int)
+        (ann_dir / f"s{s}_{i}.csv").write_text("".join(
+            f"{a}.jpg, {x1}, {y1}, {x2}, {y2}\n"
+            for a, (x1, y1, x2, y2) in zip(labels, ab)))
+        anns.append((labels, ab.astype(np.float32)))
+        spec, want = tonioni_planogram(plano, styles)
+        (plano_dir / f"s{s}_{i}.json").write_text(json.dumps(spec))
+        planos.append(want)
+    return {"gp": str(gp), "test_dir": str(gp / "Testing"),
+            "ann_dir": str(ann_dir), "plano_dir": str(plano_dir),
+            "written": written, "planograms": planos, "anns": anns}
+
+
+def decode_check(written: Dict) -> Dict:
+    """Decodes every file written and holds it to the uint8 image
+    written: (seconds, megapixels, files)."""
+    seconds, pixels = 0.0, 0
+    for path, u8 in written.items():
+        t0 = time.perf_counter()
+        got = png.to_rgb(png.read_png(path))
+        seconds += time.perf_counter() - t0
+        require(np.array_equal(got, u8),
+                f"{path} decodes to other pixels than were written")
+        pixels += u8.shape[0] * u8.shape[1]
+    return {"files": len(written), "megapixels": pixels / 1e6,
+            "seconds": seconds,
+            "seconds_per_megapixel": seconds / (pixels / 1e6)}
+
+
+def phase_data_files(ctx, seed, ref, smi):
+    """The dataset readers on files in the datasets' own layouts, under
+    build/chip_smoke/data/: SKU-110K photos through SKU110KDataset
+    (canvases made on the card) into evaluate_gln with the serve
+    detector, one train_proposal_generator epoch (GrainLoader) with
+    its eval, a resume inside that epoch and the record cache; the
+    Grocery Products gallery through GroceryProductsDataset into a
+    MACVGG Classifier (K2) and the GP-180 scenes through
+    PlanogramTestSet into evaluate_planograms, held to an in-memory
+    pass over the same uint8 images and planograms."""
+    t_phase = time.perf_counter()
+    root = BUILD / "data"
+    shutil.rmtree(root, ignore_errors=True)
+    pg, config = ctx["pg"], ctx["pg"].config
+    state = pg.model.state_dict()
+
+    t0 = time.perf_counter()
+    sku = write_sku110k_files(root, seed)
+    gp = write_gp_files(root, ctx["styles"], ctx["scenes"], seed)
+    write_s = time.perf_counter() - t0
+    photos = decode_check(sku["written"])
+    gallery = {p: u for p, u in gp["written"].items()
+               if "Training" in p.parts}
+    views = decode_check(gallery)
+    scenes = decode_check({p: u for p, u in gp["written"].items()
+                           if p not in gallery})
+    emit({"phase": "data.files.write", "root": str(root),
+          "photos": photos, "gallery": views, "scenes": scenes,
+          "bytes": sum(p.stat().st_size for p in root.rglob("*")
+                       if p.is_file()),
+          "write_seconds": write_s})
+
+    # SKU-110K: the index, evaluate_gln on the serve detector
+    t0 = time.perf_counter()
+    kw = dict(skip=defaults.SKU110K_SKIP, canvas_h=config.canvas_h,
+              canvas_w=config.canvas_w, device="cuda")
+    evalset = SKU110KDataset(sku["img_dir"], sku["ann"], flip_chance=0.0,
+                             **kw)
+    require([e["image_name"] for e in evalset.index]
+            == list(sku["boxes"]), "SKU-110K index names")
+    for e in evalset.index:
+        require(np.array_equal(e["boxes"], sku["boxes"][e["image_name"]])
+                and e["image_height"] == DATA_PHOTO_HW[0]
+                and e["image_width"] == DATA_PHOTO_HW[1],
+                f"SKU-110K index entry {e['image_name']}")
+    timed = _TimedReads(evalset)
+    _reset_launches()
+    res, (targets, _, confs) = evaluate_gln(
+        state, timed, config, thresholds=(0.5,), batch_size=EVAL_BATCH,
+        return_detections=True,
+        infer_fn=make_variables_inference_fn(config, device="cuda"),
+        device="cuda")
+    torch.cuda.synchronize()
+    eval_launches = _launches()
+    require(eval_launches["nms_hard"] > 0,
+            "nms_hard not launched in evaluate_gln on the files")
+    require(all(np.isfinite(c).all() for c in confs), "non-finite scores")
+    sku_eval = {"seconds": time.perf_counter() - t0,
+                "read_seconds": timed.seconds,
+                "images": len(evalset),
+                "targets": int(sum(len(t) for t in targets)),
+                "detections": int(sum(len(c) for c in confs)),
+                **{k: res[0.5][k] for k in ("ap", "ar_300", "f")},
+                "launches": eval_launches}
+    emit({"phase": "data.files.sku110k", **sku_eval})
+
+    # one GLN epoch on the files, a resume inside it, the record cache
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        train = _data_files_train(seed, ref, sku, kw, evalset)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    emit({"phase": "data.files.train", **train})
+
+    t0 = time.perf_counter()
+    timed = _TimedReads(evalset)
+    cached = CachedDetectionDataset(timed, str(root / "sku110k.cache"),
+                                    rebuild=True, verbose=False)
+    require(len(cached) == len(evalset), "cache length")
+    for i in range(0, len(evalset), 2):
+        got = cached.read_batch([i, i + 1])
+        # the items the cache was built from
+        want = collate_detection([timed.items[i], timed.items[i + 1]])
+        want["images"] = want["images"].cpu().numpy()
+        for key, v in want.items():
+            require(np.array_equal(got[key], v),
+                    f"cached batch {i}: {key} differs from the dataset's")
+    cache_row = {"seconds": time.perf_counter() - t0,
+                 "read_seconds": timed.seconds,
+                 "bytes": (root / "sku110k.cache").stat().st_size}
+    cached.cache.close()
+    emit({"phase": "data.files.cache", **cache_row})
+
+    planos = _data_files_planograms(ctx, gp)
+    emit({"phase": "data.files.planograms", **planos})
+
+    launches = {
+        "nms_hard": (eval_launches["nms_hard"] + train["launches"]["nms_hard"]
+                     + train["resume_launches"]["nms_hard"]
+                     + planos["launches"]["nms_hard"]),
+        "knn_fused": planos["launches"]["knn_fused"]}
+    emit({"phase": "data.files",
+          "decode_seconds_per_megapixel": photos["seconds_per_megapixel"],
+          "read_seconds": {"evaluate_gln": sku_eval["read_seconds"],
+                           "train": train["read_seconds"],
+                           "cache": cache_row["read_seconds"],
+                           "gallery": planos["gallery_read_seconds"],
+                           "planograms": planos["read_seconds"]},
+          "evaluate_seconds": {"evaluate_gln": sku_eval["seconds"],
+                               "planograms": planos["seconds"]},
+          "train_seconds": train["train_seconds"],
+          "launches": launches, "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def _data_files_train(seed, ref, sku, kw, evalset):
+    """One epoch of 4 steps at batch 2 (train_proposal_generator with
+    GrainLoader, an eval on the 8 photos), then the same epoch cut at
+    its third batch and resumed through GrainLoader.iter_from: the
+    resumed steps' losses are the uninterrupted run's. The flips are
+    off: the JAX package draws them from one rng that the loader's
+    threads share, in the order the threads reach it."""
+    config, train_cfg = train_configs()
+    out = BUILD / "data" / "train"
+    trainset = _TimedReads(SKU110KDataset(sku["img_dir"], sku["ann"],
+                                          flip_chance=0.0, seed=seed, **kw))
+    common = dict(model_cfg=config, train_cfg=train_cfg,
+                  batch_size=TRAIN_BATCH, epochs=1, checkpoint_interval=2,
+                  eval_interval=1, eval_threshold=0.5, load_torch=ref,
+                  seed=seed, device="cuda")
+    t0 = time.perf_counter()
+    _reset_launches()
+    whole = train_proposal_generator(trainset, evalset, str(out / "whole"),
+                                     loader_cls=GrainLoader, **common)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = _launches()
+    with open(out / "whole" / "stats_0.json") as f:
+        stats = json.load(f)
+    steps = DATA_PHOTOS // TRAIN_BATCH
+    losses = [stats[k] for k in ("class_loss", "reg_loss", "gauss_loss")]
+    require(whole["state"].step == steps
+            and all(len(v) == steps for v in losses),
+            f"{whole['state'].step} steps on the files")
+    require(np.isfinite(losses).all(), f"non-finite losses {losses}")
+    require(launches["nms_hard"] >= 1, "K1 not launched in the epoch eval")
+
+    split = out / "split"
+    small = _TimedReads(evalset, DATA_RESUME_EVAL)
+    try:
+        train_proposal_generator(trainset, small, str(split),
+                                 loader_cls=_InterruptedGrainLoader,
+                                 **common)
+        require(False, "the interrupted run was not interrupted")
+    except _Interrupt:
+        pass
+    meta = CheckpointManager(str(split)).load_meta()
+    require((meta["epoch"], meta["iteration"], meta["epoch_step"])
+            == (0, 0, 0), f"interval checkpoint at {meta}")
+    _reset_launches()
+    resumed = train_proposal_generator(trainset, small, str(split),
+                                       resume=True, loader_cls=GrainLoader,
+                                       **common)
+    resume_launches = _launches()
+    require(resumed["state"].step == steps,
+            f"the resumed run ended at step {resumed['state'].step}")
+    with open(split / "stats_0.json") as f:
+        got = json.load(f)
+    rel = _loss_rel(got, stats, 1)
+    require(rel <= RESUME_LOSS_TOL, f"the resumed steps' losses {rel} "
+            f"apart from the uninterrupted run's (> {RESUME_LOSS_TOL})")
+    return {"canvas": [config.canvas_h, config.canvas_w],
+            "batch": TRAIN_BATCH, "steps": steps, "losses": losses,
+            "step_seconds": stats["batch_times"], "train_seconds": train_s,
+            "read_seconds": trainset.seconds, "launches": launches,
+            "best": whole["best"], "resumed_steps": len(got["class_loss"]),
+            "resume_loss_rel": rel, "resume_launches": resume_launches}
+
+
+def _data_files_planograms(ctx, gp):
+    """The gallery read by GroceryProductsDataset, walking Training/ as
+    the JAX package's eval CLI does (annotations without the extension,
+    the planograms' labels), into a MACVGG Classifier with the serve
+    phase's encoder; then evaluate_planograms on PlanogramTestSet, and
+    the same evaluator on the uint8 images and the planograms held in
+    memory."""
+    t0 = time.perf_counter()
+    gallery = GroceryProductsDataset([str(Path(gp["gp"]) / "Training")],
+                                     random_crop=False,
+                                     include_annotations=True)
+    indexed = GroceryProductsDataset([gp["gp"]], random_crop=False,
+                                     index_from_file=True)
+    require(len(gallery) == DATA_GALLERY
+            and sorted(gallery.paths) == sorted(indexed.paths),
+            f"{len(gallery)} gallery entries; the walk and "
+            "TrainingFiles.txt differ")
+    timed = _TimedReads(gallery)
+    serve_clf = ctx["clf"]
+    clf = Classifier(serve_clf.encoder_fn, serve_clf.embedding_size,
+                     sample_set=timed, k=1, device="cuda")
+    torch.cuda.synchronize()
+    require(clf._use_fused, "the file gallery is too small for K2")
+    require(clf.annotations == gallery.annotations, "gallery annotations")
+    gallery_s = time.perf_counter() - t0
+
+    planoset = PlanogramTestSet(gp["test_dir"], gp["ann_dir"],
+                                gp["plano_dir"])
+    require(len(planoset) == len(DATA_STORES), "planogram test set size")
+    memory = []
+    for i, (want, (labels, boxes)) in enumerate(zip(gp["planograms"],
+                                                    gp["anns"])):
+        e = planoset.index[i]
+        require(e["anns"] == labels and np.array_equal(e["boxes"], boxes),
+                f"scene {i}: annotations read back differ")
+        got = e["plano"]
+        require(np.array_equal(got["boxes"], want["boxes"])
+                and got["labels"] == want["labels"]
+                and _same_graph(got["graph"], want["graph"]),
+                f"scene {i}: the Tonioni planogram read back differs")
+        path = Path(e["path"])
+        memory.append((gp["written"][path].astype(np.float32) / 255.0,
+                       labels, boxes, want))
+
+    t0 = time.perf_counter()
+    timed_scenes = _TimedReads(planoset)
+    rows = {}
+    for name, data in (("files", timed_scenes), ("memory", memory)):
+        comparator = _RecordingComparator(device="cuda")
+        _reset_launches()
+        rows[name] = evaluate_planograms(
+            PlanogramEvaluator(ctx["pg"], clf, comparator), data,
+            verbose=False)
+        torch.cuda.synchronize()
+        rows[name]["launches"] = _launches()
+        rows[name]["detections"] = comparator.seen
+        if name == "files":
+            eval_s = time.perf_counter() - t0
+    files, mem = rows["files"], rows["memory"]
+    for name, n in files["launches"].items():
+        require(n > 0, f"{name} not launched in evaluate_planograms")
+    require(files["per_image"] == mem["per_image"],
+            f"compliance {files['per_image']} from the files, "
+            f"{mem['per_image']} in memory")
+    for i, (f, m) in enumerate(zip(files["detections"],
+                                   mem["detections"])):
+        require(np.array_equal(f[0], m[0]) and f[1] == m[1],
+                f"scene {i}: the kept detections differ from memory's")
+        require(f[3] == m[3] and (f[2] is None) == (m[2] is None)
+                and (f[2] is None or np.array_equal(f[2], m[2])),
+                f"scene {i}: the planogram slots found differ from "
+                "memory's")
+    return {"gallery_entries": len(clf.embedding),
+            "gallery_seconds": gallery_s,
+            "gallery_read_seconds": timed.seconds,
+            "seconds": eval_s, "read_seconds": timed_scenes.seconds,
+            "compliance_files": files["per_image"],
+            "compliance_memory": mem["per_image"],
+            "kept_detections": [len(d[0]) for d in files["detections"]],
+            "paths": [d[3] for d in files["detections"]],
+            "launches": files["launches"]}
+
+
 # ---------------------------------------------------------------- training
 
 def reference_gln_checkpoint(seed) -> str:
@@ -2887,6 +3417,8 @@ def main(argv=None) -> int:
     mac_launches, knn_mac = phase_serve_macresnet(timer, ctx, args.seed)
     phase_load_reference(args.seed)
     phase_data_perspective(ctx, args.seed)
+    ref = reference_gln_checkpoint(args.seed)
+    data_launches = phase_data_files(ctx, args.seed, ref, smi)
     # the parallel phases' detector (its head calibrated), embedder and
     # scenes, on the host: the phases between keep the card as they had it
     par = {"gln_state": {k: v.cpu() for k, v in
@@ -2897,7 +3429,6 @@ def main(argv=None) -> int:
            "styles": ctx["styles"], "scenes": [s[0] for s in ctx["scenes"]]}
     del ctx
     gc.collect()
-    ref = reference_gln_checkpoint(args.seed)
     phase_train_parity(args.seed, ref)
     train_launches = phase_train_gln(args.seed, ref)
     phase_train_resume(args.seed, ref)
@@ -2922,12 +3453,15 @@ def main(argv=None) -> int:
     parallel["nms_hard"]["spatial"] = spatial_par
     rows = {"nms_hard": dict(nms_serve, launches=launches["nms_hard"],
                              train_launches=train_launches,
-                             parallel_launches=parallel["nms_hard"]),
+                             parallel_launches=parallel["nms_hard"],
+                             data_files_launches=data_launches["nms_hard"]),
             "knn_fused": dict(knn_mac, launches=mac_launches["knn_fused"],
                               d1024=dict(d1024,
                                          launches=launches["knn_fused"]),
                               dihe_train_launches=dihe_launches,
-                              parallel_launches=parallel["knn_fused"]),
+                              parallel_launches=parallel["knn_fused"],
+                              data_files_launches=data_launches[
+                                  "knn_fused"]),
             "soft_nms": dict(soft_serve,
                              launches=soft_launches["soft_nms"]),
             "pool_int8_conv": dict(pool_row, launches=pool_launches)}
@@ -2943,9 +3477,10 @@ def main(argv=None) -> int:
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    extra = {"nms_hard": ("train_launches", "parallel_launches"),
+    extra = {"nms_hard": ("train_launches", "parallel_launches",
+                          "data_files_launches"),
              "knn_fused": ("d1024", "dihe_train_launches",
-                           "parallel_launches")}
+                           "parallel_launches", "data_files_launches")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],
          "replaces": replaces[name][1],

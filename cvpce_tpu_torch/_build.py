@@ -3,8 +3,9 @@
 
 Each `csrc/<name>.cu` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes); each `csrc/<name>.cpp` (the native graph matcher) compiles
-with the host compiler, `g++ -O3 -shared -fPIC -std=c++17`. Libraries
+minutes); each `csrc/<name>.cpp` (the native graph matcher, the PNG
+row unfilter, the record cache) compiles with the host compiler,
+`g++ -O3 -shared -fPIC -std=c++17`. Libraries
 go into `build/cvpce_tpu_torch/` at the repository root (listed in
 .gitignore; `CVPCE_TORCH_BUILD_DIR` overrides it), named by a hash of
 the source and the flags, so a library is rebuilt only when either
@@ -21,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -33,11 +35,15 @@ BASE_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 # per-source extra flags: the NMS IoUs and Soft-NMS decays must round
-# exactly as the plain torch versions do, so no multiply-add contraction
+# exactly as the plain torch versions do, so no multiply-add contraction;
+# the record cache's reader runs a thread pool
 EXTRA_FLAGS: Dict[str, List[str]] = {"nms_hard": ["-fmad=false"],
-                                     "soft_nms": ["-fmad=false"]}
+                                     "soft_nms": ["-fmad=false"],
+                                     "record_cache": ["-pthread"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one build at a time in a process: loader threads decode images at once
+_LOCK = threading.Lock()
 # name -> {"seconds": build time (0.0 when cached), "log": nvcc output}
 BUILD_INFO: Dict[str, Dict] = {}
 
@@ -75,7 +81,7 @@ def _source(name: str) -> Path:
 
 def _flags(name: str) -> List[str]:
     if _source(name).suffix == ".cpp":
-        return HOST_FLAGS
+        return HOST_FLAGS + EXTRA_FLAGS.get(name, [])
     return ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS.get(name, [])
 
 
@@ -120,12 +126,16 @@ def build_all() -> Dict[str, Dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `name` (a kernel, or `graph_match`),
-    built on first use."""
+    """The loaded library for `name` (a kernel, or one of the host
+    sources: `graph_match`, `png_unfilter`, `record_cache`), built on
+    first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(_build(name)))
-        _LIBS[name] = lib
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(_build(name)))
+                _LIBS[name] = lib
     return lib
 
 

@@ -39,24 +39,28 @@ class PrefetchLoader:
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
-    def _order(self) -> np.ndarray:
+    def _order(self, epoch: int) -> np.ndarray:
         # a pure function of (seed, epoch): every process/host and every
         # resumed run sees the same epoch order (DistributedSampler
         # semantics, proposals_training.py:223-224)
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
-            order = np.random.default_rng(
-                (self.seed, self.epoch)).permutation(n)
+            order = np.random.default_rng((self.seed, epoch)).permutation(n)
         return order[self.shard_index::self.num_shards]
 
     def __len__(self) -> int:
-        n = len(self._order())
+        n = len(self._order(self.epoch))
         return n // self.batch_size if self.drop_last else \
             (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator:
-        order = self._order()
+        return self._batches(self.epoch, 0)
+
+    def _batches(self, epoch: int, start: int) -> Iterator:
+        """Epoch `epoch`'s batches from batch `start` on; no item of an
+        earlier batch is loaded."""
+        order = self._order(epoch)
         nb = len(self)
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_batches)
         stop = threading.Event()
@@ -73,7 +77,7 @@ class PrefetchLoader:
 
         def produce():
             with ThreadPoolExecutor(self.num_threads) as pool:
-                for b in range(nb):
+                for b in range(start, nb):
                     if stop.is_set():
                         break
                     idxs = order[b * self.batch_size:(b + 1) * self.batch_size]

@@ -4,10 +4,12 @@ Bilinear resizing follows OpenCV's INTER_LINEAR (half-pixel centres,
 edge clamping, no antialiasing), which `F.interpolate(mode="bilinear",
 align_corners=False)` computes. Images are HWC float32 in [0, 1], numpy
 arrays or tensors; results are tensors on `device` (the input's device
-by default). `gaussian_blur`, `get_perspective_transform` and
-`warp_perspective` are host numpy, like the cv2 calls they replace, and
-follow cv2's arithmetic (OpenCV 5's, the version the tests hold them
-to) so that they give its results.
+by default). `load_image` / `load_image_rgba` decode with the port's
+PNG decoder (data/png.py) into numpy. `gaussian_blur`,
+`get_perspective_transform`, `warp_perspective`, `sobel3` and
+`build_white_background_mask` are host numpy, like the cv2 calls they
+replace, and follow cv2's arithmetic (OpenCV 5's, the version the tests
+hold them to) so that they give its results.
 """
 from __future__ import annotations
 
@@ -17,9 +19,24 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import png
+
 CLASSIFICATION_IMAGE_SIZE = 256
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def load_image(path) -> np.ndarray:
+    """Decode an image file to HWC float32 RGB in [0, 1] (PIL's
+    convert("RGB") / 255). PNG only: other formats raise (data/png.py)."""
+    return np.asarray(png.to_rgb(png.read_png(path)), np.float32) / 255.0
+
+
+def load_image_rgba(path) -> np.ndarray:
+    """Decode keeping alpha, HWC float32 RGBA in [0, 1] (cv2's
+    IMREAD_UNCHANGED read as the JAX package turns it into RGBA; the
+    internal trainset's BGRA PNGs)."""
+    return np.asarray(png.to_rgba(png.read_png(path)), np.float32) / 255.0
 
 
 def as_tensor(img, device=None) -> torch.Tensor:
@@ -94,6 +111,47 @@ def resize_for_classification(img, size: int = CLASSIFICATION_IMAGE_SIZE,
     return resize_bilinear(canvas, size, size)
 
 
+def aspect_resize_pad(img, size: int = CLASSIFICATION_IMAGE_SIZE,
+                      tanh: bool = True, mask=None, device=None):
+    """Resize so the longer side is `size`, optionally scale to tanh
+    range, pad bottom/right (fill 0 in tanh scale, 0.5 plain); the
+    `mask` ((H, W), bool or float) is resized alike and padded with 1.
+
+    Returns the image tensor (size, size, C) [and the mask tensor
+    (size, size, 1) if given], on `device` (the image's by default)."""
+    x = as_tensor(img, device)
+    if x.ndim == 2:
+        x = x[..., None]
+    h, w = x.shape[:2]
+    if h > w:
+        new_h, new_w = size, int(round(size * w / h))
+    else:
+        new_h, new_w = int(round(size * h / w)), size
+    resized = resize_bilinear(x, new_h, new_w)
+    if tanh:
+        resized = scale_to_tanh(resized)
+    out = torch.full((size, size, resized.shape[2]), 0.0 if tanh else 0.5,
+                     dtype=torch.float32, device=x.device)
+    out[:new_h, :new_w] = resized
+    if mask is None:
+        return out
+    m = resize_bilinear(as_tensor(mask[..., None], x.device), new_h, new_w)
+    m_out = torch.ones((size, size, 1), dtype=torch.float32, device=x.device)
+    m_out[:new_h, :new_w] = m
+    return out, m_out
+
+
+def hflip_with_boxes(img: np.ndarray, boxes: np.ndarray):
+    """Horizontal flip of an HWC numpy image and its (T, 4) xyxy boxes."""
+    w = img.shape[1]
+    flipped = img[:, ::-1].copy()
+    fboxes = boxes.copy()
+    if len(boxes):
+        fboxes[:, 0] = w - boxes[:, 2]
+        fboxes[:, 2] = w - boxes[:, 0]
+    return flipped, fboxes
+
+
 def _reflect101(idx: np.ndarray, n: int) -> np.ndarray:
     """cv2.BORDER_REFLECT_101 source index of each (possibly far
     out-of-range) position along an axis of length n: reflection about
@@ -135,6 +193,99 @@ def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
             acc += w * np.take(src, np.arange(j, j + n), axis=axis)
         out = acc
     return out
+
+
+# f32 lanes of cv2's vectorised small-kernel filters on x86 (its AVX2
+# dispatch, also taken on AVX-512 machines): they set which columns of
+# a row take the SIMD body's order of operations
+CV2_FILTER_LANES = 8
+
+
+def _three_taps(a: np.ndarray, axis: int):
+    """The left, centre and right neighbours of every element along
+    `axis`, BORDER_REFLECT_101 at the edges."""
+    n = a.shape[axis]
+    src = np.take(a, _reflect101(np.arange(-1, n + 1), n), axis=axis)
+    return tuple(np.take(src, np.arange(k, k + n), axis=axis)
+                 for k in range(3))
+
+
+def _smooth121(a: np.ndarray, axis: int) -> np.ndarray:
+    """cv2's [1, 2, 1] f32 pass along `axis` of an (H, W) array. The
+    SIMD body sums (l + r) + 2c; the scalar loop after it takes the
+    rest of a row's columns two at a time as (l + 2c) + r, and a last
+    odd column in the body's order."""
+    lo, c, hi = _three_taps(a, axis)
+    w = a.shape[1]
+    body = w - w % CV2_FILTER_LANES
+    x = np.arange(w)
+    pairs = (x >= body) & (x < body + (w - body) // 2 * 2)
+    return np.where(pairs, (lo + c * np.float32(2)) + hi,
+                    (lo + hi) + c * np.float32(2))
+
+
+def sobel3(gray: np.ndarray, dx: int) -> np.ndarray:
+    """`cv2.Sobel(gray, cv2.CV_32F, dx, 1 - dx, ksize=3)` of an f32
+    (H, W) array, BORDER_REFLECT_101: cv2's separable filter, the row
+    kernel first ([-1, 0, 1] for dx = 1, else [1, 2, 1]), then the
+    column kernel, each in cv2's f32 order (`_smooth121`)."""
+    g = np.asarray(gray, np.float32)
+    if dx:
+        lo, _, hi = _three_taps(g, 1)
+        return _smooth121(hi - lo, 0)
+    lo, _, hi = _three_taps(_smooth121(g, 1), 0)
+    return hi - lo
+
+
+def flood_fill_mask(img: np.ndarray, seed_x: int, seed_y: int,
+                    tolerance: float) -> np.ndarray:
+    """`cv2.floodFill(img, mask, (seed_x, seed_y), 0, loDiff=tolerance,
+    upDiff=tolerance, flags=4 | cv2.FLOODFILL_MASK_ONLY)`'s filled mask
+    (H, W) bool for an f32 (H, W) image. cv2 adds a 4-neighbour of a
+    filled pixel when their f32 difference lies in [-tol, tol] (tol
+    rounded to f32); with a symmetric range that relation is symmetric,
+    so its scan-line fill is the connected component of the seed."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import breadth_first_order
+
+    img = np.asarray(img, np.float32)
+    h, w = img.shape
+    tol = np.float32(tolerance)
+    idx = np.arange(h * w).reshape(h, w)
+    step_x = np.abs(img[:, 1:] - img[:, :-1]) <= tol
+    step_y = np.abs(img[1:] - img[:-1]) <= tol
+    src = np.concatenate([idx[:, :-1][step_x], idx[:-1][step_y]])
+    dst = np.concatenate([idx[:, 1:][step_x], idx[1:][step_y]])
+    graph = coo_matrix((np.ones(len(src), np.int8), (src, dst)),
+                       shape=(h * w, h * w)).tocsr()
+    reached = breadth_first_order(graph, seed_y * w + seed_x,
+                                  directed=False, return_predecessors=False)
+    mask = np.zeros(h * w, bool)
+    mask[reached] = True
+    return mask.reshape(h, w)
+
+
+def build_white_background_mask(img: np.ndarray,
+                                tolerance: float = 1e-2) -> np.ndarray:
+    """Mask of the white background: a gradient flood fill from each
+    white corner not yet covered (the JAX package's cv2 Sobel and
+    floodFill, in numpy).
+
+    img: HWC float32 RGB in [0, 1]. Returns (H, W) bool, True =
+    background."""
+    img = np.asarray(img)
+    gray = img[..., 0] * 0.2989 + img[..., 1] * 0.587 + img[..., 2] * 0.114
+    h, w = gray.shape
+    gx = sobel3(gray, 1) / 8.0
+    gy = sobel3(gray, 0) / 8.0
+    grad = np.sqrt(gx**2 + gy**2)
+
+    mask = np.zeros((h, w), bool)
+    for x, y in [(0, 0), (w - 1, 0), (0, h - 1), (w - 1, h - 1)]:
+        if gray[y, x] < 1 - tolerance or mask[y, x]:
+            continue
+        mask |= flood_fill_mask(grad, x, y, tolerance)
+    return mask
 
 
 def get_perspective_transform(src, dst) -> np.ndarray:

@@ -553,3 +553,82 @@ def dihe_step_differences(before: Dict, a, b, updates: Dict) -> Dict:
             total += m.numel()
     out["unresolved_share"] = unresolved / max(total, 1)
     return out
+
+
+# ------------------------------------------------------------ PNG files
+
+# a row's filter type by default: row r takes r % 5, so every unfilter
+# path of data/png.py runs on any image of 5 rows or more
+PNG_FILTERS = ("none", "sub", "up", "average", "paeth")
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def write_png(path, array: np.ndarray, filters=None, palette=None,
+              trns: bytes = None, bit_depth: int = 8,
+              compress_level: int = 6) -> None:
+    """Write `array` as a non-interlaced PNG (a helper of the tests and
+    the smoke run, not part of the data API). uint8 (H, W) or (H, W, C):
+    C = 1 grey, 2 grey + alpha, 3 RGB, 4 RGBA; with `palette` ((N, 3)
+    uint8) `array` holds palette indices (colour type 3). `bit_depth`
+    below 8 packs grey or palette samples. `filters`: None (row r takes
+    filter r % 5), one filter for every row, or one per row, each a
+    number 0-4 or a name of PNG_FILTERS. `trns` is the tRNS chunk's
+    body, as given; `compress_level` zlib's level."""
+    import struct
+    import zlib
+
+    a = np.asarray(array, np.uint8)
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w, c = a.shape
+    color_type = 3 if palette is not None else {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    if bit_depth < 8:
+        per = 8 // bit_depth
+        pad = (-w) % per
+        vals = np.pad(a[..., 0], ((0, 0), (0, pad))).reshape(h, -1, per)
+        shifts = np.arange(8 - bit_depth, -1, -bit_depth)
+        rows = (vals.astype(np.int64) << shifts).sum(-1).astype(np.uint8)
+    else:
+        rows = a.reshape(h, w * c)
+    bpp = max(c * bit_depth // 8, 1)
+    if filters is None:
+        filters = [r % 5 for r in range(h)]
+    elif isinstance(filters, (int, str)):
+        filters = [filters] * h
+    kinds = np.array([PNG_FILTERS.index(f) if isinstance(f, str) else int(f)
+                      for f in filters])[:, None]
+    # every row is filtered against the unfiltered row above it
+    x = rows.astype(np.int16)
+    up = np.concatenate([np.zeros_like(x[:1]), x[:-1]])
+    left = np.pad(x, ((0, 0), (bpp, 0)))[:, :-bpp]
+    upleft = np.pad(up, ((0, 0), (bpp, 0)))[:, :-bpp]
+    pred = np.select([kinds == 1, kinds == 2, kinds == 3, kinds == 4],
+                     [left, up, (left + up) >> 1,
+                      _paeth(left, up, upleft)], 0)
+    out = np.concatenate([kinds.astype(np.uint8),
+                          ((x - pred) & 0xFF).astype(np.uint8)], axis=1)
+    chunks = [_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bit_depth,
+                                              color_type, 0, 0, 0))]
+    if palette is not None:
+        chunks.append(_png_chunk(b"PLTE", np.asarray(palette, np.uint8)
+                                 .tobytes()))
+    if trns is not None:
+        chunks.append(_png_chunk(b"tRNS", trns))
+    chunks += [_png_chunk(b"IDAT", zlib.compress(out.tobytes(),
+                                                 compress_level)),
+               _png_chunk(b"IEND", b"")]
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + b"".join(chunks))

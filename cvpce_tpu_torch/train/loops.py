@@ -149,10 +149,11 @@ def train_proposal_generator(
     stay per step, rotating checkpoints land at call boundaries.
 
     `loader_cls`: PrefetchLoader, or any loader with its constructor;
-    one with `iter_from` makes `resume=True` continue inside a
-    partially trained epoch on the exact next batch. The JAX package's
-    GrainLoader and the checkpoint-time sample pictures (utils/viz.py,
-    matplotlib) are not ported (ROADMAP.md, Queue 1 item 6).
+    one with `iter_from` (data/grain_loader.py:GrainLoader) makes
+    `resume=True` continue inside a partially trained epoch on the
+    exact next batch. The checkpoint-time sample pictures
+    (utils/viz.py, matplotlib) are not ported (ROADMAP.md, Queue 1
+    item 6).
 
     `use_mesh` in a process group of several ranks: data-parallel
     training over them (module docstring), `device` this rank's.

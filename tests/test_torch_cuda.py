@@ -477,3 +477,77 @@ def test_spatial_infer_at_world_size_one_is_the_one_process_forward(
         assert have.keys() == ref.keys()
         for key in ref:
             assert torch.equal(have[key], ref[key]), key
+
+
+def _flood_reference(grad, seed, tol):
+    """A breadth-first flood over 4-neighbours whose f32 difference lies
+    within tol (the rule cv2's scan-line fill follows), in plain Python."""
+    h, w = grad.shape
+    t = np.float32(tol)
+    mask = np.zeros((h, w), bool)
+    mask[seed] = True
+    todo = [seed]
+    while todo:
+        y, x = todo.pop()
+        for v, u in ((y - 1, x), (y + 1, x), (y, x - 1), (y, x + 1)):
+            if 0 <= v < h and 0 <= u < w and not mask[v, u] and \
+                    abs(grad[v, u] - grad[y, x]) <= t:
+                mask[v, u] = True
+                todo.append((v, u))
+    return mask
+
+
+def test_png_decoder_and_mask_on_the_card_machine(cuda, tmp_path):
+    """The decoder (csrc/png_unfilter.cpp built here) gives back what
+    write_png wrote, for every filter, colour type and palette depth;
+    the white-background mask's flood fill is the breadth-first one."""
+    from cvpce_tpu_torch.data import png
+    from cvpce_tpu_torch.data import transforms as T
+
+    rng = np.random.default_rng(11)
+    for c in (1, 2, 3, 4):
+        for filt in testing.PNG_FILTERS:
+            arr = rng.integers(0, 256, (9, 17, c), dtype=np.uint8)
+            path = tmp_path / f"{c}_{filt}.png"
+            testing.write_png(path, arr, filters=filt)
+            np.testing.assert_array_equal(png.read_png(path).samples, arr)
+    for depth in (1, 2, 4, 8):
+        pal = rng.integers(0, 256, (1 << depth, 3), dtype=np.uint8)
+        idx = rng.integers(0, 1 << depth, (7, 13)).astype(np.uint8)
+        testing.write_png(tmp_path / "p.png", idx, palette=pal,
+                          bit_depth=depth)
+        np.testing.assert_array_equal(
+            T.load_image(tmp_path / "p.png"),
+            pal[idx].astype(np.float32) / 255.0)
+    img = np.ones((40, 50, 3), np.float32)
+    img[8:30, 10:40] = rng.uniform(0, 0.8, (22, 30, 3))
+    mask = T.build_white_background_mask(img)
+    gray = img[..., 0] * 0.2989 + img[..., 1] * 0.587 + img[..., 2] * 0.114
+    grad = np.sqrt((T.sobel3(gray, 1) / 8.0) ** 2
+                   + (T.sobel3(gray, 0) / 8.0) ** 2)
+    np.testing.assert_array_equal(mask, _flood_reference(grad, (0, 0), 1e-2))
+    assert mask[0, 0] and not mask[20, 25]
+
+
+def test_sku110k_canvas_on_the_card_matches_cpu(cuda, tmp_path):
+    """SKU110KDataset(device="cuda") resizes on the card: the canvas is
+    the CPU's within the resize bound (5e-5, / 0.224 normalised)."""
+    from cvpce_tpu_torch.data.sku110k import SKU110KDataset
+
+    rng = np.random.default_rng(12)
+    rows = []
+    for k, (h, w) in enumerate([(300, 400), (410, 230)]):
+        testing.write_png(tmp_path / f"s{k}.jpg",
+                          rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        rows.append(f"s{k}.jpg,5,6,{w - 9},{h - 7},object,{w},{h}")
+    (tmp_path / "ann.csv").write_text("\n".join(rows) + "\n")
+    kw = dict(flip_chance=0.5, canvas_h=256, canvas_w=384, seed=1)
+    on_card = SKU110KDataset(str(tmp_path), str(tmp_path / "ann.csv"),
+                             device=cuda, **kw)
+    on_cpu = SKU110KDataset(str(tmp_path), str(tmp_path / "ann.csv"), **kw)
+    for i in (0, 1, 1, 0):
+        got, want = on_card[i], on_cpu[i]
+        assert got["image"].device.type == "cuda"
+        torch.testing.assert_close(got["image"].cpu(), want["image"],
+                                   atol=5e-5 / 0.224, rtol=0)
+        np.testing.assert_array_equal(got["boxes"], want["boxes"])

@@ -36,7 +36,13 @@ REQUIRED = {"cvpce_tpu_torch.ops.metrics", "cvpce_tpu_torch.eval",
             "cvpce_tpu_torch.parallel.multihost",
             "cvpce_tpu_torch.ops.knn_sharded",
             "cvpce_tpu_torch.parallel.spatial",
-            "cvpce_tpu_torch.utils.profiling"}
+            "cvpce_tpu_torch.utils.profiling",
+            "cvpce_tpu_torch.data.png", "cvpce_tpu_torch.data.defaults",
+            "cvpce_tpu_torch.data.grocery",
+            "cvpce_tpu_torch.data.planograms",
+            "cvpce_tpu_torch.data.grozi", "cvpce_tpu_torch.data.coco",
+            "cvpce_tpu_torch.data.cache",
+            "cvpce_tpu_torch.data.grain_loader"}
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
