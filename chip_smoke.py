@@ -77,6 +77,19 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   uint8 images and planograms; decode seconds per megapixel, read,
   evaluate and train seconds, launches and the card's name and power
   limit;
+- data.jpeg: the 8 shelf photos again as JPEG files written by
+  testing.write_jpeg (4:2:0 at quality 90, one with a restart interval
+  of 4 MCUs, 4:2:2, 4:4:4, grey) in SKU-110K's layout, and the 4 scenes
+  at 4:2:0 in GP-180's layout, under build/chip_smoke/data/jpeg/: each
+  file's coefficients as the port's decoder reads them equal to those
+  written, its pixels equal to data/jpeg.py:reconstruct_reference's,
+  and 30 small edge files (1x1 to 61x97 and 33x200, every sampling,
+  restart intervals, SOF1) equal to decode_reference's; then
+  SKU110KDataset(device="cuda") over the photos into evaluate_gln (K1)
+  and PlanogramTestSet with data.files' catalogue into
+  evaluate_planograms (K1, K2), each equal to the same pass over the
+  decoded pixels in memory; decode seconds per megapixel of each
+  sampling, the encoder's seconds, launches;
 - train.parity: one GLN train step on the card and one on the CPU at
   256x384, batch 2 (tanh, simple Gaussians), from the same seeded
   reference-layout checkpoint loaded through cli/common.py and the same
@@ -87,7 +100,9 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   recipe), batch 2, 8 scenes, 2 epochs, rotating checkpoints every 2
   steps, an eval on 4 held-out scenes after each epoch with K1 launched
   in each; its files, finite losses, and epoch 1's scores differing from
-  epoch 0's; seconds per step, per eval and the peak memory;
+  epoch 0's; seconds per step, per eval and the peak memory; its sample
+  pictures skipped (the card's machine has no matplotlib), as
+  train.gan's;
 - train.resume: at 256x384, 2 epochs in one go against 1 epoch and a
   resume=True epoch: the iteration counter continues, the momentum
   buffers come back as saved, the resumed epoch's losses agree;
@@ -126,6 +141,7 @@ import dataclasses
 import datetime
 import gc
 import hashlib
+import itertools
 import json
 import math
 import shutil
@@ -146,7 +162,7 @@ import torch.distributed as dist
 
 from cvpce_tpu_torch import _build, testing
 from cvpce_tpu_torch.cli.common import load_embedder, load_gln_state_dict
-from cvpce_tpu_torch.data import defaults, png, synthetic
+from cvpce_tpu_torch.data import defaults, jpeg, png, synthetic
 from cvpce_tpu_torch.data import transforms as T
 from cvpce_tpu_torch.data.cache import CachedDetectionDataset
 from cvpce_tpu_torch.data.grain_loader import GrainLoader
@@ -191,7 +207,7 @@ from cvpce_tpu_torch.train import gln as gln_train
 from cvpce_tpu_torch.train.checkpoint import CheckpointManager
 from cvpce_tpu_torch.train import loops as train_loops
 from cvpce_tpu_torch.train.loops import train_proposal_generator
-from cvpce_tpu_torch.utils import profiling
+from cvpce_tpu_torch.utils import profiling, viz
 from cvpce_tpu_torch.utils.torch_import import (import_gln, import_resnet50,
                                                 import_vgg16_features)
 
@@ -1683,11 +1699,17 @@ class _RecordingComparator(PlanogramComparator):
         return score, found, path
 
 
-def write_sku110k_files(root: Path, seed) -> Dict:
-    """DATA_PHOTOS shelf scenes at the phone photo's size as PNG bytes
-    under SKU-110K's `.jpg` names, and the 8-column annotation CSV with
-    one malformed row and one name of the skip list. Returns
-    {path: the uint8 image written} and the boxes by name."""
+def _write_png(i, path, u8):
+    testing.write_png(path, u8, compress_level=1)
+
+
+def write_sku110k_files(root: Path, seed, write=_write_png) -> Dict:
+    """DATA_PHOTOS shelf scenes at the phone photo's size under
+    SKU-110K's `.jpg` names, written by `write(i, path, uint8 image)`
+    (PNG bytes by default), and the 8-column annotation CSV with one
+    malformed row and one name of the skip list. Returns {path: the
+    uint8 image written}, the boxes by name and {path: what `write`
+    returned}."""
     img_dir = root / "SKU110K_fixed" / "images"
     ann = root / "SKU110K_fixed" / "annotations" / "annotations_train.csv"
     img_dir.mkdir(parents=True)
@@ -1698,16 +1720,17 @@ def write_sku110k_files(root: Path, seed) -> Dict:
         img, boxes = synthetic.shelf_scene(
             h, w, np.random.default_rng((seed, 83, i)))
         u8 = _quantise(img)
-        testing.write_png(img_dir / f"train_{i}.jpg", u8, compress_level=1)
-        return u8, np.rint(boxes).astype(int)
+        out = write(i, img_dir / f"train_{i}.jpg", u8)
+        return u8, np.rint(boxes).astype(int), out
 
     # numpy and zlib let the threads overlap
     with ThreadPoolExecutor(DATA_PHOTOS) as pool:
         photos = list(pool.map(photo, range(DATA_PHOTOS)))
-    rows, written, boxes_of = [], {}, {}
-    for i, (u8, boxes) in enumerate(photos):
+    rows, written, boxes_of, outs = [], {}, {}, {}
+    for i, (u8, boxes, out) in enumerate(photos):
         name = f"train_{i}.jpg"
         written[img_dir / name] = u8
+        outs[img_dir / name] = out
         boxes_of[name] = boxes
         rows += [f"{name},{x1},{y1},{x2},{y2},object,{w},{h}"
                  for x1, y1, x2, y2 in boxes]
@@ -1715,7 +1738,7 @@ def write_sku110k_files(root: Path, seed) -> Dict:
     rows.append(f"{defaults.SKU110K_SKIP[0]},10,10,50,50,object,{w},{h}")
     ann.write_text("\n".join(rows) + "\n")
     return {"img_dir": str(img_dir), "ann": str(ann), "written": written,
-            "boxes": boxes_of}
+            "boxes": boxes_of, "outs": outs}
 
 
 def _product_path(p: int) -> str:
@@ -1788,11 +1811,9 @@ def write_gp_files(root: Path, styles, scenes, seed) -> Dict:
     """The Grocery Products layout: a catalogue of DATA_GALLERY products,
     one image each as PNG bytes under Training/<family>/<line>/<p>.jpg
     (the serve scenes' styles are products 0-15, seeded grey styles the
-    rest) and the TrainingFiles.txt index; the scenes under
-    Testing/store{s}/images/store{s}_{i}.jpg with their s{s}_{i}.csv
-    annotations (the rendered products) and Tonioni s{s}_{i}.json
-    planograms. Returns the paths, {path: uint8 image} and the
-    in-memory planograms."""
+    rest) and the TrainingFiles.txt index; then the scenes
+    (`write_gp_scenes`, PNG bytes). Returns the paths, {path: uint8
+    image} and the in-memory planograms."""
     gp = root / "Grocery_products"
     others = synthetic.product_styles(DATA_GALLERY - len(styles),
                                       seed=seed + 97)
@@ -1809,17 +1830,31 @@ def write_gp_files(root: Path, styles, scenes, seed) -> Dict:
         testing.write_png(path, written[path])
         files.append(f"Training/{_product_path(p)}.jpg")
     (gp / "TrainingFiles.txt").write_text("\n".join(files) + "\n")
+    out = write_gp_scenes(root, styles, scenes)
+    out["written"].update(written)
+    return {"gp": str(gp), **out}
+
+
+def write_gp_scenes(root: Path, styles, scenes, write=_write_png) -> Dict:
+    """The GP-180 scenes of the Grocery Products layout under
+    Testing/store{s}/images/store{s}_{i}.jpg, written by `write(i, path,
+    uint8 image)`, with their s{s}_{i}.csv annotations (the rendered
+    products, named as the catalogue's) and Tonioni s{s}_{i}.json
+    planograms. Returns the directories, {path: uint8 image}, {path:
+    what `write` returned} and the in-memory planograms."""
+    gp = root / "Grocery_products"
     ann_dir = root / "Planogram_Dataset" / "annotations"
     plano_dir = root / "Planogram_Dataset" / "planograms"
     ann_dir.mkdir(parents=True)
     plano_dir.mkdir(parents=True)
     by_label = {s["label"]: i for i, s in enumerate(styles)}
-    planos, anns = [], []
-    for (s, i), (img, plano, actual, _expected) in zip(DATA_STORES, scenes):
+    planos, anns, written, outs = [], [], {}, {}
+    for k, ((s, i), (img, plano, actual, _expected)) in enumerate(
+            zip(DATA_STORES, scenes)):
         path = gp / "Testing" / f"store{s}" / "images" / f"store{s}_{i}.jpg"
         path.parent.mkdir(parents=True, exist_ok=True)
         written[path] = _quantise(img)
-        testing.write_png(path, written[path], compress_level=1)
+        outs[path] = write(k, path, written[path])
         labels = [_product_path(by_label[a]) for a in actual["labels"]]
         ab = np.rint(actual["boxes"]).astype(int)
         (ann_dir / f"s{s}_{i}.csv").write_text("".join(
@@ -1829,9 +1864,9 @@ def write_gp_files(root: Path, styles, scenes, seed) -> Dict:
         spec, want = tonioni_planogram(plano, styles)
         (plano_dir / f"s{s}_{i}.json").write_text(json.dumps(spec))
         planos.append(want)
-    return {"gp": str(gp), "test_dir": str(gp / "Testing"),
-            "ann_dir": str(ann_dir), "plano_dir": str(plano_dir),
-            "written": written, "planograms": planos, "anns": anns}
+    return {"test_dir": str(gp / "Testing"), "ann_dir": str(ann_dir),
+            "plano_dir": str(plano_dir), "written": written, "outs": outs,
+            "planograms": planos, "anns": anns}
 
 
 def decode_check(written: Dict) -> Dict:
@@ -1944,7 +1979,7 @@ def phase_data_files(ctx, seed, ref, smi):
     cached.cache.close()
     emit({"phase": "data.files.cache", **cache_row})
 
-    planos = _data_files_planograms(ctx, gp)
+    planos, file_clf = _data_files_planograms(ctx, gp)
     emit({"phase": "data.files.planograms", **planos})
 
     launches = {
@@ -1964,6 +1999,8 @@ def phase_data_files(ctx, seed, ref, smi):
           "train_seconds": train["train_seconds"],
           "launches": launches, "nvidia_smi": smi,
           "seconds": time.perf_counter() - t_phase})
+    # data.jpeg reads its scenes against this catalogue
+    ctx["data_files"] = {"clf": file_clf, "canvas_kw": kw}
     return launches
 
 
@@ -2035,9 +2072,7 @@ def _data_files_planograms(ctx, gp):
     """The gallery read by GroceryProductsDataset, walking Training/ as
     the JAX package's eval CLI does (annotations without the extension,
     the planograms' labels), into a MACVGG Classifier with the serve
-    phase's encoder; then evaluate_planograms on PlanogramTestSet, and
-    the same evaluator on the uint8 images and the planograms held in
-    memory."""
+    phase's encoder; then `planogram_pass` over the scenes."""
     t0 = time.perf_counter()
     gallery = GroceryProductsDataset([str(Path(gp["gp"]) / "Training")],
                                      random_crop=False,
@@ -2056,7 +2091,17 @@ def _data_files_planograms(ctx, gp):
     require(clf._use_fused, "the file gallery is too small for K2")
     require(clf.annotations == gallery.annotations, "gallery annotations")
     gallery_s = time.perf_counter() - t0
+    row = planogram_pass(ctx, clf, gp, gp["written"])
+    return {"gallery_entries": len(clf.embedding),
+            "gallery_seconds": gallery_s,
+            "gallery_read_seconds": timed.seconds, **row}, clf
 
+
+def planogram_pass(ctx, clf, gp, pixels):
+    """evaluate_planograms on PlanogramTestSet over the scene files of
+    `gp` (write_gp_scenes), and the same evaluator on `pixels` ({path:
+    uint8 image}) and the planograms held in memory: the compliance and
+    the kept detections must be equal."""
     planoset = PlanogramTestSet(gp["test_dir"], gp["ann_dir"],
                                 gp["plano_dir"])
     require(len(planoset) == len(DATA_STORES), "planogram test set size")
@@ -2072,7 +2117,7 @@ def _data_files_planograms(ctx, gp):
                 and _same_graph(got["graph"], want["graph"]),
                 f"scene {i}: the Tonioni planogram read back differs")
         path = Path(e["path"])
-        memory.append((gp["written"][path].astype(np.float32) / 255.0,
+        memory.append((pixels[path].astype(np.float32) / 255.0,
                        labels, boxes, want))
 
     t0 = time.perf_counter()
@@ -2103,15 +2148,234 @@ def _data_files_planograms(ctx, gp):
                 and (f[2] is None or np.array_equal(f[2], m[2])),
                 f"scene {i}: the planogram slots found differ from "
                 "memory's")
-    return {"gallery_entries": len(clf.embedding),
-            "gallery_seconds": gallery_s,
-            "gallery_read_seconds": timed.seconds,
-            "seconds": eval_s, "read_seconds": timed_scenes.seconds,
+    return {"seconds": eval_s, "read_seconds": timed_scenes.seconds,
             "compliance_files": files["per_image"],
             "compliance_memory": mem["per_image"],
             "kept_detections": [len(d[0]) for d in files["detections"]],
             "paths": [d[3] for d in files["detections"]],
             "launches": files["launches"]}
+
+
+# (sampling, restart interval) of each SKU-110K photo of data.jpeg
+DATA_JPEG_PHOTOS = ((("4:2:0", 0),) * 4
+                    + (("4:2:0", 4), ("4:2:2", 0), ("4:4:4", 0), ("grey", 0)))
+DATA_JPEG_QUALITY = 90
+JPEG_EDGE_SIZES = ((1, 1), (2, 3), (17, 9), (61, 97), (33, 200))
+JPEG_EDGE_SAMPLINGS = ("4:4:4", "4:2:2", "4:2:0", "4:4:0", "4:1:1", "grey")
+
+
+class _JPEGWriter:
+    """write(i, path, uint8 image) for the dataset writers: the i-th
+    file as JPEG (testing.write_jpeg) at `samplings[i]`; returns (label,
+    the coefficients written). `seconds` adds up the encoder's time over
+    the writing threads."""
+
+    def __init__(self, samplings):
+        self.samplings = samplings
+        self.seconds = 0.0
+        self._lock = threading.Lock()
+
+    def __call__(self, i, path, u8):
+        sampling, restart = self.samplings[i]
+        grey = sampling == "grey"
+        t0 = time.perf_counter()
+        coefs = testing.write_jpeg(
+            path, _grey(u8) if grey else u8, quality=DATA_JPEG_QUALITY,
+            sampling="4:2:0" if grey else sampling,
+            restart_interval=restart)
+        with self._lock:
+            self.seconds += time.perf_counter() - t0
+        return sampling + (f" rst{restart}" if restart else ""), coefs
+
+
+def _grey(u8) -> np.ndarray:
+    return np.rint(u8.astype(np.float64) @ [0.299, 0.587, 0.114]).astype(
+        np.uint8)
+
+
+def jpeg_exact(files: Dict) -> Dict:
+    """Each file of {path: (label, coefficients written)}: the C++
+    decoder's coefficients equal the encoder's, and its pixels equal
+    jpeg.reconstruct_reference of them. Returns the decoded pixels (RGB,
+    grey replicated) by path and the decode seconds per megapixel by
+    label (one file at a time, on one thread), the decoder's g++ build
+    kept out of them."""
+    t0 = time.perf_counter()
+    _build.load("jpeg_decode")
+    build_s = time.perf_counter() - t0
+    pixels, coefs, per_label = {}, {}, {}
+    for path, (label, wrote) in files.items():
+        data = path.read_bytes()
+        t0 = time.perf_counter()
+        img = jpeg.decode_jpeg(data, str(path))
+        seconds = time.perf_counter() - t0
+        got = jpeg.decode_coefficients(data, str(path))
+        require(len(got.coefficients) == len(wrote) and all(
+            np.array_equal(a, b) for a, b in zip(got.coefficients, wrote)),
+            f"{path}: the coefficients decoded differ from those written")
+        pixels[path], coefs[path] = img.samples, got
+        acc = per_label.setdefault(label, [0.0, 0.0])
+        acc[0] += seconds
+        acc[1] += img.samples.shape[0] * img.samples.shape[1] / 1e6
+
+    def plain(path):
+        c = coefs[path]
+        return jpeg.reconstruct_reference(c.coefficients, c.tables,
+                                          c.sampling, c.size)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        refs = dict(zip(files, pool.map(plain, files)))
+    plain_s = time.perf_counter() - t0
+    for path in files:
+        require(np.array_equal(refs[path], pixels[path]),
+                f"{path}: the C++ decode differs from reconstruct_reference")
+        pixels[path] = jpeg.to_rgb(jpeg.JPEGImage(pixels[path]))
+    return pixels, {
+        "seconds_per_megapixel": {k: v[0] / v[1]
+                                  for k, v in per_label.items()},
+        "megapixels": {k: v[1] for k, v in per_label.items()},
+        "build_seconds": build_s, "reconstruct_reference_seconds": plain_s}
+
+
+def jpeg_edge_files(root: Path, seed) -> Dict:
+    """Small seeded files at every edge size and sampling, restart
+    intervals 0, 1 and 2 in turn and a few SOF1 frames: the C++ decode
+    equals jpeg.decode_reference (the pure-Python decoder) on each, and
+    its coefficients the encoder's."""
+    rng = np.random.default_rng((seed, 89))
+    t0 = time.perf_counter()
+    cases = list(itertools.product(JPEG_EDGE_SAMPLINGS, JPEG_EDGE_SIZES))
+    sof1 = 0
+    for k, (sampling, (h, w)) in enumerate(cases):
+        a = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        sof = 0xC1 if k % 7 == 3 else 0xC0
+        sof1 += sof == 0xC1
+        path = root / f"edge_{k}.jpg"
+        grey = sampling == "grey"
+        wrote = testing.write_jpeg(
+            path, a[..., 0] if grey else a, quality=75,
+            sampling="4:2:0" if grey else sampling,
+            restart_interval=k % 3, sof=sof)
+        data = path.read_bytes()
+        got = jpeg.decode_jpeg(data, str(path)).samples
+        require(np.array_equal(jpeg.decode_reference(data), got),
+                f"{path} ({sampling}, {h}x{w}): the C++ decode differs "
+                "from decode_reference")
+        require(all(np.array_equal(x, y) for x, y in zip(
+            jpeg.decode_coefficients(data).coefficients, wrote)),
+            f"{path}: the coefficients decoded differ from those written")
+    return {"files": len(cases), "sof1_files": sof1,
+            "samplings": list(JPEG_EDGE_SAMPLINGS),
+            "sizes": [list(hw) for hw in JPEG_EDGE_SIZES],
+            "seconds": time.perf_counter() - t0}
+
+
+class _MemorySKU(SKU110KDataset):
+    """SKU110KDataset whose images are `pixels` ({name: uint8 RGB}),
+    not the files."""
+
+    def __init__(self, pixels, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.pixels = pixels
+
+    def load_raw(self, i):
+        entry = self.index[i]
+        return (self.pixels[entry["image_name"]].astype(np.float32) / 255.0,
+                entry["boxes"].copy())
+
+
+def phase_data_jpeg(ctx, seed, smi):
+    """The readers on JPEG files, under build/chip_smoke/data/jpeg/:
+    DATA_PHOTOS shelf photos of 2448x3264 in SKU-110K's layout (4:2:0
+    at quality 90, one with a restart interval of 4 MCUs, 4:2:2, 4:4:4
+    and grey) and the 4 serve scenes as GP-180 files (4:2:0), written
+    by testing.write_jpeg; every file's coefficients decoded equal to
+    those written and its pixels to reconstruct_reference's; 30 small
+    edge files equal to decode_reference; then SKU110KDataset(device=
+    "cuda") into evaluate_gln with the serve detector (K1) and
+    PlanogramTestSet with data.files' catalogue into evaluate_planograms
+    (K1, K2), each held to the same pass over the decoded pixels in
+    memory."""
+    t_phase = time.perf_counter()
+    root = BUILD / "data" / "jpeg"
+    shutil.rmtree(root, ignore_errors=True)
+    pg, config = ctx["pg"], ctx["pg"].config
+    files_ctx = ctx["data_files"]
+
+    t0 = time.perf_counter()
+    photos_w = _JPEGWriter(DATA_JPEG_PHOTOS)
+    sku = write_sku110k_files(root, seed, photos_w)
+    scenes_w = _JPEGWriter((("4:2:0", 0),) * len(DATA_STORES))
+    gp = write_gp_scenes(root, ctx["styles"], ctx["scenes"], scenes_w)
+    write_s = time.perf_counter() - t0
+    files = {**sku["outs"], **{p: ("scene " + lbl, c)
+                               for p, (lbl, c) in gp["outs"].items()}}
+    emit({"phase": "data.jpeg.write", "root": str(root),
+          "files": len(files), "quality": DATA_JPEG_QUALITY,
+          "bytes": sum(p.stat().st_size for p in files),
+          "encoder_seconds": photos_w.seconds + scenes_w.seconds,
+          "write_seconds": write_s})
+
+    pixels, decode = jpeg_exact(files)
+    edges = jpeg_edge_files(root, seed)
+    emit({"phase": "data.jpeg.exact", **decode, "edges": edges})
+
+    # SKU-110K: evaluate_gln on the files and on the pixels in memory
+    kw = files_ctx["canvas_kw"]
+    evalset = SKU110KDataset(sku["img_dir"], sku["ann"], flip_chance=0.0,
+                             **kw)
+    require([e["image_name"] for e in evalset.index]
+            == list(sku["boxes"]), "SKU-110K index names")
+    memset = _MemorySKU({Path(p).name: u for p, u in pixels.items()},
+                        sku["img_dir"], sku["ann"], flip_chance=0.0, **kw)
+    infer = make_variables_inference_fn(config, device="cuda")
+    state = pg.model.state_dict()
+    rows = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, data in (("files", _TimedReads(evalset)),
+                           ("memory", memset)):
+            t0 = time.perf_counter()
+            _reset_launches()
+            res, (targets, _, confs) = evaluate_gln(
+                state, data, config, thresholds=(0.5,),
+                batch_size=EVAL_BATCH, return_detections=True,
+                infer_fn=infer, device="cuda")
+            torch.cuda.synchronize()
+            rows[name] = {
+                "seconds": time.perf_counter() - t0,
+                "detections": int(sum(len(c) for c in confs)),
+                **{k: res[0.5][k] for k in ("ap", "ar_300", "f")},
+                "launches": _launches()}
+            if name == "files":
+                rows[name]["read_seconds"] = data.seconds
+                require(all(np.isfinite(c).all() for c in confs),
+                        "non-finite scores")
+        require(rows["files"]["launches"]["nms_hard"] > 0,
+                "nms_hard not launched in evaluate_gln on the JPEG files")
+        for key in ("ap", "ar_300", "f", "detections"):
+            require(rows["files"][key] == rows["memory"][key],
+                    f"evaluate_gln {key}: {rows['files'][key]} from the "
+                    f"JPEG files, {rows['memory'][key]} in memory")
+        emit({"phase": "data.jpeg.sku110k", **rows})
+        planos = planogram_pass(ctx, files_ctx["clf"], gp, pixels)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    emit({"phase": "data.jpeg.planograms", **planos})
+
+    sku_launches = rows["files"]["launches"]
+    launches = {
+        "nms_hard": (sku_launches["nms_hard"]
+                     + planos["launches"]["nms_hard"]),
+        "knn_fused": planos["launches"]["knn_fused"]}
+    emit({"phase": "data.jpeg",
+          "decode_seconds_per_megapixel": decode["seconds_per_megapixel"],
+          "encoder_seconds": photos_w.seconds + scenes_w.seconds,
+          "launches": launches, "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 # ---------------------------------------------------------------- training
@@ -2241,10 +2505,22 @@ def phase_train_gln(seed, ref):
           "eval_launches": [e["launches"] for e in evals],
           "eval_detections": [int(e["scores"].size) for e in evals],
           "best": result["best"], "losses": losses, "files": files,
+          "sample_pictures": sample_pictures(out),
           "max_memory_allocated": peak,
           "allocated_before": resident, "step_ms_by_stage": breakdown,
           "seconds": time.perf_counter() - t0})
     return sum(e["launches"]["nms_hard"] for e in evals)
+
+
+def sample_pictures(out: Path):
+    """The sample pictures a training loop drew in `out`; without
+    matplotlib (the card's machine) the loop skips them, and none may
+    be there."""
+    pngs = sorted(p.name for p in out.iterdir() if p.suffix == ".png")
+    if viz.available():
+        return pngs
+    require(not pngs, f"sample pictures drawn without matplotlib: {pngs}")
+    return "skipped (no matplotlib)"
 
 
 def train_step_breakdown(state, config, train_cfg, trainset, reps=3):
@@ -2500,7 +2776,8 @@ def phase_train_gan(seed):
           "first_step_seconds": rec.seconds[0],
           "median_step_seconds": statistics.median(rec.seconds[1:]),
           "step_seconds": rec.seconds, "losses": rec.metrics,
-          "files": files, "max_memory_allocated": peak,
+          "files": files, "sample_pictures": sample_pictures(out),
+          "max_memory_allocated": peak,
           "seconds": time.perf_counter() - t0})
     return result["state"]
 
@@ -3419,6 +3696,7 @@ def main(argv=None) -> int:
     phase_data_perspective(ctx, args.seed)
     ref = reference_gln_checkpoint(args.seed)
     data_launches = phase_data_files(ctx, args.seed, ref, smi)
+    jpeg_launches = phase_data_jpeg(ctx, args.seed, smi)
     # the parallel phases' detector (its head calibrated), embedder and
     # scenes, on the host: the phases between keep the card as they had it
     par = {"gln_state": {k: v.cpu() for k, v in
@@ -3454,13 +3732,16 @@ def main(argv=None) -> int:
     rows = {"nms_hard": dict(nms_serve, launches=launches["nms_hard"],
                              train_launches=train_launches,
                              parallel_launches=parallel["nms_hard"],
-                             data_files_launches=data_launches["nms_hard"]),
+                             data_files_launches=data_launches["nms_hard"],
+                             data_jpeg_launches=jpeg_launches["nms_hard"]),
             "knn_fused": dict(knn_mac, launches=mac_launches["knn_fused"],
                               d1024=dict(d1024,
                                          launches=launches["knn_fused"]),
                               dihe_train_launches=dihe_launches,
                               parallel_launches=parallel["knn_fused"],
                               data_files_launches=data_launches[
+                                  "knn_fused"],
+                              data_jpeg_launches=jpeg_launches[
                                   "knn_fused"]),
             "soft_nms": dict(soft_serve,
                              launches=soft_launches["soft_nms"]),
@@ -3478,9 +3759,10 @@ def main(argv=None) -> int:
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     extra = {"nms_hard": ("train_launches", "parallel_launches",
-                          "data_files_launches"),
+                          "data_files_launches", "data_jpeg_launches"),
              "knn_fused": ("d1024", "dihe_train_launches",
-                           "parallel_launches", "data_files_launches")}
+                           "parallel_launches", "data_files_launches",
+                           "data_jpeg_launches")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],
          "replaces": replaces[name][1],

@@ -4,14 +4,14 @@
 Each `csrc/<name>.cu` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes); each `csrc/<name>.cpp` (the native graph matcher, the PNG
-row unfilter, the record cache) compiles with the host compiler,
-`g++ -O3 -shared -fPIC -std=c++17`. Libraries
-go into `build/cvpce_tpu_torch/` at the repository root (listed in
-.gitignore; `CVPCE_TORCH_BUILD_DIR` overrides it), named by a hash of
-the source and the flags, so a library is rebuilt only when either
-changes. Pointers and the stream pass as `ctypes.c_void_p`; every
-C launch entry point returns `cudaGetLastError()`, and the op modules
-raise on a non-zero code with the library's `*_error_string`.
+row unfilter, the JPEG decoder, the record cache) compiles with the
+host compiler, `g++ -O3 -shared -fPIC -std=c++17`. Libraries go into
+`build/cvpce_tpu_torch/` at the repository root (listed in .gitignore;
+`CVPCE_TORCH_BUILD_DIR` overrides it), named by a hash of the source
+and the flags, so a library is rebuilt only when either changes.
+Pointers and the stream pass as `ctypes.c_void_p`; every C launch entry
+point returns `cudaGetLastError()`, and the op modules raise on a
+non-zero code with the library's `*_error_string`.
 
 Nothing here runs at import time: the first call of `load(name)` builds.
 """
@@ -127,8 +127,8 @@ def build_all() -> Dict[str, Dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `name` (a kernel, or one of the host
-    sources: `graph_match`, `png_unfilter`, `record_cache`), built on
-    first use."""
+    sources: `graph_match`, `png_unfilter`, `jpeg_decode`,
+    `record_cache`), built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
         with _LOCK:

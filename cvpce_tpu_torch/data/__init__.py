@@ -1,6 +1,6 @@
-"""Host-side data: the dataset readers on the port's PNG decoder, image
-transforms, loaders, the record cache and synthetic planogram scenes;
-the names of cvpce_tpu/data/__init__.py."""
+"""Host-side data: the dataset readers on the port's PNG and JPEG
+decoders, image transforms, loaders, the record cache and synthetic
+planogram scenes; the names of cvpce_tpu/data/__init__.py."""
 
 from . import defaults, transforms  # noqa: F401
 from .grocery import (  # noqa: F401

@@ -1,6 +1,7 @@
 """Minimal COCO detection dataset (a pure-JSON reader); counterpart of
 cvpce_tpu/data/coco.py: the image index, xywh -> xyxy boxes and the
-category names. Images come from the port's PNG decoder (data/png.py).
+category names. Images come from the port's PNG and JPEG decoders
+(transforms.decode_image).
 """
 from __future__ import annotations
 

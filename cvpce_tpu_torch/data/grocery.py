@@ -5,10 +5,10 @@ set; counterpart of cvpce_tpu/data/grocery.py.
 The same directory walk, skip/only regexes, TrainingFiles.txt index,
 annotation names, random crops for the generator (>= 0.8 scale, drawn
 from `self.rng` in the JAX package's order) and white-background or
-alpha masks. Images come from the port's PNG decoder (data/png.py);
-GroceryProductsTestSet keeps the `.jpg` names of the dataset's layout,
-and the decoder goes by the file's signature. Tensorised images are
-f32 CPU tensors (transforms.aspect_resize_pad), the rest numpy.
+alpha masks. Images come from the port's PNG and JPEG decoders
+(transforms.decode_image), which go by the file's signature, not its
+name. Tensorised images are f32 CPU tensors
+(transforms.aspect_resize_pad), the rest numpy.
 """
 from __future__ import annotations
 

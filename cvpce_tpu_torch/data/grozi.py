@@ -1,6 +1,6 @@
 """GroZi-120 datasets: the inVitro web-image train set and the
 video-frame test set; counterpart of cvpce_tpu/data/grozi.py. Images
-come from the port's PNG decoder (data/png.py)."""
+come from the port's PNG and JPEG decoders (transforms.decode_image)."""
 from __future__ import annotations
 
 import csv

@@ -19,11 +19,11 @@ at 1, 2, 4 and 8 bits, with tRNS. `to_rgb` gives PIL's
 there is none), byte for byte.
 
 Refused: Adam7 interlacing and 16-bit samples raise NotImplementedError
-naming the file, as do JPEG, GIF, BMP, TIFF and WebP files, which PIL
-and cv2 read and the port does not. The type is deliberately not an
-OSError: the SKU-110K reader replaces an image that raises OSError with
-item 0. A truncated or corrupt PNG raises OSError, as PIL does. The
-format is taken from the file's signature, never its extension.
+naming the file. The type is deliberately not an OSError: the SKU-110K
+reader replaces an image that raises OSError with item 0. A truncated or
+corrupt PNG raises OSError, as PIL does. Which decoder a file goes to is
+taken from its signature, never its extension, in one place:
+`transforms.decode_image`.
 """
 from __future__ import annotations
 
@@ -41,9 +41,6 @@ SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (samples a pixel, bit depths the specification allows)
 COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
                3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
-_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF87a", "GIF"),
-                  (b"GIF89a", "GIF"), (b"BM", "BMP"),
-                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
 
 
 @dataclasses.dataclass
@@ -132,22 +129,10 @@ def _unpack(rows: np.ndarray, width: int, channels: int,
     return vals.reshape(h, rows.shape[1] * per_byte)[:, :width, None]
 
 
-def _refuse_other_format(data: bytes, name: str) -> None:
-    fmt = next((f for sig, f in _OTHER_FORMATS if data.startswith(sig)),
-               None)
-    if fmt is None and data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        fmt = "WebP"
-    if fmt is not None:
-        raise NotImplementedError(
-            f"{name}: {fmt} file; the port decodes PNG only (a JPEG "
-            "decoder is ROADMAP.md Queue 1 item 6c)")
-    raise OSError(f"cannot identify image file {name}")
-
-
 def decode_png(data: bytes, name: str = "<bytes>") -> PNGImage:
     """Decode PNG bytes; `name` goes into every error."""
     if not data.startswith(SIGNATURE):
-        _refuse_other_format(data, name)
+        raise OSError(f"{name}: not a PNG file")
     pos = len(SIGNATURE)
     header = palette = trns = None
     idat = []

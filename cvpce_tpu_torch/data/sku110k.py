@@ -4,9 +4,11 @@ counterpart of cvpce_tpu/data/sku110k.py.
 The same index (malformed rows and skip-listed names left out), the same
 50% horizontal flip drawn from `self.rng` (so both packages draw the
 same numbers from the same seed), the same corrupt-image fallback to
-item 0 on an OSError. Images are decoded by the port's PNG decoder
-(data/png.py): a JPEG raises NotImplementedError, which is not an
-OSError and so is never replaced by item 0. `pad_boxes` buckets box
+item 0 on an OSError (a truncated or corrupt file). Images are decoded
+by the port's PNG and JPEG decoders (transforms.decode_image); a JPEG
+feature they refuse (progressive, CMYK, ...) raises
+NotImplementedError, which is not an OSError and so is never replaced
+by item 0. `pad_boxes` buckets box
 counts and `collate_detection` stacks items into one fixed-shape batch,
 so the train step sees static shapes. Gaussian heatmap targets are
 rendered by the train step (train/gln.py:render_heatmap_targets).

@@ -4,8 +4,9 @@ Bilinear resizing follows OpenCV's INTER_LINEAR (half-pixel centres,
 edge clamping, no antialiasing), which `F.interpolate(mode="bilinear",
 align_corners=False)` computes. Images are HWC float32 in [0, 1], numpy
 arrays or tensors; results are tensors on `device` (the input's device
-by default). `load_image` / `load_image_rgba` decode with the port's
-PNG decoder (data/png.py) into numpy. `gaussian_blur`,
+by default). `load_image` / `load_image_rgba` decode PNG (data/png.py)
+and JPEG (data/jpeg.py) with the port's own decoders into numpy, the
+format taken from the file's signature (`decode_image`). `gaussian_blur`,
 `get_perspective_transform`, `warp_perspective`, `sobel3` and
 `build_white_background_mask` are host numpy, like the cv2 calls they
 replace, and follow cv2's arithmetic (OpenCV 5's, the version the tests
@@ -19,24 +20,62 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import png
+from . import jpeg, png
 
 CLASSIFICATION_IMAGE_SIZE = 256
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+# signatures of the formats PIL and cv2 read and the port does not
+_REFUSED_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
+                    (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+
+
+def decode_image(data: bytes, name: str = "<bytes>",
+                 alpha: bool = False) -> np.ndarray:
+    """Decode image bytes by their signature, never the name's extension
+    (as PIL does): PNG goes to data/png.py, JPEG to data/jpeg.py. Returns
+    uint8 (H, W, 3), PIL's convert("RGB"), or with `alpha` (H, W, 4),
+    cv2's IMREAD_UNCHANGED read as the JAX package turns it into RGBA.
+    GIF, BMP, TIFF and WebP raise NotImplementedError naming the file
+    (deliberately not an OSError: the SKU-110K reader replaces an image
+    that raises OSError with item 0); anything else raises OSError."""
+    if data.startswith(png.SIGNATURE):
+        img = png.decode_png(data, name)
+        return png.to_rgba(img) if alpha else png.to_rgb(img)
+    if data.startswith(jpeg.SIGNATURE):
+        img = jpeg.decode_jpeg(data, name)
+        return jpeg.to_rgba(img) if alpha else jpeg.to_rgb(img)
+    fmt = next((f for sig, f in _REFUSED_FORMATS if data.startswith(sig)),
+               None)
+    if fmt is None and data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        fmt = "WebP"
+    if fmt is not None:
+        raise NotImplementedError(
+            f"{name}: {fmt} file; the port decodes PNG and JPEG only")
+    raise OSError(f"cannot identify image file {name}")
+
+
+def _read(path, alpha: bool) -> np.ndarray:
+    with open(path, "rb") as f:
+        data = f.read()
+    return np.asarray(decode_image(data, str(path), alpha),
+                      np.float32) / 255.0
+
+
 def load_image(path) -> np.ndarray:
     """Decode an image file to HWC float32 RGB in [0, 1] (PIL's
-    convert("RGB") / 255). PNG only: other formats raise (data/png.py)."""
-    return np.asarray(png.to_rgb(png.read_png(path)), np.float32) / 255.0
+    convert("RGB") / 255). PNG and JPEG; other formats raise
+    (`decode_image`)."""
+    return _read(path, alpha=False)
 
 
 def load_image_rgba(path) -> np.ndarray:
     """Decode keeping alpha, HWC float32 RGBA in [0, 1] (cv2's
     IMREAD_UNCHANGED read as the JAX package turns it into RGBA; the
-    internal trainset's BGRA PNGs)."""
-    return np.asarray(png.to_rgba(png.read_png(path)), np.float32) / 255.0
+    internal trainset's BGRA PNGs; alpha 255 for JPEG)."""
+    return _read(path, alpha=True)
 
 
 def as_tensor(img, device=None) -> torch.Tensor:

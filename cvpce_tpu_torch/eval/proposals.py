@@ -6,8 +6,9 @@ runs the hard-NMS kernel (K1) on the card; the matcher of ops/metrics.py
 runs on the same device. With `mesh=` (parallel/mesh.py) every rank is
 given the same batch, runs the forward and the postprocess on its own
 slice of it and gathers the others' (`shard_inference`), so every rank
-returns the whole batch's detections and the same metrics. The P/R/F1
-plots wait for utils/viz.py.
+returns the whole batch's detections and the same metrics. `plot_out`
+draws the P/R/F1 curves with utils/viz.py (matplotlib, which the card's
+machine lacks).
 """
 from __future__ import annotations
 
@@ -153,11 +154,9 @@ def evaluate_gln(state_dict: Dict, dataset, config: GLNConfig,
     the port's GLN (make_variables_inference_fn, shared across
     calls). `mesh` (without an infer_fn): every batch is shared out over
     the ranks, `batch_size` a multiple of their count; every rank
-    returns the same metrics."""
-    if plot_out:
-        raise NotImplementedError(
-            "plot_out needs utils/viz.py (matplotlib), which is not "
-            "ported yet (ROADMAP.md Queue 1)")
+    returns the same metrics. `plot_out` ("x.png"): the P/R/F1 curves
+    of each IoU threshold t into "x_iou{t}.png" (rank 0 alone under a
+    mesh; matplotlib needed)."""
     dev = resolve_device(device)
     if infer_fn is None and mesh is not None:
         assert batch_size % mesh.size == 0, (
@@ -193,6 +192,16 @@ def evaluate_gln(state_dict: Dict, dataset, config: GLNConfig,
 
     res = M.calculate_metrics(targets, predictions, confidences,
                               iou_thresholds=thresholds, device=dev)
+    if plot_out and (mesh is None or mesh.rank == 0):
+        # P/R/F1-vs-recall curves per threshold (the reference's `plots`
+        # flag, cvpce/proposals_eval.py + metrics.plot_prfc)
+        from ..utils.viz import plot_prfc
+
+        for t, d in res.items():
+            raw = d["raw"]
+            plot_prfc(raw["p"], raw["r"], raw["f"], raw["c"],
+                      plot_out.replace(".png", f"_iou{t}.png"),
+                      title=f"IoU {t}")
     if return_detections:
         return res, (targets, predictions, confidences)
     return res

@@ -632,3 +632,272 @@ def write_png(path, array: np.ndarray, filters=None, palette=None,
                _png_chunk(b"IEND", b"")]
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n" + b"".join(chunks))
+
+
+# ----------------------------------------------------------- JPEG files
+
+# (h, v) of the luma component a sampling name gives; chroma is 1 x 1
+JPEG_SAMPLINGS = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2),
+                  "4:4:0": (1, 2), "4:1:1": (4, 1)}
+# JPEG Annex K.1's quantisation tables (natural order)
+JPEG_LUMA_QUANT = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+JPEG_CHROMA_QUANT = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+    + [99] * 32)
+# JPEG Annex K.3's Huffman tables: (16 code counts, symbols), DC and AC
+# of luma, then of chroma
+_STD_AC_LUMA = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a43444546474849"
+    "4a535455565758595a636465666768696a737475767778797a83848586878889"
+    "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
+    "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+    "f9fa")
+_STD_AC_CHROMA = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+    "494a535455565758595a636465666768696a737475767778797a828384858687"
+    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+    "f9fa")
+JPEG_HUFFMAN = (
+    (bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (bytes([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d]), _STD_AC_LUMA),
+    (bytes([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (bytes([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77]), _STD_AC_CHROMA))
+
+
+def jpeg_quant_tables(quality: int, baseline: bool = True):
+    """IJG's jpeg_set_quality scaling of the Annex K tables: (luma,
+    chroma), each (8, 8); entries capped at 255 when `baseline`."""
+    quality = min(max(int(quality), 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    out = []
+    for base in (JPEG_LUMA_QUANT, JPEG_CHROMA_QUANT):
+        t = np.clip((base * scale + 50) // 100, 1, 255 if baseline else 32767)
+        out.append(t.reshape(8, 8).astype(np.int64))
+    return out
+
+
+def _huffman_lookup(counts: bytes, symbols: bytes):
+    """(code, length) of each symbol 0-255 under a canonical table."""
+    code_of = np.zeros(256, np.int64)
+    len_of = np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            code_of[symbols[k]], len_of[symbols[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _dct_matrix() -> np.ndarray:
+    x = np.arange(8)
+    c = np.cos((2 * x[None, :] + 1) * x[:, None] * np.pi / 16) / 2
+    c[0] /= np.sqrt(2)
+    return c
+
+
+def _magnitude(v: np.ndarray):
+    """JPEG's size category of each value and its extra bits."""
+    size = np.searchsorted(1 << np.arange(16), np.abs(v), side="right")
+    extra = np.where(v < 0, v + (1 << size) - 1, v)
+    return size.astype(np.int64), extra.astype(np.int64)
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    import struct
+
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def write_jpeg(path, array: np.ndarray, quality: int = 90,
+               sampling: str = "4:2:0", restart_interval: int = 0,
+               sof: int = 0xC0):
+    """Write `array` as a Huffman-coded sequential JPEG (a helper of the
+    tests and the smoke run, not part of the data API) and return the
+    quantised coefficients it wrote: one (blocks down, blocks across, 8,
+    8) int16 array a component, natural order.
+
+    uint8 (H, W) or (H, W, 1) is grey, (H, W, 3) RGB, converted to YCbCr
+    with JFIF's equations. `sampling` is a name of JPEG_SAMPLINGS (the
+    luma factors; chroma is 1 x 1; grey ignores it), the tables those of
+    Annex K at IJG's `quality` scaling, `restart_interval` the MCUs
+    between RST markers (0: none). `sof` 0xC1 writes an extended
+    sequential frame with 16-bit quantisation tables. Vectorised numpy
+    with no Python loop over symbols or blocks: a 2448 x 3264 photo
+    takes seconds."""
+    import struct
+
+    from .data.jpeg import ZIGZAG
+
+    a = np.asarray(array, np.uint8)
+    if a.ndim == 3 and a.shape[2] == 1:
+        a = a[..., 0]
+    height, width = a.shape[:2]
+    grey = a.ndim == 2
+    hmax, vmax = (1, 1) if grey else JPEG_SAMPLINGS[sampling]
+    luma_q, chroma_q = jpeg_quant_tables(quality, baseline=sof == 0xC0)
+    if grey:
+        ph, pw = -(-height // 8) * 8, -(-width // 8) * 8
+        planes = [np.pad(a, ((0, ph - height), (0, pw - width)),
+                         mode="edge").astype(np.float64)]
+        factors = [(1, 1)]
+    else:
+        mh, mw = 8 * vmax, 8 * hmax
+        ph, pw = -(-height // mh) * mh, -(-width // mw) * mw
+        rgb = np.pad(a, ((0, ph - height), (0, pw - width), (0, 0)),
+                     mode="edge").astype(np.float64)
+        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+        ycc = [0.299 * r + 0.587 * g + 0.114 * b,
+               -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+               0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+        ycc = [np.clip(np.round(p), 0, 255) for p in ycc]
+        planes = [ycc[0]] + [p.reshape(ph // vmax, vmax, pw // hmax,
+                                       hmax).mean((1, 3)) for p in ycc[1:]]
+        factors = [(hmax, vmax), (1, 1), (1, 1)]
+    dct = _dct_matrix()
+    coefs = []
+    for i, p in enumerate(planes):
+        bh, bw = p.shape[0] // 8, p.shape[1] // 8
+        blocks = (p - 128).reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        f = dct @ blocks @ dct.T
+        q = luma_q if i == 0 else chroma_q
+        coefs.append(np.round(f / q).astype(np.int16))
+
+    # blocks in the scan's order: MCU by MCU, each component's h x v
+    # blocks in raster order (grey: one block an MCU)
+    order_c, order_b, mcu_of = [], [], []
+    if grey:
+        n = coefs[0].shape[0] * coefs[0].shape[1]
+        per_mcu, mcus = 1, n
+        order_c.append(np.zeros(n, np.int64))
+        order_b.append(np.arange(n))
+        pos = [np.arange(n)]
+    else:
+        my, mx = ph // (8 * vmax), pw // (8 * hmax)
+        mcus = my * mx
+        per_mcu = sum(h * v for h, v in factors)
+        pos, offset = [], 0
+        for i, (h, v) in enumerate(factors):
+            mi, by, mj, bx = np.meshgrid(np.arange(my), np.arange(v),
+                                         np.arange(mx), np.arange(h),
+                                         indexing="ij")
+            rows, cols = mi * v + by, mj * h + bx
+            order_c.append(np.full(rows.size, i))
+            order_b.append((rows * (mx * h) + cols).ravel())
+            pos.append(((mi * mx + mj) * per_mcu + offset + by * h
+                        + bx).ravel())
+            offset += h * v
+    seq = np.argsort(np.concatenate(pos), kind="stable")
+    comp = np.concatenate(order_c)[seq]
+    flat = [c.reshape(-1, 64)[:, ZIGZAG].astype(np.int64) for c in coefs]
+    zz = np.empty((len(seq), 64), np.int64)
+    blk = np.concatenate(order_b)[seq]
+    for i in range(len(flat)):
+        zz[comp == i] = flat[i][blk[comp == i]]
+    mcu = np.arange(len(seq)) // per_mcu
+    seg = mcu // restart_interval if restart_interval else np.zeros_like(mcu)
+
+    # DC differences, the predictors reset at each restart
+    diff = np.empty(len(seq), np.int64)
+    for i in range(len(flat)):
+        sel = np.nonzero(comp == i)[0]
+        dc, s = zz[sel, 0], seg[sel]
+        prev = np.concatenate([[0], dc[:-1]])
+        prev[np.concatenate([[True], s[1:] != s[:-1]])] = 0
+        diff[sel] = dc - prev
+    table = np.where(comp == 0, 0, 1)
+    lookups = [_huffman_lookup(*t) for t in JPEG_HUFFMAN]
+    dc_code = np.stack([lookups[0][0], lookups[2][0]])
+    dc_len = np.stack([lookups[0][1], lookups[2][1]])
+    ac_code = np.stack([lookups[1][0], lookups[3][0]])
+    ac_len = np.stack([lookups[1][1], lookups[3][1]])
+
+    # events: (block, slot) keys, a code + extra bits each
+    keys, vals, lens = [], [], []
+    size, extra = _magnitude(diff)
+    keys.append(np.arange(len(seq)) * 256)
+    vals.append((dc_code[table, size] << size) | extra)
+    lens.append(dc_len[table, size] + size)
+    nb, nk = np.nonzero(zz[:, 1:])
+    nk = nk + 1
+    first = np.concatenate([[True], nb[1:] != nb[:-1]])
+    prev_k = np.where(first, 0, np.concatenate([[0], nk[:-1]]))
+    run = nk - prev_k - 1
+    zrl = run // 16
+    size, extra = _magnitude(zz[nb, nk])
+    sym = ((run % 16) << 4) | size
+    t = table[nb]
+    keys.append(nb * 256 + 3 * nk + 3)
+    vals.append((ac_code[t, sym] << size) | extra)
+    lens.append(ac_len[t, sym] + size)
+    for j in range(3):  # at most 3 runs of 16 zeros before a value
+        w = np.nonzero(zrl > j)[0]
+        keys.append(nb[w] * 256 + 3 * nk[w] + j)
+        vals.append(ac_code[t[w], 0xF0])
+        lens.append(ac_len[t[w], 0xF0])
+    last = np.zeros(len(seq), np.int64)
+    last[nb] = nk  # np.nonzero is row-major: the last write is the last k
+    eob = np.nonzero(last < 63)[0]
+    keys.append(eob * 256 + 200)
+    vals.append(ac_code[table[eob], 0])
+    lens.append(ac_len[table[eob], 0])
+    keys, vals, lens = (np.concatenate(x) for x in (keys, vals, lens))
+    # each restart segment ends on a byte boundary, padded with 1 bits
+    ev_seg = seg[keys // 256]
+    nseg = int(seg[-1]) + 1
+    seg_bits = np.bincount(ev_seg, weights=lens, minlength=nseg).astype(
+        np.int64)
+    pad = (-seg_bits) % 8
+    ends = np.searchsorted(seg, np.arange(nseg), side="right") - 1
+    keys = np.concatenate([keys, ends * 256 + 255])
+    vals = np.concatenate([vals, (1 << pad) - 1])
+    lens = np.concatenate([lens, pad])
+    order = np.argsort(keys, kind="stable")
+    vals, lens = vals[order], lens[order]
+    ev = np.repeat(np.arange(len(vals)), lens)
+    start = np.cumsum(lens) - lens
+    shift = lens[ev] - 1 - (np.arange(len(ev)) - start[ev])
+    scan = np.packbits(((vals[ev] >> shift) & 1).astype(np.uint8))
+    # stuff a 0x00 after each 0xFF, then RSTn between the segments
+    bounds = np.cumsum((seg_bits + pad) // 8)[:-1]
+    ff = np.nonzero(scan == 0xFF)[0] + 1
+    rst = 0xD0 + np.arange(len(bounds)) % 8
+    scan = np.insert(scan, np.concatenate([ff, bounds, bounds]),
+                     np.concatenate([np.zeros(len(ff), np.int64),
+                                     np.full(len(bounds), 0xFF),
+                                     rst]).astype(np.uint8))
+
+    sixteen = sof != 0xC0
+    out = [b"\xff\xd8",
+           _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for i, q in enumerate([luma_q] if grey else [luma_q, chroma_q]):
+        zq = q.reshape(64)[ZIGZAG]
+        body = (bytes([0x10 | i]) + zq.astype(">u2").tobytes() if sixteen
+                else bytes([i]) + zq.astype(np.uint8).tobytes())
+        out.append(_segment(0xDB, body))
+    frame = struct.pack(">BHHB", 8, height, width, len(planes))
+    for i, (h, v) in enumerate(factors):
+        frame += bytes([i + 1, (h << 4) | v, min(i, 1)])
+    out.append(_segment(sof, frame))
+    for i, (counts, symbols) in enumerate(JPEG_HUFFMAN[:2 if grey else 4]):
+        index = ((i % 2) << 4) | (i // 2)
+        out.append(_segment(0xC4, bytes([index]) + counts + symbols))
+    if restart_interval:
+        out.append(_segment(0xDD, struct.pack(">H", restart_interval)))
+    scan_head = bytes([len(planes)])
+    for i in range(len(planes)):
+        scan_head += bytes([i + 1, 0x11 * min(i, 1)])
+    out += [_segment(0xDA, scan_head + b"\x00\x3f\x00"), scan.tobytes(),
+            b"\xff\xd9"]
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
+    return coefs

@@ -8,8 +8,15 @@ rotating checkpoints every `checkpoint_interval` steps and at the end of
 every epoch, an eval every `eval_interval` epochs and on the final one
 keeping the best model, resume. The GLN loop also dumps per-epoch loss
 stats (deleting the one two epochs back) and guards against exploded
-losses (> 5000). The checkpoint-time sample pictures of the JAX loops
-(utils/viz.py, matplotlib) are left out.
+losses (> 5000). At each checkpoint the loops draw sample pictures
+with utils/viz.py as the JAX loops do: the GLN loop its detections on
+`dataset[0]` (`{tag}_gt_05.png`) and its Gaussian heatmap
+(`{tag}_gaussians.png`), the GAN loop the generator's input beside its
+output (`{tag}.png`); the DIHE loop draws none, as JAX's draws none. A
+failing render prints and training goes on. Where matplotlib is not
+installed (the card's machine), every render is skipped before its
+inference, with one line printed the first time, so the run spends no
+kernel launch on a picture it cannot save.
 
 Data parallelism (`use_mesh` inside a process group of several ranks,
 parallel/multihost.py): each rank loads its own shard of the dataset
@@ -37,7 +44,7 @@ import torch.distributed as dist
 from ..cli.common import load_gln_state_dict
 from ..data.loader import PrefetchLoader
 from ..data.sku110k import collate_detection
-from ..data.transforms import scale_to_tanh
+from ..data.transforms import as_tensor, scale_to_tanh
 from ..eval.classification import eval_dihe
 from ..eval.proposals import evaluate_gln, make_variables_inference_fn
 from ..models.embedders import EmbedFn, MACVGG
@@ -45,7 +52,7 @@ from ..models.gln import GLNConfig
 from ..parallel import (data_parallel_mesh, make_dp_train_step,
                         put_replicated)
 from ..parallel.multihost import host_shard_info
-from ..utils import resolve_device
+from ..utils import resolve_device, viz
 from . import gln as gln_train
 from .checkpoint import BestKeeper, CheckpointManager
 from .dihe import (DIHETrainConfig, GANPretrainConfig, hierarchy_similarity,
@@ -151,9 +158,9 @@ def train_proposal_generator(
     `loader_cls`: PrefetchLoader, or any loader with its constructor;
     one with `iter_from` (data/grain_loader.py:GrainLoader) makes
     `resume=True` continue inside a partially trained epoch on the
-    exact next batch. The checkpoint-time sample pictures
-    (utils/viz.py, matplotlib) are not ported (ROADMAP.md, Queue 1
-    item 6).
+    exact next batch. At each checkpoint the detections on
+    `dataset[0]` and their heatmap are drawn into `output_path`
+    (skipped without matplotlib: module docstring).
 
     `use_mesh` in a process group of several ranks: data-parallel
     training over them (module docstring), `device` this rank's.
@@ -206,10 +213,38 @@ def train_proposal_generator(
             start_epoch, skip_batches = _resume_position(
                 meta, steps_per_epoch, loader)
 
+    # the checkpoint-time sample (proposals_training.py:91-101) is taken
+    # where JAX's loop takes it, render or not, so the dataset's rng
+    # draws stay in step with JAX's
+    sample = dataset[0] if len(dataset) else None
+    render = _SampleRender("train_proposal_generator", manager.writer)
+
     # one inference function for every epoch eval of the run: it takes
     # the weights as an argument and reloads them when the optimizer
     # has changed them in place
     infer_fn = make_variables_inference_fn(model_cfg, mesh, device=dev)
+    # the mesh's inference is collective and the writer renders alone
+    render_fn = infer_fn if mesh is None else None
+
+    def save_sample_pictures(tag: str) -> None:
+        nonlocal render_fn
+        if sample is None or not render():
+            return
+        try:
+            if render_fn is None:
+                render_fn = make_variables_inference_fn(model_cfg,
+                                                        device=dev)
+            res = render_fn(state.model.state_dict(),
+                            as_tensor(sample["image"])[None],
+                            np.asarray(sample["image_size"],
+                                       np.float32)[None])
+            keep = (res["valid"][0] & (res["scores"][0] > 0.5)).cpu()
+            viz.save_boxes(sample["image"], res["boxes"][0].cpu()[keep],
+                           path.join(output_path, f"{tag}_gt_05.png"))
+            viz.save_heatmap(res["gaussians"][0],
+                             path.join(output_path, f"{tag}_gaussians.png"))
+        except Exception as e:  # noqa: BLE001 - viz must not kill training
+            print(f"sample render failed: {e}")
 
     losses_log = {"class_loss": [], "reg_loss": [], "gauss_loss": [],
                   "batch_times": []}
@@ -259,6 +294,7 @@ def train_proposal_generator(
             iteration += 1
             epoch_step += 1
         if pending_save:
+            save_sample_pictures(f"{iteration - 1:05d}")
             manager.save_rotating(state, {
                 "epoch": epoch, "iteration": iteration - 1,
                 "epoch_step": epoch_step, "best": keeper.best})
@@ -304,6 +340,45 @@ def train_proposal_generator(
                 hyperopt_report(average_precision=stats["ap"], **{
                     k: v for k, v in stats.items() if k != "raw"})
     return {"state": state, "best": keeper.best}
+
+
+class _SampleRender:
+    """Whether a loop draws its checkpoint-time sample pictures: on the
+    checkpoint writer, where matplotlib is installed. Elsewhere each
+    render is skipped before its inference, and the writer prints one
+    line the first time."""
+
+    def __init__(self, loop: str, writer: bool):
+        self.loop, self.writer = loop, writer
+        self.on = writer and viz.available()
+        self.noted = False
+
+    def __call__(self) -> bool:
+        if not self.on and self.writer and not self.noted:
+            print(f"{self.loop}: sample pictures skipped (no matplotlib)")
+            self.noted = True
+        return self.on
+
+
+def _save_generator_sample(generator: torch.nn.Module, gen_batch,
+                           out: str) -> None:
+    """The first generator input beside the generator's output in eval
+    mode (JAX's save_gan_sample, classification_training.py:204-210);
+    a failing render prints."""
+    try:
+        dev = next(generator.parameters()).device
+        x = torch.as_tensor(np.asarray(gen_batch[:1]), dtype=torch.float32,
+                            device=dev)
+        generator.eval()
+        try:
+            with torch.no_grad():
+                fake = generator(x)[0]
+        finally:
+            generator.train()
+        src = (np.asarray(gen_batch[0])[..., :3] + 1) / 2
+        viz.save_multiple([src, (fake + 1) / 2], out)
+    except Exception as e:  # noqa: BLE001
+        print(f"gan sample render failed: {e}")
 
 
 def _discriminator_batch(discriminatorset, n: int, seed: int, stream: int,
@@ -357,6 +432,7 @@ def pretrain_gan(dataset, discriminatorset, output_path: str,
     loader = loader_cls(dataset, batch_size, collate, shuffle=True,
                         seed=seed)
     steps_per_epoch = max(len(loader), 1)
+    render = _SampleRender("pretrain_gan", manager.writer)
 
     start_epoch = 0
     iteration = 0
@@ -381,6 +457,10 @@ def pretrain_gan(dataset, discriminatorset, output_path: str,
             state, metrics = step(state, gen_batch, disc_batch)
             _log_metrics(iteration, metrics)
             if iteration % checkpoint_interval == 0:
+                if render():
+                    _save_generator_sample(
+                        state.generator, gen_batch,
+                        path.join(output_path, f"{iteration:05d}.png"))
                 manager.save_rotating(state, {"epoch": e,
                                               "iteration": iteration,
                                               "epoch_step": bstep})

@@ -551,3 +551,43 @@ def test_sku110k_canvas_on_the_card_matches_cpu(cuda, tmp_path):
         torch.testing.assert_close(got["image"].cpu(), want["image"],
                                    atol=5e-5 / 0.224, rtol=0)
         np.testing.assert_array_equal(got["boxes"], want["boxes"])
+
+
+def test_sku110k_jpeg_canvas_on_the_card_matches_cpu(cuda, tmp_path):
+    """JPEG photos (csrc/jpeg_decode.cpp built here; 4:2:0 with a restart
+    interval, 4:2:2, grey) through SKU110KDataset(device="cuda"): the
+    canvas is the CPU's within the resize bound (5e-5, / 0.224
+    normalised), and the decode equals reconstruct_reference."""
+    from cvpce_tpu_torch.data import jpeg
+    from cvpce_tpu_torch.data.sku110k import SKU110KDataset
+
+    rng = np.random.default_rng(13)
+    rows = []
+    for k, (h, w, sampling, restart) in enumerate(
+            [(300, 400, "4:2:0", 3), (410, 230, "4:2:2", 0),
+             (97, 61, "grey", 0)]):
+        arr = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        path = tmp_path / f"s{k}.jpg"
+        wrote = testing.write_jpeg(
+            path, arr[..., 0] if sampling == "grey" else arr,
+            sampling="4:2:0" if sampling == "grey" else sampling,
+            restart_interval=restart)
+        coefs = jpeg.decode_coefficients(path.read_bytes())
+        for a, b in zip(wrote, coefs.coefficients):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(
+            jpeg.read_jpeg(path).samples, jpeg.reconstruct_reference(
+                coefs.coefficients, coefs.tables, coefs.sampling,
+                coefs.size))
+        rows.append(f"s{k}.jpg,5,6,{w - 9},{h - 7},object,{w},{h}")
+    (tmp_path / "ann.csv").write_text("\n".join(rows) + "\n")
+    kw = dict(flip_chance=0.5, canvas_h=256, canvas_w=384, seed=2)
+    on_card = SKU110KDataset(str(tmp_path), str(tmp_path / "ann.csv"),
+                             device=cuda, **kw)
+    on_cpu = SKU110KDataset(str(tmp_path), str(tmp_path / "ann.csv"), **kw)
+    for i in (0, 1, 2, 1, 0):
+        got, want = on_card[i], on_cpu[i]
+        assert got["image"].device.type == "cuda"
+        torch.testing.assert_close(got["image"].cpu(), want["image"],
+                                   atol=5e-5 / 0.224, rtol=0)
+        np.testing.assert_array_equal(got["boxes"], want["boxes"])

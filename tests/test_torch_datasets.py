@@ -11,6 +11,7 @@ scaled by the ImageNet normalisation (/ 0.224) or the tanh range (x 2)
 where those follow."""
 import json
 import os
+import pathlib
 
 import numpy as np
 import pytest
@@ -116,6 +117,9 @@ def test_target_domain_crops(sku):
 
 
 def test_sku110k_refuses_jpeg_and_falls_back_on_a_broken_png(sku):
+    """A baseline JPEG reads as JAX's does; a progressive one, which the
+    port refuses, raises NotImplementedError (never item 0); a cut file
+    is an OSError in both, and item 0 comes back."""
     img_dir, ann = sku
     jpeg = os.path.join(img_dir, "b.jpg")
     Image.open(jpeg).convert("RGB").save(jpeg, format="JPEG")
@@ -123,7 +127,11 @@ def test_sku110k_refuses_jpeg_and_falls_back_on_a_broken_png(sku):
     got = sku110k.SKU110KDataset(img_dir, ann, **kw)
     want = j_sku.SKU110KDataset(img_dir, ann, **kw)
     assert want[1]["name"] == "b.jpg"  # PIL reads it
-    with pytest.raises(NotImplementedError, match="b.jpg"):
+    _same_item(got[1], want[1])
+    Image.open(jpeg).convert("RGB").save(jpeg, format="JPEG",
+                                         progressive=True)
+    assert want[1]["name"] == "b.jpg"
+    with pytest.raises(NotImplementedError, match="b.jpg.*progressive"):
         got[1]
     cut = os.path.join(img_dir, "c.jpg")
     with open(cut, "rb") as f:
@@ -132,6 +140,42 @@ def test_sku110k_refuses_jpeg_and_falls_back_on_a_broken_png(sku):
         f.write(head)
     # a truncated file is an OSError in both: item 0 comes back instead
     assert got[3]["name"] == want[3]["name"] == "a.jpg"
+
+
+def _jpeg_files(paths, rng, hw, **kw):
+    """Photo-like JPEG files (a smooth ramp plus noise) written by PIL
+    at each subsampling in turn, the last path grey."""
+    for i, p in enumerate(paths):
+        h, w = hw(i)
+        y, x = np.mgrid[:h, :w]
+        arr = ((y[..., None] * 3 + x[..., None] * 2 + np.arange(3) * 60)
+               % 256 + rng.integers(-20, 21, (h, w, 3)))
+        arr = np.clip(arr, 0, 255).astype(np.uint8)
+        img = Image.fromarray(arr if i < len(paths) - 1 else arr[..., 0])
+        img.save(p, format="JPEG", quality=int(rng.integers(70, 96)),
+                 subsampling=i % 3, **kw)
+
+
+def test_sku110k_on_jpeg_files(sku):
+    """The SKU-110K layout with real JPEG photos (4:4:4, 4:2:2, 4:2:0,
+    grey): items, flips and batches as JAX's readers give them."""
+    img_dir, ann = sku
+    names = ("a.jpg", "b.jpg", "train_882.jpg", "c.jpg")
+    sizes = {"a.jpg": (80, 100), "b.jpg": (120, 60),
+             "train_882.jpg": (50, 50), "c.jpg": (70, 90)}
+    _jpeg_files([os.path.join(img_dir, n) for n in names],
+                np.random.default_rng(9), lambda i: sizes[names[i]])
+    kw = dict(skip=defaults.SKU110K_SKIP, canvas_h=128, canvas_w=160,
+              seed=5)
+    got = sku110k.SKU110KDataset(img_dir, ann, **kw)
+    want = j_sku.SKU110KDataset(img_dir, ann, **kw)
+    for i in (0, 1, 2, 2, 0, 1):
+        _same_item(got[i], want[i])
+    np.testing.assert_array_equal(got.load_raw(1)[0], want.load_raw(1)[0])
+    batch = sku110k.collate_detection([got[0], got[1]], box_bucket=64)
+    wbatch = j_sku.collate_detection([want[0], want[1]], box_bucket=64)
+    np.testing.assert_allclose(_np(batch["images"]), wbatch["images"],
+                               atol=RESIZE_TOL / 0.224)
 
 
 # --------------------------------------------------------- Grocery Products
@@ -190,6 +234,31 @@ def test_grocery_products_index_and_crops(gp_train, from_file):
                                           index_from_file=from_file)
     assert only.paths == j_gp.GroceryProductsDataset(
         [root], only=["Drinks"], index_from_file=from_file).paths
+
+
+def test_grocery_products_on_jpeg_files(gp_train):
+    """The Grocery Products tree with every product photo a real JPEG:
+    crops, masks and the unresized images as JAX's readers give them."""
+    paths = sorted(str(p) for p in pathlib.Path(gp_train).rglob("*.jpg"))
+    _jpeg_files(paths, np.random.default_rng(10),
+                lambda i: (20 + 3 * i, 40 - 2 * i), optimize=True)
+    kw = dict(include_annotations=True, seed=8)
+    got = grocery.GroceryProductsDataset([gp_train], **kw)
+    want = j_gp.GroceryProductsDataset([gp_train], **kw)
+    assert got.paths == want.paths
+    _same_gp_items(got, want, len(got))
+    kw = dict(random_crop=False, include_masks=True)
+    got = grocery.GroceryProductsDataset([gp_train], **kw)
+    want = j_gp.GroceryProductsDataset([gp_train], **kw)
+    for i in range(len(got)):
+        np.testing.assert_allclose(_np(got[i][1]), want[i][1],
+                                   atol=2 * RESIZE_TOL)
+    raw = grocery.GroceryProductsDataset([gp_train], random_crop=False,
+                                         resize=False)
+    wraw = j_gp.GroceryProductsDataset([gp_train], random_crop=False,
+                                       resize=False)
+    for i in range(len(raw)):
+        np.testing.assert_array_equal(_np(raw[i][0]), wraw[i][0])
 
 
 def test_grocery_products_masks_and_unresized(gp_train):

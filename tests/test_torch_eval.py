@@ -232,23 +232,23 @@ def test_evaluate_gln_and_calibration_match_jax(stack):
             assert got_cal[key] == value, key
 
 
-def test_evaluate_gln_through_adapter_matches_jax(stack):
+def test_evaluate_gln_through_adapter_matches_jax(stack, tmp_path):
     def extract(w):
         return w["image"], w["boxes"]
 
     got = proposals.evaluate_gln(
         stack["state"], proposals.DetectionEvalAdapter(
             stack["windows"], extract, H, W, device="cpu"),
-        GLNConfig(canvas_h=H, canvas_w=W), batch_size=3, device="cpu")
+        GLNConfig(canvas_h=H, canvas_w=W), batch_size=3,
+        plot_out=str(tmp_path / "prfc.png"), device="cpu")
     want = j_proposals.evaluate_gln(
         stack["gln"], j_proposals.DetectionEvalAdapter(
             stack["windows"], extract, H, W),
         JGLNConfig(canvas_h=H, canvas_w=W), batch_size=1,
         infer_fn=stack["j_infer"])
     assert_metrics(got, want)
-    with pytest.raises(NotImplementedError, match="viz"):
-        proposals.evaluate_gln(stack["state"], [], GLNConfig(),
-                               plot_out="x.png", device="cpu")
+    # plot_out draws each threshold's P/R/F1 curves (utils/viz.py)
+    assert sorted(os.listdir(tmp_path)) == ["prfc_iou0.5.png"]
 
 
 def test_evaluate_detections_matches_jax(stack):

@@ -37,7 +37,8 @@ REQUIRED = {"cvpce_tpu_torch.ops.metrics", "cvpce_tpu_torch.eval",
             "cvpce_tpu_torch.ops.knn_sharded",
             "cvpce_tpu_torch.parallel.spatial",
             "cvpce_tpu_torch.utils.profiling",
-            "cvpce_tpu_torch.data.png", "cvpce_tpu_torch.data.defaults",
+            "cvpce_tpu_torch.data.png", "cvpce_tpu_torch.data.jpeg",
+            "cvpce_tpu_torch.utils.viz", "cvpce_tpu_torch.data.defaults",
             "cvpce_tpu_torch.data.grocery",
             "cvpce_tpu_torch.data.planograms",
             "cvpce_tpu_torch.data.grozi", "cvpce_tpu_torch.data.coco",

@@ -11,7 +11,7 @@ one-process discriminator batch.
   reference-layout checkpoint: the loss series within 1e-5 relative
   (tests/test_torch_train_gln.py's loop bound), the metas (but for the
   resumed rotating checkpoint's pre-eval `best`) and the keeper's AP
-  equal, rank 0's file set JAX's (less its pictures),
+  equal, rank 0's file set JAX's (its sample pictures included),
   rank 1's directory empty (rank 0 alone writes; rank 1 resumes from
   what rank 0 broadcasts);
 - train_dihe: 1 epoch of 2 steps and its eval from JAX's PRNGKey(0)
@@ -79,9 +79,10 @@ def test_gln_loop_on_two_ranks_matches_jax(run_dir):
         data, evalset, jout, model_cfg=JGLNConfig(**LOOP_CFG),
         train_cfg=jtrain.GLNTrainConfig(**LOOP_TRAIN), epochs=2,
         use_mesh=False, **loop_kw)
+    # the sample pictures too: rank 0 draws them as JAX's loop does
     jfiles = {name: open(os.path.join(jout, name)).read()
               if name.endswith(".json") else None
-              for name in os.listdir(jout) if not name.endswith(".png")}
+              for name in os.listdir(jout)}
     got = ranks.results()
 
     rank0, rank1 = got

@@ -5,9 +5,10 @@ on files written by the port's `testing.write_png` (every colour type
 and bit depth it reads, tRNS, each row filter), by PIL and by cv2, from
 seeded numpy arrays. Tolerance: none, the decoded arrays are equal.
 Then the C++ row unfilter against its numpy reference, and the
-refusals: interlaced and 16-bit PNG and other formats raise
-NotImplementedError naming the file, never an OSError; a truncated or
-corrupt PNG raises OSError."""
+refusals: interlaced and 16-bit PNG, progressive JPEG and other formats
+raise NotImplementedError naming the file, never an OSError (a baseline
+JPEG under a PNG name goes to the JPEG decoder, by its signature); a
+truncated or corrupt PNG raises OSError."""
 import struct
 import zlib
 
@@ -154,9 +155,15 @@ def test_refusals_name_the_file_and_are_not_oserrors(tmp_path):
     assert j_T.load_image_rgba(deep).max() > 1.0
     jpeg = str(tmp_path / "photo.png")  # JPEG bytes under a PNG name
     Image.fromarray(arr).save(jpeg, format="JPEG")
-    assert j_T.load_image(jpeg).shape == (9, 10, 3)
+    _same_as_jax(jpeg)  # the signature sends it to data/jpeg.py
+    progressive = str(tmp_path / "progressive.png")
+    Image.fromarray(arr).save(progressive, format="JPEG", progressive=True)
+    assert j_T.load_image(progressive).shape == (9, 10, 3)
+    bmp = str(tmp_path / "photo.bmp")
+    cv2.imwrite(bmp, arr)
+    assert j_T.load_image(bmp).shape == (9, 10, 3)
     for path, match in ((interlaced, "interlaced"), (deep, "16-bit"),
-                        (jpeg, "JPEG")):
+                        (progressive, "progressive"), (bmp, "BMP")):
         for load in (T.load_image, T.load_image_rgba):
             with pytest.raises(NotImplementedError, match=match) as err:
                 load(path)

@@ -4,8 +4,8 @@ same weights; their resume, bit for bit; the refusals and overlays.
 
 The loops are compared on what the orchestration decides: the batches
 and discriminator draws (a function of the seed, epoch and step in both),
-the iteration counters and checkpoint metas, the file sets (but for the
-JAX loops' sample pictures), the final running statistics (within 1e-3
+the iteration counters and checkpoint metas, the file sets (the GAN
+loops' sample pictures included), the final running statistics (within 1e-3
 of max(1, |value|)), the final parameters and Adam moments (per player,
 L2 relative to the reference's update and first moment, within 1e-1),
 and the epoch eval: both packages' `eval_dihe` on the same gallery and
@@ -168,8 +168,9 @@ def port_mu(module, opt):
 
 
 def same_files(jout, pout):
-    assert set(os.listdir(pout)) == {
-        f for f in os.listdir(jout) if not f.endswith(".png")}
+    """The same files (the GAN loops' sample pictures among them) and
+    the same checkpoint metas."""
+    assert set(os.listdir(pout)) == set(os.listdir(jout))
     for name in os.listdir(pout):
         if name.endswith(".meta.json"):
             with open(os.path.join(jout, name)) as a, \

@@ -320,10 +320,11 @@ def test_training_loop_matches_jax(run_dir, reference_checkpoint):
             jmeta = json.load(f)
         with open(os.path.join(pout, name + ".meta.json")) as f:
             assert json.load(f) == jmeta
-    # the JAX loop also renders sample pictures (utils/viz.py), which
-    # the port leaves out
-    assert set(os.listdir(pout)) == {
-        f for f in os.listdir(jout) if not f.endswith(".png")}
+    # both loops draw the same sample pictures (utils/viz.py)
+    assert set(os.listdir(pout)) == set(os.listdir(jout))
+    assert {f for f in os.listdir(pout) if f.endswith(".png")} == {
+        "00000_gt_05.png", "00000_gaussians.png", "00002_gt_05.png",
+        "00002_gaussians.png"}
 
 
 class ResumableLoader(PrefetchLoader):
