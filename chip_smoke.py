@@ -137,10 +137,12 @@ CUDA card; fails without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import gc
 import hashlib
+import io
 import itertools
 import json
 import math
@@ -161,18 +163,25 @@ import torch
 import torch.distributed as dist
 
 from cvpce_tpu_torch import _build, testing
+from cvpce_tpu_torch.cli import main as cli_main
 from cvpce_tpu_torch.cli.common import load_embedder, load_gln_state_dict
 from cvpce_tpu_torch.data import defaults, jpeg, png, synthetic
 from cvpce_tpu_torch.data import transforms as T
 from cvpce_tpu_torch.data.cache import CachedDetectionDataset
 from cvpce_tpu_torch.data.grain_loader import GrainLoader
-from cvpce_tpu_torch.data.grocery import GroceryProductsDataset
+from cvpce_tpu_torch.data.coco import CocoDetectionDataset
+from cvpce_tpu_torch.data.grocery import (GroceryProductsDataset,
+                                          GroceryProductsTestSet,
+                                          SimpleFolderSet)
 from cvpce_tpu_torch.data.planograms import PlanogramTestSet
 from cvpce_tpu_torch.data.sku110k import SKU110KDataset, collate_detection
 from cvpce_tpu_torch.eval import (eval_dihe, evaluate_detections,
                                   evaluate_gln, evaluate_planograms,
                                   mean_average_metrics)
-from cvpce_tpu_torch.eval.proposals import make_variables_inference_fn
+from cvpce_tpu_torch.eval.coco_protocol import (ImageDetections,
+                                                evaluate_coco_protocol)
+from cvpce_tpu_torch.eval.proposals import (DetectionEvalAdapter,
+                                            make_variables_inference_fn)
 from cvpce_tpu_torch.models.embedders import (EmbedFn, MACResNet, MACVGG,
                                               fold_bn_state_dict,
                                               fold_bn_variables)
@@ -1979,7 +1988,7 @@ def phase_data_files(ctx, seed, ref, smi):
     cached.cache.close()
     emit({"phase": "data.files.cache", **cache_row})
 
-    planos, file_clf = _data_files_planograms(ctx, gp)
+    planos, file_clf, gallery_items = _data_files_planograms(ctx, gp)
     emit({"phase": "data.files.planograms", **planos})
 
     launches = {
@@ -1999,8 +2008,11 @@ def phase_data_files(ctx, seed, ref, smi):
           "train_seconds": train["train_seconds"],
           "launches": launches, "nvidia_smi": smi,
           "seconds": time.perf_counter() - t_phase})
-    # data.jpeg reads its scenes against this catalogue
-    ctx["data_files"] = {"clf": file_clf, "canvas_kw": kw}
+    # data.jpeg reads its scenes against this catalogue; cli reads the
+    # files again, and holds its commands to library calls on the items
+    # GroceryProductsDataset gave here
+    ctx["data_files"] = {"clf": file_clf, "canvas_kw": kw, "sku": sku,
+                         "gp": gp, "gallery_items": gallery_items}
     return launches
 
 
@@ -2072,7 +2084,8 @@ def _data_files_planograms(ctx, gp):
     """The gallery read by GroceryProductsDataset, walking Training/ as
     the JAX package's eval CLI does (annotations without the extension,
     the planograms' labels), into a MACVGG Classifier with the serve
-    phase's encoder; then `planogram_pass` over the scenes."""
+    phase's encoder; then `planogram_pass` over the scenes. Returns the
+    row, the Classifier and the gallery's items by index."""
     t0 = time.perf_counter()
     gallery = GroceryProductsDataset([str(Path(gp["gp"]) / "Training")],
                                      random_crop=False,
@@ -2092,9 +2105,12 @@ def _data_files_planograms(ctx, gp):
     require(clf.annotations == gallery.annotations, "gallery annotations")
     gallery_s = time.perf_counter() - t0
     row = planogram_pass(ctx, clf, gp, gp["written"])
+    # the items as a Classifier reads them (no generator image)
+    items = {i: (emb, None, hierarchy, annotation)
+             for i, (emb, _, hierarchy, annotation) in timed.items.items()}
     return {"gallery_entries": len(clf.embedding),
             "gallery_seconds": gallery_s,
-            "gallery_read_seconds": timed.seconds, **row}, clf
+            "gallery_read_seconds": timed.seconds, **row}, clf, items
 
 
 def planogram_pass(ctx, clf, gp, pixels):
@@ -2375,6 +2391,415 @@ def phase_data_jpeg(ctx, seed, smi):
           "encoder_seconds": photos_w.seconds + scenes_w.seconds,
           "launches": launches, "nvidia_smi": smi,
           "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# --------------------------------------------------------------------- cli
+
+def _cli(argv):
+    """`cvpce-torch argv` in this process, so that the kernels' launch
+    counters see it: (stdout, host seconds ending in a synchronise,
+    launches)."""
+    out = io.StringIO()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(rc == 0, f"cvpce-torch {' '.join(map(str, argv[:2]))}: rc {rc}")
+    return out.getvalue(), seconds, _launches()
+
+
+def _library(fn):
+    """fn() with its progress lines swallowed: (result, launches)."""
+    _reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = fn()
+    torch.cuda.synchronize()
+    return res, _launches()
+
+
+def _printed_json(stdout: str) -> str:
+    """The JSON object a command printed last, after its progress
+    lines."""
+    lines = stdout.rstrip("\n").splitlines()
+    start = max(i for i, ln in enumerate(lines) if ln.startswith("{"))
+    return "\n".join(lines[start:])
+
+
+def _metrics_json(res) -> dict:
+    return {str(t): {k: float(v) for k, v in d.items() if k != "raw"}
+            for t, d in res.items()}
+
+
+def _nan_to_none(obj):
+    if isinstance(obj, dict):
+        return {k: _nan_to_none(v) for k, v in obj.items()}
+    return None if isinstance(obj, float) and obj != obj else obj
+
+
+class _TanhFolder:
+    """SimpleFolderSet items in the classifier's tanh scale."""
+
+    def __init__(self, base):
+        self.base = base
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        img, gen, c1, c2 = self.base[i]
+        return T.scale_to_tanh(img), T.scale_to_tanh(gen), c1, c2
+
+
+def _cli_files(root: Path, ctx, seed):
+    """The serve detector as the port's GLN checkpoint with its serving
+    calibration beside it (threshold and input norm, read by
+    --confidence auto), the serve embedder in train_dihe's checkpoint
+    layout, a pipeline-demo folder gallery and planogram for the first
+    scene, and a COCO `instances` JSON for the SKU-110K photos."""
+    pg, sku = ctx["pg"], ctx["data_files"]["sku"]
+    gp = ctx["data_files"]["gp"]
+    weights_dir = root / "serve_gln"
+    state = gln_train.init_train_state(
+        pg.config, gln_train.GLNTrainConfig(), seed,
+        state_dict={k: v.detach().cpu()
+                    for k, v in pg.model.state_dict().items()},
+        device="cuda")
+    CheckpointManager(str(weights_dir)).save_named(state, "checkpoint",
+                                                   {"epoch": 0})
+    del state
+    save_calibration(str(weights_dir), {
+        "threshold": pg.confidence_threshold, "input_norm": pg.input_norm})
+    embedder = root / "embedder_checkpoint"
+    torch.save({"embedder": {k: v.detach().cpu() for k, v in
+                             ctx["vgg"].state_dict().items()}, "step": 0},
+               embedder)
+
+    # pipeline-demo: scene 0, one gallery image per product named by its
+    # label, and the scene's planogram in its own coordinates
+    folder = root / "demo_gallery"
+    folder.mkdir()
+    plano = ctx["scenes"][0][1]
+    by_label = {s["label"]: i for i, s in enumerate(ctx["styles"])}
+    for label in sorted(set(plano["labels"])):
+        product = _product_path(by_label[label])
+        shutil.copyfile(Path(gp["gp"]) / "Training" / f"{product}.jpg",
+                        folder / f"{label}.png")
+    demo_plano = root / "demo_planogram.json"
+    demo_plano.write_text(json.dumps(
+        [{"label": lb, "box": [float(c) for c in b]}
+         for lb, b in zip(plano["labels"], plano["boxes"])]))
+
+    h, w = DATA_PHOTO_HW
+    images, anns = [], []
+    for k, (name, boxes) in enumerate(sorted(sku["boxes"].items())):
+        images.append({"id": k + 1, "file_name": name, "width": w,
+                       "height": h})
+        anns += [{"image_id": k + 1, "category_id": 1,
+                  "bbox": [int(x1), int(y1), int(x2 - x1), int(y2 - y1)]}
+                 for x1, y1, x2, y2 in boxes]
+    instances = root / "instances_sku110k.json"
+    instances.write_text(json.dumps({
+        "images": images, "annotations": anns,
+        "categories": [{"id": 1, "name": "object"}]}))
+    scene = Path(gp["test_dir"]) / "store1" / "images" / "store1_1.jpg"
+    return {"weights": str(weights_dir / "checkpoint"),
+            "calibration_dir": str(weights_dir), "embedder": str(embedder),
+            "folder": str(folder), "demo_plano": str(demo_plano),
+            "instances": str(instances), "scene": str(scene),
+            "photo": str(sorted(sku["written"])[0])}
+
+
+def phase_cli(ctx, seed, ref, smi):
+    """The command line (cvpce_tpu_torch/cli) at full width, called in
+    this process through `main(argv)`, on data.files' photos, catalogue
+    and scenes: each command's output held against the port's library
+    calls with the same arguments on the card (JSON text bit for bit;
+    K1 and K2 launches equal), then `gln detect` once more through
+    `python3 -m cvpce_tpu_torch.cli` in a fresh process."""
+    t_phase = time.perf_counter()
+    root = BUILD / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    sku, gp = ctx["data_files"]["sku"], ctx["data_files"]["gp"]
+    f = _cli_files(root, ctx, seed)
+    W, E = f["weights"], f["embedder"]
+    threshold = resolve_threshold("auto", f["calibration_dir"])
+    norm = resolve_input_norm(f["calibration_dir"])
+    require(calibration_dir_for_weights(W) == f["calibration_dir"]
+            and threshold == ctx["pg"].confidence_threshold
+            and norm == ctx["pg"].input_norm,
+            "--confidence auto does not read the serve calibration")
+    config = GLNConfig()
+    # misc's commands cut the candidates and detections to the canvas's
+    # stride-8 cells; at 832x1344 that is GLNConfig()'s 5120 and 1000
+    cells = (config.canvas_h // 8) * (config.canvas_w // 8)
+    misc_config = dataclasses.replace(
+        config, max_nms_candidates=min(5120, cells),
+        detections_per_img=min(1000, cells))
+    rows = {}
+
+    def held(name, seconds, launches, text, want, lib_launches):
+        require(text == want, f"{name}: the command printed\n{text[:2000]}"
+                f"\nthe library gives\n{want[:2000]}")
+        require(launches == lib_launches,
+                f"{name}: launches {launches}, the library's "
+                f"{lib_launches}")
+        rows[name] = {"seconds": seconds, "launches": launches}
+
+    # gln detect, before cuDNN is made deterministic: its output is held
+    # again against a fresh process's, which runs cuDNN's defaults
+    detect_argv = ["gln", "detect", f["photo"], "--weights", W]
+    out, s, ln = _cli(detect_argv)
+
+    def detect():
+        gen = ProposalGenerator(load_gln_state_dict(W, config), config,
+                                confidence_threshold=0.5,
+                                input_norm=norm, device="cuda")
+        res = gen.detect(T.load_image(f["photo"]))
+        keep = res["valid"] & (res["scores"] > 0.5)
+        lines = [f"{int(keep.sum())} detections over 0.5"]
+        lines += [f"  {sc:.3f} {np.round(b, 1).tolist()}" for b, sc in
+                  zip(res["boxes"][keep][:20], res["scores"][keep][:20])]
+        return "\n".join(lines) + "\n"
+    want, lib = _library(detect)
+    held("gln detect", s, ln, out, want, lib)
+    require(int(out.split()[0]) > 0, "gln detect found nothing")
+    detect_out = out
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # gln eval on the SKU-110K photos and the GP-180 scenes
+        sku_args = ["--imgs", sku["img_dir"], "--annotations", sku["ann"]]
+
+        def sku_set():
+            return SKU110KDataset(sku["img_dir"], sku["ann"],
+                                  skip=defaults.SKU110K_SKIP,
+                                  flip_chance=0.0, canvas_h=config.canvas_h,
+                                  canvas_w=config.canvas_w, device="cuda")
+
+        def gln_eval(state_dict, dataset):
+            return json.dumps(_metrics_json(evaluate_gln(
+                state_dict, dataset, config, thresholds=(0.5,),
+                batch_size=EVAL_BATCH, device="cuda")), indent=2)
+
+        out, s, ln = _cli(["gln", "eval", *sku_args, "--weights", W])
+        want, lib = _library(lambda: gln_eval(
+            load_gln_state_dict(W, config), sku_set()))
+        held("gln eval sku110k", s, ln, _printed_json(out), want, lib)
+        out, s, ln = _cli(["gln", "eval", "--dataset-type", "gp180",
+                           "--imgs", gp["test_dir"], "--annotations",
+                           gp["ann_dir"], "--weights", W])
+        want, lib = _library(lambda: gln_eval(
+            load_gln_state_dict(W, config), DetectionEvalAdapter(
+                GroceryProductsTestSet(gp["test_dir"], gp["ann_dir"]),
+                lambda it: (it[0], it[2]), config.canvas_h,
+                config.canvas_w, device="cuda")))
+        held("gln eval gp180", s, ln, _printed_json(out), want, lib)
+
+        # gln train, then gln eval on the epoch checkpoint it wrote
+        run = root / "train"
+        returned = {}
+        train = train_loops.train_proposal_generator
+
+        def keep_state(*args, **kwargs):
+            returned.update(train(*args, **kwargs))
+            return returned
+        with mock.patch.object(train_loops, "train_proposal_generator",
+                               keep_state):
+            _, s, ln = _cli(["gln", "train", *sku_args, "--out", run,
+                             "--epochs", 1, "--batch-size", TRAIN_BATCH,
+                             "--load", ref, "--tanh", "--method", "simple",
+                             "--hyperopt-params"])
+        rows["gln train"] = {"seconds": s, "launches": ln}
+        with open(run / "stats_0.json") as fh:
+            step_s = json.load(fh)["batch_times"]
+        steps = DATA_PHOTOS // TRAIN_BATCH
+        require(returned["state"].step == steps and len(step_s) == steps,
+                f"gln train took {returned['state'].step} steps")
+        require(ln["nms_hard"] >= 1, "K1 not launched in gln train's eval")
+        out, s, ln = _cli(["gln", "eval", *sku_args, "--weights",
+                           run / "epoch_0"])
+        want, lib = _library(lambda: gln_eval(
+            returned["state"].model.state_dict(), sku_set()))
+        held("gln eval epoch_0", s, ln, _printed_json(out), want, lib)
+        del returned["state"]
+        shutil.rmtree(run, ignore_errors=True)
+
+        # the pipeline commands against one library pipeline
+        t0 = time.perf_counter()
+        training = str(Path(gp["gp"]) / "Training")
+        # the catalogue's items as data.files read them through
+        # GroceryProductsDataset([training], random_crop=False,
+        # include_annotations=True), each once
+        kept = ctx["data_files"].pop("gallery_items")
+        items = [kept[i] for i in range(len(kept))]
+        del kept
+        require(len(items) == DATA_GALLERY, "gallery items kept")
+        encoder, size = load_embedder(E, device="cuda")
+        lib_clf = Classifier(encoder, size, items, device="cuda")
+        lib_pg = ProposalGenerator(load_gln_state_dict(W, config), config,
+                                   confidence_threshold=threshold,
+                                   input_norm=norm, device="cuda")
+        index = root / "index_f32.npz"
+        lib_clf.save_index(str(index))
+        fast_config = GLNConfig(compute_dtype="bfloat16")
+        encoder8, _ = load_embedder(E, int8=True, device="cuda")
+        index8 = root / "index_int8.npz"
+        Classifier(encoder8, size, items, device="cuda").save_index(
+            str(index8))
+        del items
+        library_s = time.perf_counter() - t0
+        pipe = ["--gln-weights", W, "--encoder-weights", E, "--source",
+                training, "--test-imgs", gp["test_dir"],
+                "--test-annotations", gp["ann_dir"]]
+        planos = ["eval-planograms", *pipe, "--planograms", gp["plano_dir"],
+                  "--verbose"]
+
+        def planograms(gen, clf):
+            return json.dumps(evaluate_planograms(
+                PlanogramEvaluator(gen, clf,
+                                   PlanogramComparator(device="cuda")),
+                PlanogramTestSet(gp["test_dir"], gp["ann_dir"],
+                                 gp["plano_dir"])), indent=2)
+
+        want_planos, lib = _library(lambda: planograms(lib_pg, lib_clf))
+        for name, extra in (("eval-planograms", []),
+                            ("eval-planograms --index", ["--index",
+                                                         index])):
+            out, s, ln = _cli(planos + extra)
+            held(name, s, ln, _printed_json(out), want_planos, lib)
+            require(ln["knn_fused"] > 0, f"{name}: K2 not launched")
+
+        out, s, ln = _cli(planos + ["--fast", "--index", index8])
+
+        def fast():
+            enc, _ = load_embedder(E, int8=True, device="cuda")
+            gen = ProposalGenerator(load_gln_state_dict(W, fast_config),
+                                    fast_config,
+                                    confidence_threshold=threshold,
+                                    input_norm=norm, device="cuda")
+            return planograms(gen, Classifier(enc, size, load=str(index8),
+                                              device="cuda"))
+        want, lib = _library(fast)
+        held("eval-planograms --fast", s, ln, _printed_json(out), want,
+             lib)
+
+        out, s, ln = _cli(["eval-product-detection", *pipe, "--index",
+                           index])
+
+        def product_detection():
+            per_class, overall = evaluate_detections(
+                lib_pg, lib_clf,
+                GroceryProductsTestSet(gp["test_dir"], gp["ann_dir"]),
+                thresholds=(0.5,))
+            mam = mean_average_metrics(per_class, (0.5,))
+            return json.dumps({
+                "overall": {str(t): {k: float(v) for k, v in d.items()}
+                            for t, d in overall.items()},
+                "mean": {str(t): d for t, d in mam.items()}}, indent=2)
+        want, lib = _library(product_detection)
+        held("eval-product-detection", s, ln, _printed_json(out), want,
+             lib)
+        require(ln["knn_fused"] > 0, "eval-product-detection: K2 not "
+                "launched")
+
+        # misc
+        out, s, ln = _cli(["misc", "pipeline-demo", f["scene"], "--gallery",
+                           f["folder"], "--planogram", f["demo_plano"],
+                           "--gln-weights", W, "--encoder-weights", E])
+
+        def demo():
+            clf = Classifier(encoder, size, _TanhFolder(
+                SimpleFolderSet(f["folder"])), device="cuda")
+            with open(f["demo_plano"]) as fh:
+                spec = json.load(fh)
+            plano = {"boxes": np.asarray([e["box"] for e in spec],
+                                         np.float32),
+                     "labels": [e["label"] for e in spec]}
+            gen = ProposalGenerator(load_gln_state_dict(W, misc_config),
+                                    misc_config,
+                                    confidence_threshold=threshold,
+                                    input_norm=norm, device="cuda")
+            score = PlanogramEvaluator(
+                gen, clf, PlanogramComparator(device="cuda")).evaluate(
+                    T.load_image(f["scene"]), plano)
+            return json.dumps({"compliance": float(score)})
+        want, lib = _library(demo)
+        held("misc pipeline-demo", s, ln, _printed_json(out), want, lib)
+
+        out, s, ln = _cli(["misc", "retinanet-coco-test", "--imgs",
+                           sku["img_dir"], "--annotations", f["instances"],
+                           "--weights", W])
+
+        def coco():
+            base = CocoDetectionDataset(sku["img_dir"], f["instances"])
+            adapter = DetectionEvalAdapter(
+                base, lambda it: (it[0], it[1]["boxes"]), config.canvas_h,
+                config.canvas_w, device="cuda")
+            res, (tgts, preds, confs) = evaluate_gln(
+                load_gln_state_dict(W, misc_config), adapter, misc_config,
+                thresholds=(0.5,), return_detections=True, device="cuda")
+            referee = evaluate_coco_protocol({None: [
+                ImageDetections(p, c, t)
+                for t, p, c in zip(tgts, preds, confs)]})
+            return json.dumps(_nan_to_none({
+                "reference_protocol": _metrics_json(res),
+                "coco_protocol": {k: v for k, v in referee.items()
+                                  if k != "per_threshold"}}), indent=2)
+        want, lib = _library(coco)
+        held("misc retinanet-coco-test", s, ln, _printed_json(out), want,
+             lib)
+
+        # a drawing command: matplotlib first, before any model
+        _reset_launches()
+        t0 = time.perf_counter()
+        try:
+            cli_main(["rebuild-scene", *pipe, f["scene"], "--out",
+                      str(root / "rebuilt.png")])
+            drew = True
+        except ModuleNotFoundError as e:
+            require("matplotlib" in str(e), f"rebuild-scene raised {e!r}")
+            drew = False
+        require(drew == viz.available(),
+                "rebuild-scene drew without matplotlib, or failed with it")
+        rows["rebuild-scene"] = {"seconds": time.perf_counter() - t0,
+                                 "launches": _launches(), "drew": drew}
+        require(drew or _launches()["nms_hard"] == 0,
+                "rebuild-scene ran the detector before failing")
+
+        # the module entry point in a fresh process
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cvpce_tpu_torch.cli", *detect_argv],
+            cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=600)
+        require(proc.returncode == 0 and proc.stdout == detect_out,
+                f"python3 -m cvpce_tpu_torch.cli gln detect: rc "
+                f"{proc.returncode}\n{proc.stdout[:1500]}\nin this process"
+                f"\n{detect_out[:1500]}\n{proc.stderr[-3000:]}")
+        rows["python3 -m cvpce_tpu_torch.cli gln detect"] = {
+            "seconds": time.perf_counter() - t0}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for name in ("gln detect", "gln eval sku110k", "gln eval gp180",
+                 "gln eval epoch_0", "eval-planograms", "eval-product-"
+                 "detection", "misc pipeline-demo",
+                 "misc retinanet-coco-test"):
+        require(rows[name]["launches"]["nms_hard"] > 0,
+                f"{name}: K1 not launched")
+    launches = {k: {name: r["launches"][k] for name, r in rows.items()
+                    if "launches" in r}
+                for k in ("nms_hard", "knn_fused")}
+    emit({"phase": "cli", "commands": rows,
+          "train_step_median_seconds": statistics.median(step_s[1:]),
+          "train_step_seconds": step_s,
+          "library_gallery_seconds": library_s, "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_phase})
+    shutil.rmtree(root, ignore_errors=True)
     return launches
 
 
@@ -3697,6 +4122,7 @@ def main(argv=None) -> int:
     ref = reference_gln_checkpoint(args.seed)
     data_launches = phase_data_files(ctx, args.seed, ref, smi)
     jpeg_launches = phase_data_jpeg(ctx, args.seed, smi)
+    cli_launches = phase_cli(ctx, args.seed, ref, smi)
     # the parallel phases' detector (its head calibrated), embedder and
     # scenes, on the host: the phases between keep the card as they had it
     par = {"gln_state": {k: v.cpu() for k, v in
@@ -3733,7 +4159,8 @@ def main(argv=None) -> int:
                              train_launches=train_launches,
                              parallel_launches=parallel["nms_hard"],
                              data_files_launches=data_launches["nms_hard"],
-                             data_jpeg_launches=jpeg_launches["nms_hard"]),
+                             data_jpeg_launches=jpeg_launches["nms_hard"],
+                             cli_launches=cli_launches["nms_hard"]),
             "knn_fused": dict(knn_mac, launches=mac_launches["knn_fused"],
                               d1024=dict(d1024,
                                          launches=launches["knn_fused"]),
@@ -3742,7 +4169,8 @@ def main(argv=None) -> int:
                               data_files_launches=data_launches[
                                   "knn_fused"],
                               data_jpeg_launches=jpeg_launches[
-                                  "knn_fused"]),
+                                  "knn_fused"],
+                              cli_launches=cli_launches["knn_fused"]),
             "soft_nms": dict(soft_serve,
                              launches=soft_launches["soft_nms"]),
             "pool_int8_conv": dict(pool_row, launches=pool_launches)}
@@ -3759,10 +4187,11 @@ def main(argv=None) -> int:
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     extra = {"nms_hard": ("train_launches", "parallel_launches",
-                          "data_files_launches", "data_jpeg_launches"),
+                          "data_files_launches", "data_jpeg_launches",
+                          "cli_launches"),
              "knn_fused": ("d1024", "dihe_train_launches",
                            "parallel_launches", "data_files_launches",
-                           "data_jpeg_launches")}
+                           "data_jpeg_launches", "cli_launches")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],
          "replaces": replaces[name][1],

@@ -1,12 +1,17 @@
-"""Weight loading for the detector and the embedder from reference torch
-checkpoints; counterpart of cvpce_tpu/cli/common.py (its loaders; the
-commands come later).
+"""Weight loading for the detector and the embedder, shared by the
+commands; counterpart of cvpce_tpu/cli/common.py.
 
-A checkpoint overlays a model built from its config (`_merge`): a key
-the model lacks raises KeyError and a shape mismatch ValueError, both
-naming the key, so a checkpoint of another architecture fails at load
-time. A directory is an orbax export of the JAX package, which the port
-cannot read (ROADMAP.md, Queue 1 item 7), and raises.
+A weights file is a reference torch checkpoint or one of the port's own
+training checkpoints (train/checkpoint.py: `torch.save` of a train
+state's `state_dict()`), which play the part of the JAX package's orbax
+training runs (`_load_gln_orbax`): what a run saved, a command loads.
+A reference checkpoint overlays a model built from its config
+(`_merge`): a key the model lacks raises KeyError and a shape mismatch
+ValueError, both naming the key, so a checkpoint of another
+architecture fails at load time. The port's own checkpoints load
+strictly. A file of neither layout raises ValueError naming the keys
+it holds. A directory is an orbax export of the JAX package, which the
+port cannot read (ROADMAP.md, Queue 1 item 7), and raises.
 """
 from __future__ import annotations
 
@@ -17,13 +22,19 @@ import torch
 
 from ..models.embedders import EmbedFn, MACResNet, MACVGG, fold_bn_variables
 from ..models.gln import GLN, GLNConfig
-from ..utils.torch_import import (import_gln, import_resnet50,
-                                  import_vgg16_features, load_state_dict)
+from ..utils.torch_import import (flat_state_dict, import_gln,
+                                  import_resnet50, import_vgg16_features)
 
 # reference MACVGG checkpoints hold `block1` = vgg.features[:cut] and
 # `block2` = vgg.features[cut:...], each renumbered from 0: the cut is at
 # the pool after block 4 (classification.py:36-37)
 MACVGG_BLOCK2_OFFSET = {True: 33, False: 23}
+
+# the port's training checkpoints hold a train state's parts beside its
+# step count: the GLN loop's GLNTrainState (train/gln.py) its `model`,
+# train_dihe's DIHETrainState (train/dihe.py) its `embedder`
+GLN_CHECKPOINT_PART = "model"
+DIHE_CHECKPOINT_PART = "embedder"
 
 
 def default_gln_config(fast: bool = False) -> GLNConfig:
@@ -40,21 +51,53 @@ def _refuse_directory(weights: str) -> None:
             "cannot be read by the port (ROADMAP.md, Queue 1 item 7)")
 
 
+def _read(weights: str):
+    _refuse_directory(weights)
+    return torch.load(weights, map_location="cpu", weights_only=True)
+
+
+def _train_state_part(obj, part: str) -> Optional[Dict[str, torch.Tensor]]:
+    """`obj[part]` where `obj` is one of the port's training checkpoints
+    holding `part`, else None."""
+    if isinstance(obj, dict) and "step" in obj \
+            and isinstance(obj.get(part), dict):
+        return obj[part]
+    return None
+
+
+def _unknown_layout(weights: str, obj, wanted: str) -> ValueError:
+    keys = (sorted(map(str, obj))[:12] if isinstance(obj, dict)
+            else type(obj).__name__)
+    return ValueError(f"{weights}: unrecognized checkpoint layout, not "
+                      f"{wanted}; its top-level keys are {keys}")
+
+
 def load_gln_state_dict(weights: Optional[str], config: GLNConfig,
                         generator: Optional[torch.Generator] = None
                         ) -> Dict[str, torch.Tensor]:
     """GLN state_dict for `config`: a seeded random init from `generator`
-    (seed 0 when none is given) when `weights` is None, else a reference
+    (seed 0 when none is given) when `weights` is None; else a reference
     GaussianLayerNetwork checkpoint file mapped by `import_gln` onto that
-    init and loaded strictly."""
+    init, or the port's GLN training checkpoint (`checkpoint`,
+    `epoch_<e>`: its `model`), each loaded strictly."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = GLN(config, generator=generator)
     if weights is None:
         return model.state_dict()
-    _refuse_directory(weights)
-    imported = import_gln(load_state_dict(weights))
-    model.load_state_dict(_merge(model.state_dict(), imported), strict=True)
+    obj = _read(weights)
+    own = _train_state_part(obj, GLN_CHECKPOINT_PART)
+    if own is not None:
+        model.load_state_dict(own, strict=True)
+        return model.state_dict()
+    sd = flat_state_dict(obj) if isinstance(obj, dict) else {}
+    if not any(k.startswith(("backbone.", "head.")) for k in sd):
+        raise _unknown_layout(
+            weights, obj, "a reference GaussianLayerNetwork checkpoint "
+            "(backbone.*, head.*) nor the port's GLN training checkpoint "
+            "(model, optimizer, step)")
+    model.load_state_dict(_merge(model.state_dict(), import_gln(sd)),
+                          strict=True)
     return model.state_dict()
 
 
@@ -64,9 +107,11 @@ def load_embedder(weights: Optional[str], batch_norm: bool = True,
                   device="cuda") -> Tuple[EmbedFn, int]:
     """(EmbedFn on `device`, embedding size).
 
-    `encoder='vgg16'`: MACVGG from torchvision vgg16(_bn) `features.*`
-    or a reference MACVGG checkpoint (`block1.` / `block2.` slices). Its
-    BatchNorms are folded into the convs for serving. `int8` serves the
+    `encoder='vgg16'`: MACVGG from torchvision vgg16(_bn) `features.*`,
+    a reference MACVGG checkpoint (`block1.` / `block2.` slices) or the
+    port's DIHE training checkpoint (`embedder_checkpoint`,
+    `epoch_<e>`: its `embedder`, loaded strictly). Its BatchNorms are
+    folded into the convs for serving. `int8` serves the
     folded model in bf16 with every conv but conv1_1 in static int8.
     `encoder='resnet50'`: MACResNet from torchvision resnet50 names, with
     descriptor stages c(l + 1) for l in `resnet_layers` (reference
@@ -82,9 +127,8 @@ def load_embedder(weights: Optional[str], batch_norm: bool = True,
             dtype=dtype, quant="static" if int8 else None,
             generator=generator)
         if weights is not None:
-            _refuse_directory(weights)
-            imported = import_resnet50(load_state_dict(weights), "batch",
-                                       prefix="trunk.")
+            imported = import_resnet50(flat_state_dict(_read(weights)),
+                                       "batch", prefix="trunk.")
             model.load_state_dict(_merge(model.state_dict(), imported))
         return EmbedFn(model, device=device), model.embedding_size
     if encoder != "vgg16":
@@ -96,26 +140,38 @@ def load_embedder(weights: Optional[str], batch_norm: bool = True,
     model = MACVGG(batch_norm=batch_norm, generator=generator,
                    **({} if batch_norm else served))
     if weights is not None:
-        _refuse_directory(weights)
-        sd = load_state_dict(weights)
-        if any(k.startswith("features.") for k in sd):
-            imported = import_vgg16_features(sd, batch_norm)
-        elif any(k.startswith("block1.") for k in sd):
-            offset = MACVGG_BLOCK2_OFFSET[batch_norm]
-            remapped = {}
-            for k, v in sd.items():
-                if k.startswith("block1."):
-                    remapped["features." + k[len("block1."):]] = v
-                elif k.startswith("block2."):
-                    idx, tail = k[len("block2."):].split(".", 1)
-                    remapped[f"features.{int(idx) + offset}.{tail}"] = v
-            imported = import_vgg16_features(remapped, batch_norm)
+        obj = _read(weights)
+        own = _train_state_part(obj, DIHE_CHECKPOINT_PART)
+        if own is not None:
+            model.load_state_dict(own, strict=True)
         else:
-            raise ValueError("unrecognized embedder checkpoint layout")
-        model.load_state_dict(_merge(model.state_dict(), imported))
+            model.load_state_dict(_merge(model.state_dict(),
+                                         _import_macvgg(weights, obj,
+                                                        batch_norm)))
     if batch_norm:
         model = fold_bn_variables(model, **served)
     return EmbedFn(model, device=device), model.embedding_size
+
+
+def _import_macvgg(weights: str, obj, batch_norm: bool
+                   ) -> Dict[str, torch.Tensor]:
+    sd = flat_state_dict(obj) if isinstance(obj, dict) else {}
+    if any(k.startswith("features.") for k in sd):
+        return import_vgg16_features(sd, batch_norm)
+    if any(k.startswith("block1.") for k in sd):
+        offset = MACVGG_BLOCK2_OFFSET[batch_norm]
+        remapped = {}
+        for k, v in sd.items():
+            if k.startswith("block1."):
+                remapped["features." + k[len("block1."):]] = v
+            elif k.startswith("block2."):
+                idx, tail = k[len("block2."):].split(".", 1)
+                remapped[f"features.{int(idx) + offset}.{tail}"] = v
+        return import_vgg16_features(remapped, batch_norm)
+    raise _unknown_layout(
+        weights, obj, "a torchvision vgg16 (features.*) or reference "
+        "MACVGG (block1.*, block2.*) checkpoint nor the port's DIHE "
+        "training checkpoint (embedder, ..., step)")
 
 
 def _merge(base: Dict[str, torch.Tensor], update: Dict[str, torch.Tensor]

@@ -32,7 +32,7 @@ class Classifier:
     def __init__(self, encoder_fn: Callable, embedding_size: int,
                  sample_set=None, batch_size: int = 32, k: int = 1,
                  load: Optional[str] = None, index_average: int = 1,
-                 mesh=None, device="cuda"):
+                 mesh=None, verbose: bool = False, device="cuda"):
         """encoder_fn: (B, 256, 256, 3) tanh-scale -> (B, D) embeddings.
         sample_set: items (emb_img, gen_img, hierarchy, annotation) or
         (img, img, cls, cls). index_average > 1 collapses each run of
@@ -41,7 +41,9 @@ class Classifier:
         it applies when the index is built, not when it is loaded.
         mesh: a parallel/mesh.py mesh; every rank builds or loads the
         whole index (`embedding` and `annotations` stay whole, for
-        save_index) and keeps its row block on the mesh's device."""
+        save_index) and keeps its row block on the mesh's device.
+        verbose: build_index prints the offset of every 100th batch,
+        as the JAX package's does."""
         self.device = resolve_device(device)
         self.encoder_fn = encoder_fn
         self.embedding_size = embedding_size
@@ -61,7 +63,8 @@ class Classifier:
         elif sample_set is None:
             raise ValueError("pass a sample_set to index, or load=")
         else:
-            self.embedding, self.annotations = self.build_index(sample_set)
+            self.embedding, self.annotations = self.build_index(sample_set,
+                                                                verbose)
         self.mesh = mesh
         if mesh is not None:
             padded, valid = pad_gallery(
@@ -87,7 +90,7 @@ class Classifier:
         return [sample_set[i]
                 for i in range(start, min(start + self.batch_size, n))]
 
-    def build_index(self, sample_set):
+    def build_index(self, sample_set, verbose: bool = False):
         embeddings: List[np.ndarray] = []
         annotations: List = []
         n = len(sample_set)
@@ -105,6 +108,8 @@ class Classifier:
             imgs = torch.stack([torch.as_tensor(it[0]) for it in items])
             embeddings.append(self._embed(imgs).cpu().numpy())
             annotations += [it[3] if len(it) > 3 else it[2] for it in items]
+            if verbose and (start // self.batch_size) % 100 == 0:
+                print(start)
         embedding = (np.concatenate(embeddings) if embeddings else
                      np.zeros((0, self.embedding_size), np.float32))
         f = self.index_average

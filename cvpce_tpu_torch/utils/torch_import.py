@@ -27,11 +27,17 @@ def _f32(t) -> torch.Tensor:
 
 
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A torch checkpoint file -> a flat state_dict: unwrapped from
+    """A torch checkpoint file -> a flat state_dict (`flat_state_dict`).
+    Only tensors and plain containers are unpickled."""
+    return flat_state_dict(
+        torch.load(path, map_location="cpu", weights_only=True))
+
+
+def flat_state_dict(obj) -> Dict[str, torch.Tensor]:
+    """A loaded checkpoint -> a flat state_dict: unwrapped from
     `state_dict` or `model_state_dict` (the reference nests there) and
     from `model`, with a leading `module.` (DataParallel) stripped from
-    each key. Only tensors and plain containers are unpickled."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+    each key."""
     for key in ("state_dict", "model_state_dict"):
         if isinstance(obj, dict) and key in obj:
             obj = obj[key]
