@@ -90,6 +90,18 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   evaluate_planograms (K1, K2), each equal to the same pass over the
   decoded pixels in memory; decode seconds per megapixel of each
   sampling, the encoder's seconds, launches;
+- cli: the command line (`cvpce_tpu_torch.cli.main(argv)` in this
+  process) on data.files' photos, catalogue and scenes, each command's
+  output and K1 / K2 launches held to the library calls with the same
+  arguments; `gln train`'s run directory and its serving export
+  (export_gln_serving) through `gln eval --weights <dir>`;
+- cli.dihe: the `dihe` commands over the 4096-product catalogue
+  (prebuild-index, --int8, eval from the folders, --index, --int8
+  --index), pretrain-gan -> train --gan and hyperopt on a 32-product
+  slice at batch 4, the train run's serving export (export_dihe_serving)
+  through `dihe eval --weights <dir>`, and the host-only `datasets`
+  commands, each held to the library; every drawing command fails on
+  the missing matplotlib within a second, with no launch;
 - train.parity: one GLN train step on the card and one on the CPU at
   256x384, batch 2 (tanh, simple Gaussians), from the same seeded
   reference-layout checkpoint loaded through cli/common.py and the same
@@ -137,9 +149,11 @@ CUDA card; fails without one.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import datetime
+import functools
 import gc
 import hashlib
 import io
@@ -169,12 +183,15 @@ from cvpce_tpu_torch.data import defaults, jpeg, png, synthetic
 from cvpce_tpu_torch.data import transforms as T
 from cvpce_tpu_torch.data.cache import CachedDetectionDataset
 from cvpce_tpu_torch.data.grain_loader import GrainLoader
+from cvpce_tpu_torch.data.loader import PrefetchLoader
 from cvpce_tpu_torch.data.coco import CocoDetectionDataset
 from cvpce_tpu_torch.data.grocery import (GroceryProductsDataset,
                                           GroceryProductsTestSet,
-                                          SimpleFolderSet)
-from cvpce_tpu_torch.data.planograms import PlanogramTestSet
-from cvpce_tpu_torch.data.sku110k import SKU110KDataset, collate_detection
+                                          InternalTrainSet, SimpleFolderSet)
+from cvpce_tpu_torch.data.planograms import (PlanogramTestSet,
+                                             read_tonioni_planogram)
+from cvpce_tpu_torch.data.sku110k import (SKU110KDataset, TargetDomainDataset,
+                                          collate_detection)
 from cvpce_tpu_torch.eval import (eval_dihe, evaluate_detections,
                                   evaluate_gln, evaluate_planograms,
                                   mean_average_metrics)
@@ -211,6 +228,9 @@ from cvpce_tpu_torch.pipeline.evaluator import (PlanogramComparator,
                                                 PlanogramEvaluator)
 from cvpce_tpu_torch.pipeline.planograms import Graph
 from cvpce_tpu_torch.pipeline.proposals import ProposalGenerator
+from cvpce_tpu_torch.pipeline.serving import (export_dihe_serving,
+                                              export_gln_serving,
+                                              load_serving_meta)
 from cvpce_tpu_torch.train import dihe as dihe_train
 from cvpce_tpu_torch.train import gln as gln_train
 from cvpce_tpu_torch.train.checkpoint import CheckpointManager
@@ -2381,6 +2401,8 @@ def phase_data_jpeg(ctx, seed, smi):
         torch.backends.cudnn.deterministic = deterministic
     emit({"phase": "data.jpeg.planograms", **planos})
 
+    ctx["data_jpeg"] = {"sku": {"img_dir": sku["img_dir"],
+                                "ann": sku["ann"]}}
     sku_launches = rows["files"]["launches"]
     launches = {
         "nms_hard": (sku_launches["nms_hard"]
@@ -2418,6 +2440,16 @@ def _library(fn):
         res = fn()
     torch.cuda.synchronize()
     return res, _launches()
+
+
+def _library_text(fn):
+    """fn()'s printed text and launches, its result dropped."""
+    _reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn()
+    torch.cuda.synchronize()
+    return out.getvalue(), _launches()
 
 
 def _printed_json(stdout: str) -> str:
@@ -2626,6 +2658,17 @@ def phase_cli(ctx, seed, ref, smi):
         want, lib = _library(lambda: gln_eval(
             returned["state"].model.state_dict(), sku_set()))
         held("gln eval epoch_0", s, ln, _printed_json(out), want, lib)
+        # the run directory and its serving export load as its state
+        export = root / "gln_export"
+        export_gln_serving(str(run), str(export))
+        require(load_serving_meta(str(export))
+                == CheckpointManager(str(run)).load_meta(),
+                "the export's meta is not the run's")
+        for name, weights in (("gln eval <run dir>", run),
+                              ("gln eval <serving export>", export)):
+            out, s, ln = _cli(["gln", "eval", *sku_args, "--weights",
+                               weights])
+            held(name, s, ln, _printed_json(out), want, lib)
         del returned["state"]
         shutil.rmtree(run, ignore_errors=True)
 
@@ -2640,7 +2683,12 @@ def phase_cli(ctx, seed, ref, smi):
         del kept
         require(len(items) == DATA_GALLERY, "gallery items kept")
         encoder, size = load_embedder(E, device="cuda")
-        lib_clf = Classifier(encoder, size, items, device="cuda")
+        # verbose, as `dihe prebuild-index` builds: cli.dihe holds the
+        # command's lines and index files to these
+        built = io.StringIO()
+        with contextlib.redirect_stdout(built):
+            lib_clf = Classifier(encoder, size, items, verbose=True,
+                                 device="cuda")
         lib_pg = ProposalGenerator(load_gln_state_dict(W, config), config,
                                    confidence_threshold=threshold,
                                    input_norm=norm, device="cuda")
@@ -2649,9 +2697,10 @@ def phase_cli(ctx, seed, ref, smi):
         fast_config = GLNConfig(compute_dtype="bfloat16")
         encoder8, _ = load_embedder(E, int8=True, device="cuda")
         index8 = root / "index_int8.npz"
-        Classifier(encoder8, size, items, device="cuda").save_index(
-            str(index8))
-        del items
+        built8 = io.StringIO()
+        with contextlib.redirect_stdout(built8):
+            Classifier(encoder8, size, items, verbose=True,
+                       device="cuda").save_index(str(index8))
         library_s = time.perf_counter() - t0
         pipe = ["--gln-weights", W, "--encoder-weights", E, "--source",
                 training, "--test-imgs", gp["test_dir"],
@@ -2786,8 +2835,9 @@ def phase_cli(ctx, seed, ref, smi):
     finally:
         torch.backends.cudnn.deterministic = deterministic
     for name in ("gln detect", "gln eval sku110k", "gln eval gp180",
-                 "gln eval epoch_0", "eval-planograms", "eval-product-"
-                 "detection", "misc pipeline-demo",
+                 "gln eval epoch_0", "gln eval <run dir>",
+                 "gln eval <serving export>", "eval-planograms",
+                 "eval-product-detection", "misc pipeline-demo",
                  "misc retinanet-coco-test"):
         require(rows[name]["launches"]["nms_hard"] > 0,
                 f"{name}: K1 not launched")
@@ -2798,6 +2848,415 @@ def phase_cli(ctx, seed, ref, smi):
           "train_step_median_seconds": statistics.median(step_s[1:]),
           "train_step_seconds": step_s,
           "library_gallery_seconds": library_s, "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_phase})
+    ctx["cli"] = {"root": root, "gln": W, "embedder": E, "items": items,
+                  "index": (index, built.getvalue()),
+                  "index_int8": (index8, built8.getvalue())}
+    return launches
+
+
+# ---------------------------------------------------------------- cli.dihe
+
+DIHE_CLI_ITEMS = 32  # the catalogue's products that the training commands see
+DIHE_CLI_STEP = DATA_GALLERY // DIHE_CLI_ITEMS
+
+
+def _same_checkpoint(a, b, label) -> None:
+    """Two nested checkpoint dicts with the same keys and equal entries,
+    tensors bit for bit (the command's and the library's training runs:
+    the same seeds, cuDNN deterministic, the loader on one thread)."""
+    if isinstance(b, dict):
+        require(isinstance(a, dict) and set(a) == set(b),
+                f"{label}: keys differ")
+        for k in b:
+            _same_checkpoint(a[k], b[k], f"{label}.{k}")
+    elif torch.is_tensor(b):
+        require(torch.equal(a, b), f"{label}: the tensors differ")
+    else:
+        require(a == b, f"{label}: {a} != {b}")
+
+
+def _dihe_cli_files(root: Path, gp, seed) -> Dict:
+    """A DIHE_CLI_ITEMS-product slice of the catalogue (every
+    DIHE_CLI_STEP-th product, its hierarchy kept) for the training
+    commands, a Grocery Products download renamed to food_<n>.jpg for
+    `gp fix`, and an internal trainset of RGBA products for `internal
+    iter-train`."""
+    small = root / "dihe_gallery" / "Training"
+    for p in range(0, DATA_GALLERY, DIHE_CLI_STEP):
+        product = f"{_product_path(p)}.jpg"
+        (small / product).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(Path(gp["gp"]) / "Training" / product,
+                        small / product)
+    renamed = root / "renamed"
+    for d, n in (("Food/Bakery", 5), ("Food/Dairy", 3), ("Drinks", 2)):
+        (renamed / d).mkdir(parents=True)
+        for i in range(n):
+            (renamed / d / f"food_{i + 1}.jpg").write_bytes(b"%d" % i)
+    internal = root / "internal"
+    rng = np.random.default_rng(seed + 61)
+    for code in range(8):
+        face = internal / "Shelf" / str(code % 2) / ("front", "back")[
+            code % 2 == 0 and code > 3]
+        face.mkdir(parents=True, exist_ok=True)
+        rgba = np.zeros((60, 44, 4), np.uint8)
+        rgba[2:-2, 3:-3, :3] = rng.integers(0, 255, (56, 38, 3))
+        rgba[2:-2, 3:-3, 3] = 255
+        testing.write_png(face / f"{1000 + code}.png", rgba)
+    return {"small": str(small), "renamed": str(renamed),
+            "internal": str(internal)}
+
+
+def _iter_lines(n, failures) -> str:
+    """What the `iter` commands print over n items, `failures` the
+    (index, line) of those that failed."""
+    failed = dict(failures)
+    lines = []
+    for i in range(n):
+        if i in failed:
+            lines.append(failed[i])
+        if i % 100 == 0:
+            lines.append(f"{i}/{n}")
+    return "".join(line + "\n" for line in lines)
+
+
+def _fix_dry_run_lines(source: str, out: str) -> str:
+    """`gp fix --dry-run`'s lines, walked independently: each directory's
+    food_<n>.jpg files by n, the first dropped, the rest renamed 1.jpg
+    on; directories in the command's stack order."""
+    import os
+    import re
+
+    lines, stack = [], [(source, [])]
+    while stack:
+        cur, hier = stack.pop()
+        entries = list(os.scandir(cur))
+        stack += [(e.path, hier + [e.name]) for e in entries if e.is_dir()]
+        numbered = sorted((int(m.group(1)), e.path) for e in entries
+                          if (m := re.match(r"food_(\d+).jpg", e.name)))
+        # the reference's names: 1.jpg.. sorted as strings
+        names = sorted(f"{i}.jpg" for i in range(1, len(numbered)))
+        for (_, src), name in zip(numbered[1:], names):
+            lines.append(f"{src} -> {os.path.join(out, *hier, name)}")
+    return "".join(line + "\n" for line in lines) + "(dry run) done, 0 files\n"
+
+
+def phase_cli_dihe(ctx, seed, smi):
+    """The `dihe` and `datasets` command groups and the serving exports
+    (cvpce_tpu_torch/cli/{dihe,datasets}.py, pipeline/serving.py) in this
+    process on data.files' catalogue (4096 products, DIHE at 256x256),
+    scenes and photos, each held to the port's library calls with the
+    same arguments on the card (printed text and index files bit for
+    bit, K2 launches equal): prebuild-index (f32, --int8) against the
+    cli phase's library indexes; eval from the folders, --index and
+    --int8 --index; pretrain-gan and train --gan on a 32-product slice
+    at batch 4 (checkpoints equal to the library's); the
+    train run's serving export; hyperopt (2 trials); the host-only
+    datasets commands against the readers; and the drawing commands,
+    which must fail on the missing matplotlib within a second."""
+    t_phase = time.perf_counter()
+    keep = ctx.pop("cli")
+    root, E = keep["root"], keep["embedder"]
+    sku, gp = ctx["data_files"]["sku"], ctx["data_files"]["gp"]
+    training = str(Path(gp["gp"]) / "Training")
+    f = _dihe_cli_files(root, gp, seed)
+    rows = {}
+
+    def held(name, seconds, launches, text, want, lib_launches):
+        require(text == want, f"{name}: the command printed\n{text[:2000]}"
+                f"\nthe library gives\n{want[:2000]}")
+        require(launches == lib_launches,
+                f"{name}: launches {launches}, the library's "
+                f"{lib_launches}")
+        rows[name] = {"seconds": seconds, "launches": launches}
+
+    test = ["--test-imgs", gp["test_dir"], "--test-annotations",
+            gp["ann_dir"]]
+    # the discriminator's crops come from data.jpeg's photos, which
+    # decode in about half the PNGs' time (each crop decodes its photo)
+    jpeg_sku = ctx["data_jpeg"]["sku"]
+    targets = ["--imgs", jpeg_sku["img_dir"], "--annotations",
+               jpeg_sku["ann"]]
+    testset = GroceryProductsTestSet(gp["test_dir"], gp["ann_dir"])
+    encoder, size = load_embedder(E, device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # prebuild-index against the cli phase's library indexes, built
+        # from the same catalogue items with the same batch size
+        for name, extra, (lib_index, lib_text) in (
+                ("dihe prebuild-index", [], keep["index"]),
+                ("dihe prebuild-index --int8", ["--int8"],
+                 keep["index_int8"])):
+            out_path = root / f"cli_{lib_index.name}"
+            out, s, ln = _cli(["dihe", "prebuild-index", "--source",
+                               training, "--weights", E, "--out", out_path,
+                               *extra])
+            held(name, s, ln, out, lib_text + f"index with {DATA_GALLERY} "
+                 f"entries -> {out_path}\n", {k: 0 for k in ln})
+            got, want = (np.load(p, allow_pickle=True)
+                         for p in (out_path, lib_index))
+            require(sorted(got.files) == sorted(want.files), name)
+            for key in want.files:
+                require(np.array_equal(got[key], want[key]),
+                        f"{name}: {key} differs from the library's")
+
+        # eval from the folders, --index and --int8 --index
+        def lib_eval(enc, items=None, index=None):
+            return json.dumps({str(k): v for k, v in eval_dihe(
+                enc, size, items, testset, batch_size=32, k=(1, 5),
+                load_index=index, device="cuda").items()})
+
+        items = keep.pop("items")
+        base = ["dihe", "eval", "--source", training, *test, "--weights", E]
+        out, s, ln = _cli(base)
+        want, lib = _library(lambda: lib_eval(encoder, items=items))
+        held("dihe eval", s, ln, _printed_json(out), want, lib)
+        del items
+        index, index8 = keep["index"][0], keep["index_int8"][0]
+        out, s, ln = _cli(base + ["--index", index])
+        want, lib = _library(lambda: lib_eval(encoder, index=str(index)))
+        held("dihe eval --index", s, ln, _printed_json(out), want, lib)
+        out, s, ln = _cli(base + ["--int8", "--index", index8])
+        want, lib = _library(lambda: lib_eval(
+            load_embedder(E, int8=True, device="cuda")[0],
+            index=str(index8)))
+        held("dihe eval --int8 --index", s, ln, _printed_json(out), want,
+             lib)
+        for name in ("dihe eval", "dihe eval --index",
+                     "dihe eval --int8 --index"):
+            require(rows[name]["launches"]["knn_fused"] > 0,
+                    f"{name}: K2 not launched")
+
+        # pretrain-gan, then train --gan, on the catalogue slice, the
+        # loader on one thread: the gallery's random crops draw from one
+        # rng in the order the pool's threads fetch the items
+        one_thread = mock.patch.object(
+            PrefetchLoader, "__init__", functools.partialmethod(
+                PrefetchLoader.__init__, num_threads=1))
+        one_thread.start()
+        small = f["small"]
+        gan_cli, gan_lib = root / "gan_cli", root / "gan_lib"
+        out, s, ln = _cli(["dihe", "pretrain-gan", "--source", small,
+                           *targets, "--out", gan_cli, "--epochs", 1,
+                           "--batch-size", DIHE_BATCH])
+
+        def discset():
+            return TargetDomainDataset(jpeg_sku["img_dir"], jpeg_sku["ann"],
+                                       skip=defaults.SKU110K_SKIP)
+
+        def gallery(**kw):
+            return GroceryProductsDataset([small], **kw)
+        want, lib = _library_text(lambda: train_loops.pretrain_gan(
+            gallery(), discset(), str(gan_lib), epochs=1,
+            batch_size=DIHE_BATCH, device="cuda"))
+        held("dihe pretrain-gan", s, ln, out, want, lib)
+        _same_checkpoint(torch.load(gan_cli / "gan_checkpoint"),
+                         torch.load(gan_lib / "gan_checkpoint"),
+                         "gan_checkpoint")
+
+        run_cli, run_lib = root / "dihe_cli", root / "dihe_lib"
+        out, s, ln = _cli(["dihe", "train", "--source", small, *targets,
+                           *test, "--out", run_cli, "--gan", gan_cli,
+                           "--epochs", 1, "--batch-size", DIHE_BATCH])
+
+        def train():
+            data = gallery(include_annotations=True)
+            return train_loops.train_dihe(
+                data, discset(), data, GroceryProductsTestSet(
+                    gp["test_dir"], gp["ann_dir"],
+                    only=defaults.GP_TEST_VALIDATION_SET_SIZE),
+                str(run_lib), gan_state=CheckpointManager(
+                    str(gan_cli), name="gan_checkpoint").read(),
+                epochs=1, batch_size=DIHE_BATCH,
+                train_cfg=dihe_train.DIHETrainConfig(), device="cuda")
+        want, lib = _library_text(train)
+        held("dihe train --gan", s, ln, out, want, lib)
+        require("epoch 0: top-1 accuracy" in out, "dihe train: no eval")
+        for name in ("embedder_checkpoint", "epoch_0"):
+            _same_checkpoint(torch.load(run_cli / name),
+                             torch.load(run_lib / name), name)
+        one_thread.stop()
+
+        # the run directory and its serving export serve the same encoder
+        export = root / "dihe_export"
+        export_dihe_serving(str(run_cli), str(export))
+        small_eval = ["dihe", "eval", "--source", small, *test]
+        enc_run, _ = load_embedder(str(run_cli / "embedder_checkpoint"),
+                                   device="cuda")
+        want, lib = _library(lambda: json.dumps({
+            str(k): v for k, v in eval_dihe(
+                enc_run, size, gallery(random_crop=False,
+                                       include_annotations=True),
+                testset, batch_size=32, k=(1, 5),
+                device="cuda").items()}))
+        for name, weights in (("dihe eval --weights <run dir>", run_cli),
+                              ("dihe eval --weights <serving export>",
+                               export)):
+            out, s, ln = _cli(small_eval + ["--weights", weights])
+            held(name, s, ln, _printed_json(out), want, lib)
+
+        # hyperopt: 2 one-epoch trials, each trial's metric its epoch_0
+        # embedder's top-1 accuracy (the loop's epoch eval)
+        search = root / "hyperopt"
+        out, s, ln = _cli(["dihe", "hyperopt", "--source", small, *targets,
+                           *test, "--out", search, "--trials", 2,
+                           "--max-epochs", 1, "--batch-size", DIHE_BATCH])
+        rows["dihe hyperopt"] = {"seconds": s, "launches": ln}
+        result = json.loads((search / "hyperopt_result.json").read_text())
+        require(json.loads(_printed_json(out)) == result,
+                "dihe hyperopt: printed JSON is not the result file")
+        trials = json.loads((search / "search_state.json").read_text())[
+            "trials"]
+        require(len(trials) == 2, f"{len(trials)} trials")
+        data = gallery(include_annotations=True)
+        valset = GroceryProductsTestSet(
+            gp["test_dir"], gp["ann_dir"],
+            only=defaults.GP_TEST_VALIDATION_SET_SIZE)
+        for t in trials:
+            require(not t["failed"] and len(t["results"]) == 1,
+                    f"trial {t['trial_id']}: {t}")
+            model = MACVGG(batch_norm=t["config"]["batchnorm"])
+            model.load_state_dict(torch.load(
+                search / f"trial_{t['trial_id'] + 1:03d}" / "epoch_0")[
+                    "embedder"])
+            acc = eval_dihe(EmbedFn(model, device="cuda"), size, data,
+                            valset, batch_size=DIHE_BATCH, k=(1,),
+                            verbose=False, device="cuda")
+            require(t["results"][0] == acc[1],
+                    f"trial {t['trial_id']}: {t['results'][0]} vs {acc[1]}")
+        best = max(trials, key=lambda t: t["results"][0])
+        require(result == {"best_config": best["config"],
+                           "best_metric": best["results"][0]},
+                "dihe hyperopt: not the best trial")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # datasets: the host-only commands against the readers
+    for name, photos in (("datasets sku110k iter (PNG)", sku),
+                         ("datasets sku110k iter (JPEG)", jpeg_sku)):
+        out, s, ln = _cli(["datasets", "sku110k", "iter", "--imgs",
+                           photos["img_dir"], "--annotations",
+                           photos["ann"]])
+        read = io.StringIO()  # the reader's own lines (malformed rows)
+        with contextlib.redirect_stdout(read):
+            ds = SKU110KDataset(photos["img_dir"], photos["ann"],
+                                flip_chance=0.0)
+        failures = []
+        for i in range(len(ds)):
+            try:
+                ds.load_raw(i)
+            except Exception as e:  # noqa: BLE001 - what the command prints
+                failures.append((i, f"FAIL {ds.index[i]['image_name']}: "
+                                    f"{e}"))
+        held(name, s, ln, out,
+             read.getvalue() + _iter_lines(len(ds), failures),
+             {k: 0 for k in ln})
+
+    gp_test = ["--imgs", gp["test_dir"], "--annotations", gp["ann_dir"]]
+    def counted(make, key):
+        """The reader's own lines, then each top-level count."""
+        read = io.StringIO()
+        with contextlib.redirect_stdout(read):
+            counts = collections.Counter(key(make()))
+        return read.getvalue() + "".join(
+            f"{n:6d}  {c}\n" for c, n in counts.most_common())
+
+    out, s, ln = _cli(["datasets", "gp", "test-distribution", *gp_test])
+    held("datasets gp test-distribution", s, ln, out, counted(
+        lambda: GroceryProductsTestSet(gp["test_dir"], gp["ann_dir"]),
+        lambda ds: (a.split("/")[0] if "/" in a else a
+                    for e in ds.index for a in e["anns"])),
+        {k: 0 for k in ln})
+    out, s, ln = _cli(["datasets", "gp", "train-distribution", "--source",
+                       training])
+    held("datasets gp train-distribution", s, ln, out, counted(
+        lambda: GroceryProductsDataset([training], random_crop=False),
+        lambda ds: (c[0] if c else "(root)" for c in ds.categories)),
+        {k: 0 for k in ln})
+    fixed = root / "fixed"
+    out, s, ln = _cli(["datasets", "gp", "fix", "--source", f["renamed"],
+                       "--out", fixed, "--dry-run"])
+    held("datasets gp fix --dry-run", s, ln, out,
+         _fix_dry_run_lines(f["renamed"], str(fixed)), {k: 0 for k in ln})
+    require(not fixed.exists(), "gp fix --dry-run wrote files")
+    out, s, ln = _cli(["datasets", "gp", "planogram-test", "--planograms",
+                       gp["plano_dir"]])
+    lines = []
+    for p in sorted(Path(gp["plano_dir"]).glob("*.json")):
+        boxes, _, g = read_tonioni_planogram(str(p))
+        lines.append(f"{p.name}: {len(boxes)} boxes, "
+                     f"{sum(len(v) for v in g.adj.values())} edges")
+    lines.append(f"{len(lines)} parsed, 0 failed")
+    held("datasets gp planogram-test", s, ln, out,
+         "".join(ln_ + "\n" for ln_ in lines), {k: 0 for k in ln})
+    out, s, ln = _cli(["datasets", "internal", "iter-train", "--root",
+                       f["internal"]])
+    internal = InternalTrainSet(f["internal"])
+    for i in range(len(internal)):
+        internal[i]
+    held("datasets internal iter-train", s, ln, out,
+         _iter_lines(len(internal), []), {k: 0 for k in ln})
+
+    # the drawing commands fail first on the missing matplotlib
+    scene = str(Path(gp["test_dir"]) / "store1" / "images" / "store1_1.jpg")
+    drawing = [
+        ["dihe", "visualize-performance", "--index", index, "--weights", E,
+         scene],
+        ["datasets", "sku110k", "visualize", *targets, "--model",
+         keep["gln"]],
+        ["datasets", "sku110k", "visualize-discriminator-target", *targets],
+        ["datasets", "gp", "visualize-test", *gp_test],
+        ["datasets", "gp", "visualize-planoset", *gp_test, "--planograms",
+         gp["plano_dir"]],
+        ["datasets", "gp", "mask-test", scene],
+        ["datasets", "gp", "visualize-train", "--source", training],
+        ["datasets", "gp", "train-distribution", "--source", training],
+        ["datasets", "gp", "visualize", "--source", training,
+         "--test-imgs", gp["test_dir"], "--annotations", gp["ann_dir"]],
+        ["datasets", "gp", "visualize-baseline", "--imgs", gp["test_dir"]],
+        ["datasets", "grozi", "visualize-test"],
+        ["datasets", "grozi", "visualize"],
+        ["datasets", "grozi", "visualize-train"],
+        ["datasets", "internal", "visualize-train", "--root",
+         f["internal"]],
+        ["datasets", "internal", "visualize", "--root", f["internal"]],
+        ["datasets", "internal", "visualize-planoset", "--root",
+         f["internal"]],
+        ["datasets", "visualize-coco", "--imgs", sku["img_dir"]],
+    ]
+    fails = {}
+    if viz.available():
+        fails["skipped"] = "matplotlib is installed"
+    else:
+        for argv in drawing:
+            name = " ".join(a for a in argv[:3] if not a.startswith("-"))
+            _reset_launches()
+            t0 = time.perf_counter()
+            try:
+                cli_main([str(a) for a in argv
+                          + ["--out", str(root / "drawn.png")]])
+                raise AssertionError(f"{name} drew without matplotlib")
+            except ModuleNotFoundError as e:
+                require("matplotlib" in str(e), f"{name} raised {e!r}")
+            seconds = time.perf_counter() - t0
+            require(seconds < 1.0, f"{name} took {seconds:.2f} s to fail")
+            require(not any(_launches().values()),
+                    f"{name} launched a kernel before failing")
+            fails[name] = seconds
+    t0 = time.perf_counter()
+    try:
+        cli_main(["datasets", "grozi", "extract-test-images", "--root",
+                  str(root)])
+        raise AssertionError("grozi extract-test-images ran")
+    except NotImplementedError as e:
+        require("VideoCapture" in str(e), f"extract-test-images: {e!r}")
+    fails["datasets grozi extract-test-images"] = time.perf_counter() - t0
+
+    launches = {k: {name: r["launches"][k] for name, r in rows.items()}
+                for k in ("nms_hard", "knn_fused")}
+    emit({"phase": "cli.dihe", "commands": rows, "fail_fast": fails,
+          "hyperopt": result, "nvidia_smi": smi,
           "seconds": time.perf_counter() - t_phase})
     shutil.rmtree(root, ignore_errors=True)
     return launches
@@ -4123,6 +4582,7 @@ def main(argv=None) -> int:
     data_launches = phase_data_files(ctx, args.seed, ref, smi)
     jpeg_launches = phase_data_jpeg(ctx, args.seed, smi)
     cli_launches = phase_cli(ctx, args.seed, ref, smi)
+    dihe_cli_launches = phase_cli_dihe(ctx, args.seed, smi)
     # the parallel phases' detector (its head calibrated), embedder and
     # scenes, on the host: the phases between keep the card as they had it
     par = {"gln_state": {k: v.cpu() for k, v in
@@ -4170,7 +4630,9 @@ def main(argv=None) -> int:
                                   "knn_fused"],
                               data_jpeg_launches=jpeg_launches[
                                   "knn_fused"],
-                              cli_launches=cli_launches["knn_fused"]),
+                              cli_launches=cli_launches["knn_fused"],
+                              cli_dihe_launches=dihe_cli_launches[
+                                  "knn_fused"]),
             "soft_nms": dict(soft_serve,
                              launches=soft_launches["soft_nms"]),
             "pool_int8_conv": dict(pool_row, launches=pool_launches)}
@@ -4191,7 +4653,8 @@ def main(argv=None) -> int:
                           "cli_launches"),
              "knn_fused": ("d1024", "dihe_train_launches",
                            "parallel_launches", "data_files_launches",
-                           "data_jpeg_launches", "cli_launches")}
+                           "data_jpeg_launches", "cli_launches",
+                           "cli_dihe_launches")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],
          "replaces": replaces[name][1],

@@ -2,9 +2,10 @@
 cvpce_tpu/cli/__init__.py.
 
 argparse in place of click, which the card's machine lacks, with the
-JAX CLI's tree: the `gln` and `misc` groups and the top-level
-`eval-product-detection`, `eval-planograms`, `rebuild-scene` and
-`plot-planogram-eval`. Every option keeps its click name, default, nargs
+JAX CLI's whole tree: the `gln`, `dihe`, `datasets` (with its `sku110k`,
+`gp`, `grozi` and `internal` subgroups) and `misc` groups and the
+top-level `eval-product-detection`, `eval-planograms`, `rebuild-scene`
+and `plot-planogram-eval`. Every option keeps its click name, default, nargs
 and choices; click's `multiple=True` is an appending option whose
 default stands while the option is absent (`Multiple`). A usage error
 exits with code 2, as click's does, whether argparse finds it or a
@@ -13,9 +14,7 @@ command body raises `UsageError`.
 One global `--device` (default `cuda`) takes the place of the JAX
 package's `JAX_PLATFORMS`: without a card, a command raises unless it is
 given `--device cpu`; nothing falls back to the CPU. Float32 work runs
-in float32 (TF32 off), as the library is held to the JAX package. `dihe` and
-`datasets` come with the second part of ROADMAP.md's Queue 1 item 6d
-and exit 2 until then.
+in float32 (TF32 off), as the library is held to the JAX package.
 
     cvpce-torch [--device cuda|cpu] COMMAND ...
     python -m cvpce_tpu_torch.cli [--device cuda|cpu] COMMAND ...
@@ -29,12 +28,6 @@ from __future__ import annotations
 import argparse
 import os
 from typing import Callable, Optional, Sequence
-
-# the JAX CLI's groups still to port
-PENDING = ("dihe", "datasets")
-PENDING_MESSAGE = ("not ported yet: the `dihe` and `datasets` groups come "
-                   "with the second part of ROADMAP.md, Queue 1 item 6d")
-
 
 class UsageError(Exception):
     """Bad usage found inside a command (click.UsageError): the command's
@@ -77,8 +70,8 @@ def canvas_option(parser, text: str = "detector canvas (h w)") -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from . import datasets, dihe, gln, misc
     from . import eval as eval_cmds
-    from . import gln, misc
 
     parser = argparse.ArgumentParser(
         prog="cvpce-torch",
@@ -86,6 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "PyTorch and CUDA.\n\nTypical flow:\n"
                     "  gln train / gln eval   product proposal detector "
                     "(SKU-110K)\n"
+                    "  dihe pretrain-gan / dihe train   embedding "
+                    "encoder (Grocery Products)\n"
                     "  eval-planograms        end-to-end compliance "
                     "scoring",
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -95,13 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
     commands = parser.add_subparsers(dest="command", metavar="COMMAND",
                                      required=True)
     gln.register(commands)
+    dihe.register(commands)
+    datasets.register(commands)
     misc.register(commands)
     eval_cmds.register(commands)
-    for name in PENDING:
-        # not listed in --help; whatever follows is refused with exit 2
-        stub = commands.add_parser(name, add_help=False)
-        stub.add_argument("rest", nargs=argparse.REMAINDER)
-        stub.set_defaults(_run=None, _parser=stub)
     return parser
 
 
@@ -116,10 +108,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     args = vars(build_parser().parse_args(argv))
     run, parser = args.pop("_run"), args.pop("_parser")
-    args.pop("command")
-    args.pop("group_command", None)
-    if run is None:
-        parser.error(PENDING_MESSAGE)
+    for level in ("command", "group_command", "subgroup_command"):
+        args.pop(level, None)
     device = resolve_device(args.pop("device"))
     args = {k: tuple(v) if isinstance(v, list) else v
             for k, v in args.items()}

@@ -1,17 +1,19 @@
 """Weight loading for the detector and the embedder, shared by the
 commands; counterpart of cvpce_tpu/cli/common.py.
 
-A weights file is a reference torch checkpoint or one of the port's own
-training checkpoints (train/checkpoint.py: `torch.save` of a train
-state's `state_dict()`), which play the part of the JAX package's orbax
-training runs (`_load_gln_orbax`): what a run saved, a command loads.
-A reference checkpoint overlays a model built from its config
-(`_merge`): a key the model lacks raises KeyError and a shape mismatch
-ValueError, both naming the key, so a checkpoint of another
-architecture fails at load time. The port's own checkpoints load
-strictly. A file of neither layout raises ValueError naming the keys
-it holds. A directory is an orbax export of the JAX package, which the
-port cannot read (ROADMAP.md, Queue 1 item 7), and raises.
+Weights are a file or a directory. A file is a reference torch
+checkpoint or one of the port's own training checkpoints
+(train/checkpoint.py: `torch.save` of a train state's `state_dict()`,
+e.g. `<run>/checkpoint` or `<run>/epoch_3`). A directory is a port
+training run or a serving export (pipeline/serving.py), read as the JAX
+package reads its orbax directories (`_load_gln_orbax`): what a run
+saved, a command loads. A reference checkpoint overlays a model built
+from its config (`_merge`): a key the model lacks raises KeyError and a
+shape mismatch ValueError, both naming the key, so a checkpoint of
+another architecture fails at load time. The port's own checkpoints and
+exports load strictly. A file of no known layout raises ValueError
+naming the keys it holds. An orbax directory of the JAX package raises
+ValueError: the port cannot read it (ROADMAP.md, Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import torch
 
 from ..models.embedders import EmbedFn, MACResNet, MACVGG, fold_bn_variables
 from ..models.gln import GLN, GLNConfig
+from ..pipeline.serving import (DIHE_PART, GLN_PART, SERVING_NAME,
+                                load_dihe_encoder, load_gln_variables)
 from ..utils.torch_import import (flat_state_dict, import_gln,
                                   import_resnet50, import_vgg16_features)
 
@@ -29,12 +33,6 @@ from ..utils.torch_import import (flat_state_dict, import_gln,
 # `block2` = vgg.features[cut:...], each renumbered from 0: the cut is at
 # the pool after block 4 (classification.py:36-37)
 MACVGG_BLOCK2_OFFSET = {True: 33, False: 23}
-
-# the port's training checkpoints hold a train state's parts beside its
-# step count: the GLN loop's GLNTrainState (train/gln.py) its `model`,
-# train_dihe's DIHETrainState (train/dihe.py) its `embedder`
-GLN_CHECKPOINT_PART = "model"
-DIHE_CHECKPOINT_PART = "embedder"
 
 
 def default_gln_config(fast: bool = False) -> GLNConfig:
@@ -44,16 +42,24 @@ def default_gln_config(fast: bool = False) -> GLNConfig:
     return GLNConfig(compute_dtype="bfloat16") if fast else GLNConfig()
 
 
-def _refuse_directory(weights: str) -> None:
+def _read(weights: str):
     if os.path.isdir(weights):
         raise ValueError(
-            f"{weights} is a directory: orbax exports of the JAX package "
-            "cannot be read by the port (ROADMAP.md, Queue 1 item 7)")
-
-
-def _read(weights: str):
-    _refuse_directory(weights)
+            f"{weights} is a directory: this loader reads checkpoint "
+            "files only")
     return torch.load(weights, map_location="cpu", weights_only=True)
+
+
+def _gln_directory(ckpt_dir: str) -> Dict[str, torch.Tensor]:
+    """The GLN state_dict of a directory (JAX's `_load_gln_orbax`): a
+    training run or a serving export; else the directory is taken as a
+    checkpoint node inside a run, which raises for an orbax node."""
+    d = os.path.normpath(ckpt_dir)
+    if (os.path.exists(os.path.join(d, SERVING_NAME))
+            or os.path.exists(os.path.join(d, "checkpoint"))):
+        return load_gln_variables(d)
+    return load_gln_variables(os.path.dirname(d),
+                              name=os.path.basename(d))
 
 
 def _train_state_part(obj, part: str) -> Optional[Dict[str, torch.Tensor]]:
@@ -78,15 +84,19 @@ def load_gln_state_dict(weights: Optional[str], config: GLNConfig,
     """GLN state_dict for `config`: a seeded random init from `generator`
     (seed 0 when none is given) when `weights` is None; else a reference
     GaussianLayerNetwork checkpoint file mapped by `import_gln` onto that
-    init, or the port's GLN training checkpoint (`checkpoint`,
-    `epoch_<e>`: its `model`), each loaded strictly."""
+    init, the port's GLN training checkpoint (`checkpoint`, `epoch_<e>`:
+    its `model`), or a directory (a run or a serving export), each
+    loaded strictly."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = GLN(config, generator=generator)
     if weights is None:
         return model.state_dict()
+    if os.path.isdir(weights):
+        model.load_state_dict(_gln_directory(weights), strict=True)
+        return model.state_dict()
     obj = _read(weights)
-    own = _train_state_part(obj, GLN_CHECKPOINT_PART)
+    own = _train_state_part(obj, GLN_PART)
     if own is not None:
         model.load_state_dict(own, strict=True)
         return model.state_dict()
@@ -108,9 +118,11 @@ def load_embedder(weights: Optional[str], batch_norm: bool = True,
     """(EmbedFn on `device`, embedding size).
 
     `encoder='vgg16'`: MACVGG from torchvision vgg16(_bn) `features.*`,
-    a reference MACVGG checkpoint (`block1.` / `block2.` slices) or the
+    a reference MACVGG checkpoint (`block1.` / `block2.` slices), the
     port's DIHE training checkpoint (`embedder_checkpoint`,
-    `epoch_<e>`: its `embedder`, loaded strictly). Its BatchNorms are
+    `epoch_<e>`: its `embedder`, loaded strictly) or a directory: a
+    DIHE run or serving export (pipeline/serving.py:load_dihe_encoder,
+    loaded strictly; a GLN's raises). Its BatchNorms are
     folded into the convs for serving. `int8` serves the
     folded model in bf16 with every conv but conv1_1 in static int8.
     `encoder='resnet50'`: MACResNet from torchvision resnet50 names, with
@@ -139,9 +151,11 @@ def load_embedder(weights: Optional[str], batch_norm: bool = True,
     # fold into the serving model; a BN-free one loads into it directly
     model = MACVGG(batch_norm=batch_norm, generator=generator,
                    **({} if batch_norm else served))
-    if weights is not None:
+    if weights is not None and os.path.isdir(weights):
+        model.load_state_dict(load_dihe_encoder(weights), strict=True)
+    elif weights is not None:
         obj = _read(weights)
-        own = _train_state_part(obj, DIHE_CHECKPOINT_PART)
+        own = _train_state_part(obj, DIHE_PART)
         if own is not None:
             model.load_state_dict(own, strict=True)
         else:

@@ -1,10 +1,12 @@
 """`gln` command group; counterpart of cvpce_tpu/cli/gln.py.
 
 Each command runs on the `device` that main() resolved from `--device`.
-Weights options take a reference GaussianLayerNetwork checkpoint file or
+Weights options take a reference GaussianLayerNetwork checkpoint file,
 the port's own GLN training checkpoint (`<out>/checkpoint`,
-`<out>/epoch_<e>`), read by cli/common.py:load_gln_state_dict; a
-directory raises (orbax, ROADMAP.md Queue 1 item 7).
+`<out>/epoch_<e>`), or a directory: a port training run (`<out>`) or a
+serving export (pipeline/serving.py), read by
+cli/common.py:load_gln_state_dict. The JAX package's orbax directories
+raise (ROADMAP.md, Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -111,7 +113,8 @@ def train(imgs, annotations, evalimgs, evalannotations, out, load, resume,
 
         kwargs["loader_cls"] = GrainLoader
     if load is not None and os.path.isdir(load):
-        kwargs["load_orbax"] = load  # raises: ROADMAP.md Queue 1 item 7
+        # a port run or serving export; an orbax directory raises
+        kwargs["load_orbax"] = load
     else:
         kwargs["load_torch"] = load
     train_proposal_generator(
@@ -381,9 +384,9 @@ def register(commands) -> None:
     p.add_argument("--evalannotations", default=None)
     p.add_argument("--out", required=True)
     p.add_argument("--load", default=None,
-                   help="starting point: a reference GLN checkpoint or a "
-                        "port training checkpoint FILE; a directory "
-                        "(orbax) raises")
+                   help="starting point: a reference GLN checkpoint, a "
+                        "port training checkpoint, or a port run or "
+                        "serving-export directory")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--tanh", action="store_true")
     p.add_argument("--method", choices=["normal", "kant", "simple"],

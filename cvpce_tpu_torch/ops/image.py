@@ -19,6 +19,11 @@ def scale_to_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * 2.0 - 1.0
 
 
+def scale_from_tanh(x: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] -> [0, 1]."""
+    return (x + 1.0) * 0.5
+
+
 def normalize_tanh_imagenet(x: torch.Tensor) -> torch.Tensor:
     """Normalize a [-1, 1]-scaled channels-last image with ImageNet
     statistics rescaled to that range."""

@@ -52,6 +52,7 @@ from ..models.gln import GLNConfig
 from ..parallel import (data_parallel_mesh, make_dp_train_step,
                         put_replicated)
 from ..parallel.multihost import host_shard_info
+from ..pipeline.serving import load_gln_variables
 from ..utils import resolve_device, viz
 from . import gln as gln_train
 from .checkpoint import BestKeeper, CheckpointManager
@@ -146,10 +147,13 @@ def train_proposal_generator(
     `device`. Returns {"state": GLNTrainState, "best": keeper record}.
 
     `load_torch`: start from a reference GaussianLayerNetwork checkpoint
-    (cli/common.py:load_gln_state_dict; the optimizer starts fresh).
-    `load_orbax` raises: the JAX package's orbax exports cannot be read
-    by the port (ROADMAP.md, Queue 1 item 7). Otherwise the weights are
-    a seeded random init from `seed`.
+    or a port checkpoint file (cli/common.py:load_gln_state_dict; the
+    optimizer starts fresh). `load_orbax`: warm-start from the model of
+    a port serving export or training-run directory
+    (pipeline/serving.py:load_gln_variables; the optimizer starts fresh,
+    as the reference's --load, proposals_training.py:180-189); the JAX
+    package's orbax directories raise (ROADMAP.md, Queue 1 item 7).
+    Otherwise the weights are a seeded random init from `seed`.
 
     `steps_per_call`: that many optimizer steps per call of
     train/gln.py:make_multi_step; logging and the exploded-loss guard
@@ -166,10 +170,11 @@ def train_proposal_generator(
     training over them (module docstring), `device` this rank's.
     """
     dev = resolve_device(device)
-    if load_orbax is not None:
-        raise ValueError(
-            f"load_orbax={load_orbax!r}: orbax exports of the JAX package "
-            "cannot be read by the port (ROADMAP.md, Queue 1 item 7)")
+    state_dict = None
+    if load_torch is not None:
+        state_dict = load_gln_state_dict(load_torch, model_cfg)
+    elif load_orbax is not None:
+        state_dict = load_gln_variables(load_orbax)
     os.makedirs(output_path, exist_ok=True)
     shard_index, num_shards, local_bs = _host_sharding(use_mesh, batch_size)
     loader = loader_cls(dataset, local_bs, collate_detection,
@@ -185,9 +190,6 @@ def train_proposal_generator(
     cfg = gln_train.GLNTrainConfig(**{
         **cfg.__dict__, "steps_per_epoch": steps_per_epoch})
 
-    state_dict = None
-    if load_torch is not None:
-        state_dict = load_gln_state_dict(load_torch, model_cfg)
     state = gln_train.init_train_state(model_cfg, cfg, seed,
                                        state_dict=state_dict, device=dev)
     anchors, _ = model_cfg.anchors()

@@ -24,7 +24,10 @@ REQUIRED = {"cvpce_tpu_torch.ops.metrics", "cvpce_tpu_torch.eval",
             "cvpce_tpu_torch.pipeline.serving",
             "cvpce_tpu_torch.pipeline.colorcorrect",
             "cvpce_tpu_torch.pipeline.native",
-            "cvpce_tpu_torch.cli.common",
+            "cvpce_tpu_torch.cli", "cvpce_tpu_torch.cli.common",
+            "cvpce_tpu_torch.cli.gln", "cvpce_tpu_torch.cli.eval",
+            "cvpce_tpu_torch.cli.misc", "cvpce_tpu_torch.cli.dihe",
+            "cvpce_tpu_torch.cli.datasets",
             "cvpce_tpu_torch.utils.torch_import",
             "cvpce_tpu_torch.ops.matching", "cvpce_tpu_torch.ops.losses",
             "cvpce_tpu_torch.ops.gaussians", "cvpce_tpu_torch.data.loader",
