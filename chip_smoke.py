@@ -55,6 +55,20 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   slices; nested, with `module.` prefixes) saved with torch.save and
   loaded through cli/common.py onto the card, every parameter and
   output held bit for bit against the same dict loaded directly;
+- load.orbax: the port's reader of the JAX package's orbax checkpoints
+  (utils/zstd.py, utils/ocdbt.py, utils/orbax_read.py): the committed
+  fixture tests/torch_fixtures/orbax_seeded/ bit for bit against the
+  seeded tree it was written from, and the committed zstd frames; the
+  trained exports artifacts/gln_r5 and artifacts/dihe_r4, every leaf
+  against tests/torch_fixtures/orbax_digests.json (orbax's restore),
+  with the read seconds and the decode's MB/s; then the 4 serve scenes
+  served by gln_r5 + dihe_r4 (the threshold from its
+  serving_calibration.json) against an 8192-entry gallery embedded by
+  dihe_r4, K1 and K2 launched and equal to their plain versions, scene
+  0's detections within stated bounds of the port's CPU forward, the
+  detection counts and compliance printed (synthetic scenes: no quality
+  number). Where the copy to the card lacks the exports, (b) and (c)
+  print that they are absent;
 - data.perspective: eval_dihe through the MACResNet index on
   perspective-warped query scenes (the warp is the port's numpy one);
 - data.files: seeded sets written as PNG files (testing.write_png, row
@@ -230,13 +244,14 @@ from cvpce_tpu_torch.pipeline.planograms import Graph
 from cvpce_tpu_torch.pipeline.proposals import ProposalGenerator
 from cvpce_tpu_torch.pipeline.serving import (export_dihe_serving,
                                               export_gln_serving,
+                                              load_gln_variables,
                                               load_serving_meta)
 from cvpce_tpu_torch.train import dihe as dihe_train
 from cvpce_tpu_torch.train import gln as gln_train
 from cvpce_tpu_torch.train.checkpoint import CheckpointManager
 from cvpce_tpu_torch.train import loops as train_loops
 from cvpce_tpu_torch.train.loops import train_proposal_generator
-from cvpce_tpu_torch.utils import profiling, viz
+from cvpce_tpu_torch.utils import ocdbt, orbax_read, profiling, viz, zstd
 from cvpce_tpu_torch.utils.torch_import import (import_gln, import_resnet50,
                                                 import_vgg16_features)
 
@@ -1007,33 +1022,8 @@ def phase_serve(timer, seed):
     # what the serve path produced, scene by scene, held against plain
     nms_rows = []
     for i, (img, *_rest) in enumerate(scenes):
-        canvas, _, (ch, cw), _ = pg._canvas(img)
-        sizes = torch.tensor([[ch, cw]], dtype=torch.float32, device="cuda")
-        res = pg.infer(canvas[None], sizes, return_candidates=True)
-        keep_p = nms_ops.nms_mask(res["cand_boxes"], res["cand_scores"],
-                                  res["cand_valid"], config.nms_thresh)
-        keep_mismatches = int((keep_p != res["keep"]).sum())
-        require(keep_mismatches == 0,
-                f"scene {i}: NMS kernel keep mask differs from plain "
-                f"({keep_mismatches} entries)")
-        boxes = res["boxes"][res["valid"]]
-        require(torch.isfinite(boxes).all(), "non-finite detections")
-        n_det = int((res["valid"] & (res["scores"] > pg.confidence_threshold))
-                    .sum())
-        crops = pg.crop_boxes(img, res["boxes"][0][:n_det].cpu().numpy())
-        require(tuple(crops.shape[1:]) == (256, 256, 3), "crop shape")
-        # K2 against knn_plain on every scene's crops, 32 at a time as
-        # the Classifier searches
-        knn_mismatches = 0
-        for s0 in range(0, n_det, clf.batch_size):
-            emb = clf._embed(crops[s0:s0 + clf.batch_size])
-            d_k, i_k = knn_ops.nearest_neighbors_fused(
-                clf._anchors_dev, emb, 1, clf._anchor_inv_norms)
-            d_p, i_p = knn_ops.knn_plain(clf._anchors_dev, emb, 1)
-            knn_mismatches += knn_index_check(
-                d_k, i_k, d_p, i_p,
-                knn_ops.distance_matrix(emb, clf._anchors_dev),
-                f"scene {i} crops")[1]
+        res, n_det, crops, keep_mismatches, knn_mismatches = \
+            scene_kernel_checks(pg, clf, img, f"scene {i}")
         per_scene[i].update(candidates=int(res["num_candidates"][0]),
                             detections=n_det, crops=int(crops.shape[0]),
                             keep_mismatches=keep_mismatches,
@@ -1067,6 +1057,41 @@ def phase_serve(timer, seed):
            "scenes": scenes, "compliance": [r["compliance"]
                                             for r in per_scene]}
     return launches, nms_serve, knn_serve, ctx
+
+
+def scene_kernel_checks(pg, clf, img, label):
+    """K1 and K2 against their plain versions on one scene as the serve
+    path runs it: the kernel's NMS keep mask against nms_mask, and K2 on
+    the crops of every detection above the threshold, 32 at a time as
+    the Classifier searches, against knn_plain. Returns (the forward's
+    result with its candidates, the detections, their crops, keep-mask
+    mismatches, kNN index mismatches)."""
+    canvas, _, (ch, cw), _ = pg._canvas(img)
+    sizes = torch.tensor([[ch, cw]], dtype=torch.float32, device="cuda")
+    res = pg.infer(canvas[None], sizes, return_candidates=True)
+    keep_p = nms_ops.nms_mask(res["cand_boxes"], res["cand_scores"],
+                              res["cand_valid"], pg.config.nms_thresh)
+    keep_mismatches = int((keep_p != res["keep"]).sum())
+    require(keep_mismatches == 0,
+            f"{label}: NMS kernel keep mask differs from plain "
+            f"({keep_mismatches} entries)")
+    boxes = res["boxes"][res["valid"]]
+    require(torch.isfinite(boxes).all(), "non-finite detections")
+    n_det = int((res["valid"] & (res["scores"] > pg.confidence_threshold))
+                .sum())
+    crops = pg.crop_boxes(img, res["boxes"][0][:n_det].cpu().numpy())
+    require(tuple(crops.shape[1:]) == (256, 256, 3), "crop shape")
+    knn_mismatches = 0
+    for s0 in range(0, n_det, clf.batch_size):
+        emb = clf._embed(crops[s0:s0 + clf.batch_size])
+        d_k, i_k = knn_ops.nearest_neighbors_fused(
+            clf._anchors_dev, emb, 1, clf._anchor_inv_norms)
+        d_p, i_p = knn_ops.knn_plain(clf._anchors_dev, emb, 1)
+        knn_mismatches += knn_index_check(
+            d_k, i_k, d_p, i_p,
+            knn_ops.distance_matrix(emb, clf._anchors_dev),
+            f"{label} crops")[1]
+    return res, n_det, crops, keep_mismatches, knn_mismatches
 
 
 def serve_scenes(evaluator, scenes):
@@ -1619,6 +1644,199 @@ def phase_load_reference(seed):
             f"a wrongly shaped checkpoint loaded ({raised})")
     emit({"phase": "load.reference", **rows, "wrong_shape": raised,
           "seconds": time.perf_counter() - t0})
+
+
+ORBAX_EXPORTS = ("gln_r5", "dihe_r4")
+# the trained detector on the card against the port's CPU forward of the
+# same weights on one serve scene: cuDNN's f32 convolutions sum in another
+# order than the CPU's, which moves scores and boxes; the bounds are the
+# ones JAX's own test holds a forward in another order to
+# (tests/test_parallel_e2e.py), as parallel.spatial does
+ORBAX_SCORE_TOL = 1e-4
+ORBAX_BOX_TOL = 1e-2  # px
+
+
+def _matched(a, b):
+    """For each detection of `a` ({boxes, scores}), the largest box
+    coordinate and score differences to its nearest box in `b`."""
+    if len(a["boxes"]) == 0:
+        return 0.0, 0.0
+    if len(b["boxes"]) == 0:
+        return float("inf"), float("inf")
+    d = np.abs(a["boxes"][:, None, :] - b["boxes"][None, :, :]).max(-1)
+    j = d.argmin(1)
+    return (float(d[np.arange(len(j)), j].max()),
+            float(np.abs(a["scores"] - b["scores"][j]).max()))
+
+
+def phase_load_orbax(ctx, seed):
+    """The port's reader of the JAX package's orbax checkpoints
+    (utils/zstd.py, utils/ocdbt.py, utils/orbax_read.py) on the card's
+    machine, which has no zstd, tensorstore or orbax:
+
+    (a) the committed fixture tests/torch_fixtures/orbax_seeded/, every
+        leaf bit for bit the seeded tree it was written from, and the
+        committed zstd frames equal to their seeded data;
+    (b) the trained exports artifacts/gln_r5 and artifacts/dihe_r4, every
+        leaf's sha256, shape and dtype equal to
+        tests/torch_fixtures/orbax_digests.json (orbax's restore); the
+        read seconds and the decode's MB/s;
+    (c) the 4 serve scenes at 832x1344 served by gln_r5 + dihe_r4 (the
+        threshold and preprocessing from the export's
+        serving_calibration.json, no head calibration) against an
+        8192-entry gallery embedded by dihe_r4: K1 and K2 launched and
+        equal to their plain versions, one scene's detections held to
+        the port's CPU forward of the same weights. The scenes are
+        synthetic: their detection counts and compliance are no quality
+        number.
+    Only the exports may be missing (the copy to the card may drop
+    them): (b) and (c) then print that they are absent."""
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    # (a)
+    t = time.perf_counter()
+    got = dict(testing.tree_leaves(orbax_read.restore(
+        str(root / testing.ORBAX_FIXTURE_DIR))))
+    want = dict(testing.tree_leaves(testing.orbax_fixture_tree(
+        testing.ORBAX_FIXTURE_SEED)))
+    require(set(got) == set(want), "load.orbax: the fixture's leaves "
+            f"{sorted(set(got) ^ set(want))} differ")
+    for key, w in want.items():
+        g = got[key]
+        require(isinstance(g, np.ndarray) and g.dtype == w.dtype
+                and g.shape == w.shape and g.tobytes() == w.tobytes(),
+                f"load.orbax: fixture leaf {key} differs from the seed")
+    fixture_s = time.perf_counter() - t
+    blob = (root / (testing.ZSTD_FRAMES + ".bin")).read_bytes()
+    index = json.loads((root / (testing.ZSTD_FRAMES + ".json")).read_text())
+    for entry in index:
+        frame = blob[entry["offset"]:entry["offset"] + entry["length"]]
+        expected = b"".join(testing.zstd_fixture_data(k)
+                            for k in entry["parts"])
+        require(zstd.decompress(frame) == expected,
+                f"load.orbax: zstd frame {entry['name']} decodes wrong")
+    row = {"fixture": {"leaves": len(want),
+                       "bytes": int(sum(w.nbytes for w in want.values())),
+                       "seconds": fixture_s},
+           "zstd_frames": len(index)}
+    dirs = {n: root / "artifacts" / n for n in ORBAX_EXPORTS}
+    if not all((d / "serving_checkpoint").is_dir() for d in dirs.values()):
+        print("load.orbax: the trained exports artifacts/gln_r5 and "
+              "artifacts/dihe_r4 are absent from this copy: (b) and (c) "
+              "not run", flush=True)
+        emit({"phase": "load.orbax", **row, "exports": "absent",
+              "seconds": time.perf_counter() - t0})
+        return {"nms_hard": 0, "knn_fused": 0}
+
+    # (b)
+    digests = json.loads((root / testing.ORBAX_DIGESTS).read_text())
+    exports = {}
+    for name, d in dirs.items():
+        ckpt = d / "serving_checkpoint"
+        stored = sum(f.stat().st_size for f in ckpt.rglob("*")
+                     if f.is_file())
+        t = time.perf_counter()
+        tree = orbax_read.restore(str(ckpt))
+        read_s = time.perf_counter() - t
+        leaves = dict(testing.tree_leaves(tree))
+        decoded = int(sum(v.nbytes for v in leaves.values()))
+        bad = [k for k, v in testing.tree_digests(tree).items()
+               if digests[name].get(k) != v]
+        require(not bad and len(leaves) == len(digests[name]),
+                f"load.orbax: {name}: {len(bad)} leaves differ from "
+                f"orbax_digests.json (first {bad[:3]}), {len(leaves)} "
+                f"leaves for {len(digests[name])}")
+        # the decode alone: every stored value through the zstd decoder
+        # on one thread
+        store = ocdbt.OcdbtStore(str(ckpt))
+        values = [store.read(k) for k in store.keys()
+                  if not k.endswith(b".zarray")]
+        t = time.perf_counter()
+        out = sum(len(zstd.decompress(v)) for v in values)
+        decode_s = time.perf_counter() - t
+        require(out == decoded, f"load.orbax: {name}: {out} bytes decoded "
+                f"from the chunks, {decoded} in the arrays")
+        exports[name] = {"leaves": len(leaves), "stored_bytes": stored,
+                         "decoded_bytes": decoded, "read_seconds": read_s,
+                         "read_mb_per_s": decoded / 1e6 / read_s,
+                         "decode_seconds_one_thread": decode_s,
+                         "decode_mb_per_s_one_thread":
+                             decoded / 1e6 / decode_s}
+        del tree, leaves, values
+
+    # (c)
+    t = time.perf_counter()
+    gln_dir, dihe_dir = str(dirs["gln_r5"]), str(dirs["dihe_r4"])
+    threshold = resolve_threshold("auto", gln_dir)
+    input_norm = resolve_input_norm(gln_dir)
+    config = GLNConfig()
+    state = load_gln_variables(gln_dir)
+    pg = ProposalGenerator(state, config, confidence_threshold=threshold,
+                           input_norm=input_norm, device="cuda")
+    encoder, dim = load_embedder(dihe_dir, device="cuda")
+    clf = Classifier(encoder, dim, sample_set=GallerySet(
+        ctx["styles"], GALLERY_SIZE, seed), k=1, device="cuda")
+    torch.cuda.synchronize()
+    require(clf._use_fused, "load.orbax: gallery too small for K2")
+    load_s = time.perf_counter() - t
+    evaluator = PlanogramEvaluator(pg, clf, PlanogramComparator(device="cuda"))
+    _reset_launches()
+    per_scene = serve_scenes(evaluator, ctx["scenes"])
+    launches = _launches()
+    for kernel, n in launches.items():
+        require(n > 0, f"load.orbax: {kernel} was not launched serving "
+                "the trained exports")
+    for i, (img, *_rest) in enumerate(ctx["scenes"]):
+        res, n_det, crops, keep_mm, knn_mm = scene_kernel_checks(
+            pg, clf, img, f"load.orbax scene {i}")
+        per_scene[i].update(candidates=int(res["num_candidates"][0]),
+                            detections=n_det, keep_mismatches=keep_mm,
+                            knn_index_mismatches=knn_mm)
+    require(per_scene[0]["detections"] > 0,
+            "load.orbax: gln_r5 finds nothing on scene 0")
+    # scene 0 on the card against the port's CPU forward
+    img = ctx["scenes"][0][0]
+    pg_cpu = ProposalGenerator(state, config, confidence_threshold=threshold,
+                               input_norm=input_norm, device="cpu")
+    card, cpu = pg.detect(img), pg_cpu.detect(img)
+
+    def served(r, lo=threshold):
+        keep = r["valid"] & (r["scores"] > lo)
+        return {"boxes": r["boxes"][keep], "scores": r["scores"][keep]}
+
+    box_a, score_a = _matched(served(card), served(cpu, -1.0))
+    box_b, score_b = _matched(served(cpu), served(card, -1.0))
+    n_card, n_cpu = len(served(card)["scores"]), len(served(cpu)["scores"])
+    borderline = int((np.abs(cpu["scores"][cpu["valid"]] - threshold)
+                      <= ORBAX_SCORE_TOL).sum())
+    box_err, score_err = max(box_a, box_b), max(score_a, score_b)
+    require(box_err <= ORBAX_BOX_TOL and score_err <= ORBAX_SCORE_TOL
+            and abs(n_card - n_cpu) <= borderline,
+            f"load.orbax: scene 0 on the card against the CPU: boxes "
+            f"{box_err} px, scores {score_err}, {n_card} against {n_cpu} "
+            f"detections ({borderline} within the score bound of the "
+            "threshold)")
+    for r in per_scene:
+        emit({"phase": "load.orbax.scene", "synthetic_scene": True, **r})
+    emit({"phase": "load.orbax", **row, "exports": exports,
+          "serve": {"threshold": threshold, "input_norm": input_norm,
+                    "gallery": len(clf.embedding), "embedding_size": dim,
+                    "load_and_gallery_seconds": load_s,
+                    "serve_seconds": sum(r["seconds"] for r in per_scene),
+                    "detections": [r["detections"] for r in per_scene],
+                    "compliance": [r["compliance"] for r in per_scene],
+                    "note": "synthetic scenes: no quality number",
+                    "launches": launches,
+                    "cpu_parity": {"detections_card": n_card,
+                                   "detections_cpu": n_cpu,
+                                   "borderline": borderline,
+                                   "max_box_err_px": box_err,
+                                   "max_score_err": score_err,
+                                   "tolerances": {
+                                       "score": ORBAX_SCORE_TOL,
+                                       "box_px": ORBAX_BOX_TOL}}},
+          "nvidia_smi": nvidia_smi(), "seconds": time.perf_counter() - t0})
+    return launches
 
 
 def phase_data_perspective(ctx, seed):
@@ -4577,6 +4795,7 @@ def main(argv=None) -> int:
     phase_knn_wide(timer)
     mac_launches, knn_mac = phase_serve_macresnet(timer, ctx, args.seed)
     phase_load_reference(args.seed)
+    orbax_launches = phase_load_orbax(ctx, args.seed)
     phase_data_perspective(ctx, args.seed)
     ref = reference_gln_checkpoint(args.seed)
     data_launches = phase_data_files(ctx, args.seed, ref, smi)
@@ -4616,6 +4835,7 @@ def main(argv=None) -> int:
                 for name in ("nms_hard", "knn_fused")}
     parallel["nms_hard"]["spatial"] = spatial_par
     rows = {"nms_hard": dict(nms_serve, launches=launches["nms_hard"],
+                             orbax_launches=orbax_launches["nms_hard"],
                              train_launches=train_launches,
                              parallel_launches=parallel["nms_hard"],
                              data_files_launches=data_launches["nms_hard"],
@@ -4624,6 +4844,7 @@ def main(argv=None) -> int:
             "knn_fused": dict(knn_mac, launches=mac_launches["knn_fused"],
                               d1024=dict(d1024,
                                          launches=launches["knn_fused"]),
+                              orbax_launches=orbax_launches["knn_fused"],
                               dihe_train_launches=dihe_launches,
                               parallel_launches=parallel["knn_fused"],
                               data_files_launches=data_launches[
@@ -4648,10 +4869,10 @@ def main(argv=None) -> int:
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    extra = {"nms_hard": ("train_launches", "parallel_launches",
-                          "data_files_launches", "data_jpeg_launches",
-                          "cli_launches"),
-             "knn_fused": ("d1024", "dihe_train_launches",
+    extra = {"nms_hard": ("orbax_launches", "train_launches",
+                          "parallel_launches", "data_files_launches",
+                          "data_jpeg_launches", "cli_launches"),
+             "knn_fused": ("d1024", "orbax_launches", "dihe_train_launches",
                            "parallel_launches", "data_files_launches",
                            "data_jpeg_launches", "cli_launches",
                            "cli_dihe_launches")}

@@ -4,16 +4,16 @@ commands; counterpart of cvpce_tpu/cli/common.py.
 Weights are a file or a directory. A file is a reference torch
 checkpoint or one of the port's own training checkpoints
 (train/checkpoint.py: `torch.save` of a train state's `state_dict()`,
-e.g. `<run>/checkpoint` or `<run>/epoch_3`). A directory is a port
-training run or a serving export (pipeline/serving.py), read as the JAX
-package reads its orbax directories (`_load_gln_orbax`): what a run
-saved, a command loads. A reference checkpoint overlays a model built
+e.g. `<run>/checkpoint` or `<run>/epoch_3`). A directory is a training
+run or a serving export (pipeline/serving.py), of the port or of the
+JAX package (its orbax directories, read by utils/orbax_read.py), taken
+as the JAX package takes its orbax directories (`_load_gln_orbax`): what
+a run saved, a command loads. A reference checkpoint overlays a model built
 from its config (`_merge`): a key the model lacks raises KeyError and a
 shape mismatch ValueError, both naming the key, so a checkpoint of
 another architecture fails at load time. The port's own checkpoints and
 exports load strictly. A file of no known layout raises ValueError
-naming the keys it holds. An orbax directory of the JAX package raises
-ValueError: the port cannot read it (ROADMAP.md, Queue 1 item 7).
+naming the keys it holds.
 """
 from __future__ import annotations
 
@@ -53,7 +53,8 @@ def _read(weights: str):
 def _gln_directory(ckpt_dir: str) -> Dict[str, torch.Tensor]:
     """The GLN state_dict of a directory (JAX's `_load_gln_orbax`): a
     training run or a serving export; else the directory is taken as a
-    checkpoint node inside a run, which raises for an orbax node."""
+    checkpoint node inside a run (a JAX orbax node such as
+    `<run>/epoch_3`)."""
     d = os.path.normpath(ckpt_dir)
     if (os.path.exists(os.path.join(d, SERVING_NAME))
             or os.path.exists(os.path.join(d, "checkpoint"))):
@@ -121,8 +122,9 @@ def load_embedder(weights: Optional[str], batch_norm: bool = True,
     a reference MACVGG checkpoint (`block1.` / `block2.` slices), the
     port's DIHE training checkpoint (`embedder_checkpoint`,
     `epoch_<e>`: its `embedder`, loaded strictly) or a directory: a
-    DIHE run or serving export (pipeline/serving.py:load_dihe_encoder,
-    loaded strictly; a GLN's raises). Its BatchNorms are
+    DIHE run or serving export of the port or of the JAX package
+    (pipeline/serving.py:load_dihe_encoder, loaded strictly; a GLN's
+    raises). Its BatchNorms are
     folded into the convs for serving. `int8` serves the
     folded model in bf16 with every conv but conv1_1 in static int8.
     `encoder='resnet50'`: MACResNet from torchvision resnet50 names, with

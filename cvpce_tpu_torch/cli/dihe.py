@@ -4,10 +4,11 @@ Each command runs on the `device` that main() resolved from `--device`.
 `--weights` takes a torchvision vgg16(_bn) or reference MACVGG file, the
 port's DIHE training checkpoint (`<out>/embedder_checkpoint`,
 `<out>/epoch_<e>`), or a directory: a DIHE training run (`<out>`) or a
-serving export (pipeline/serving.py), read by
+serving export (pipeline/serving.py), of the port or of the JAX package
+(its orbax directories, such as artifacts/dihe_r4), read by
 cli/common.py:load_embedder. `--gan` is a `pretrain-gan` output
-directory, whose `gan_checkpoint` starts the generator and
-discriminator.
+directory, of the port or of the JAX package, whose `gan_checkpoint`
+starts the generator and discriminator.
 """
 from __future__ import annotations
 
@@ -68,6 +69,26 @@ def pretrain_gan(source, imgs, annotations, out, epochs, batch_size, masks,
                        resume=resume, device=device)
 
 
+def load_gan_state(gan_path: str):
+    """The generator's and discriminator's state_dicts of a
+    `pretrain-gan` run's `gan_checkpoint`, for train_dihe to load into
+    players it builds: the port's file, or the JAX package's orbax node
+    (its gen_params / gen_stats / disc_params / disc_stats, bridged by
+    utils/weights.py:gan_state_dict)."""
+    from ..train.checkpoint import CheckpointManager
+    from ..utils import orbax_read
+    from ..utils.weights import gan_state_dict
+
+    node = path.join(gan_path, "gan_checkpoint")
+    if orbax_read.is_checkpoint(node):
+        tree = orbax_read.restore(node)
+        return {"generator": gan_state_dict(tree["gen_params"],
+                                            tree["gen_stats"]),
+                "discriminator": gan_state_dict(tree["disc_params"],
+                                                tree["disc_stats"])}
+    return CheckpointManager(gan_path, name="gan_checkpoint").read()
+
+
 def train(source, source_type, only, eval_data, imgs, annotations,
           test_imgs, test_annotations, out, gan_path, epochs, batch_size,
           masks, no_batchnorm, hyperopt_params, grain, resume,
@@ -75,7 +96,6 @@ def train(source, source_type, only, eval_data, imgs, annotations,
     """Train DIHE (cvpce/cli/dihe.py:77-167)."""
     from ..data.grocery import GroceryProductsDataset, InternalTrainSet
     from ..train import loops
-    from ..train.checkpoint import CheckpointManager
     from ..train.dihe import DIHETrainConfig
 
     if source_type == "gp":
@@ -97,12 +117,7 @@ def train(source, source_type, only, eval_data, imgs, annotations,
         enc_lr=HYPEROPT_ENC_LR if hyperopt_params else 1e-6,
         enc_multiplier=HYPEROPT_ENC_MULTIPLIER if hyperopt_params else 1.0,
         batchnorm=not no_batchnorm, masks=masks)
-    gan_state = None
-    if gan_path:
-        # the generator's and discriminator's state_dicts; train_dihe
-        # loads them into players it builds for `cfg`
-        gan_state = CheckpointManager(gan_path,
-                                      name="gan_checkpoint").read()
+    gan_state = load_gan_state(gan_path) if gan_path else None
     kwargs = {}
     if grain:
         from ..data.grain_loader import GrainLoader

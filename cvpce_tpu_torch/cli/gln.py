@@ -3,10 +3,10 @@
 Each command runs on the `device` that main() resolved from `--device`.
 Weights options take a reference GaussianLayerNetwork checkpoint file,
 the port's own GLN training checkpoint (`<out>/checkpoint`,
-`<out>/epoch_<e>`), or a directory: a port training run (`<out>`) or a
-serving export (pipeline/serving.py), read by
-cli/common.py:load_gln_state_dict. The JAX package's orbax directories
-raise (ROADMAP.md, Queue 1 item 7).
+`<out>/epoch_<e>`), or a directory: a training run (`<out>`), one of
+its nodes or a serving export (pipeline/serving.py), of the port or of
+the JAX package (its orbax directories, such as artifacts/gln_r5), read
+by cli/common.py:load_gln_state_dict.
 """
 from __future__ import annotations
 
@@ -113,7 +113,7 @@ def train(imgs, annotations, evalimgs, evalannotations, out, load, resume,
 
         kwargs["loader_cls"] = GrainLoader
     if load is not None and os.path.isdir(load):
-        # a port run or serving export; an orbax directory raises
+        # a run or serving export, of the port or of the JAX package
         kwargs["load_orbax"] = load
     else:
         kwargs["load_torch"] = load

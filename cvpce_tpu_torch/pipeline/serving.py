@@ -18,10 +18,13 @@ model. An export is a directory holding:
 
 The loaders take an export or a training-run directory (`checkpoint`,
 `embedder_checkpoint`, or a named node such as `epoch_3`) and return the
-model's state_dict, on the CPU. The JAX package's orbax directories,
-whose `serving_checkpoint` or `checkpoint` entry is itself a directory,
-raise `ValueError`: the port cannot read orbax (ROADMAP.md, Queue 1
-item 7).
+model's state_dict, on the CPU. They read the JAX package's orbax
+directories as well, wherever the JAX loaders read them: a serving
+export whose `serving_checkpoint` is an orbax directory (artifacts/),
+or a JAX run's `checkpoint`, `epoch_N` or `embedder_checkpoint` node.
+Those go through the port's own orbax reader (utils/orbax_read.py) and
+the bridges of utils/weights.py (`gln_state_dict`, `macvgg_state_dict`).
+The exports read either layout and write the port's.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ..utils import orbax_read
+from ..utils.weights import gln_state_dict, macvgg_state_dict
 from .calibrate import CALIBRATION_FILE
 
 SERVING_NAME = "serving_checkpoint"
@@ -43,24 +48,72 @@ GLN_PART = "model"
 DIHE_PART = "embedder"
 
 
-def _read(target: str) -> Dict:
+def _read(target: str, what: str) -> Dict:
     """The dict that `torch.save` wrote at `target`."""
     if path.isdir(target):
         raise ValueError(
-            f"{target} is a directory: orbax checkpoints of the JAX "
-            "package cannot be read by the port (ROADMAP.md, Queue 1 "
-            "item 7)")
+            f"{target} is not a {what} checkpoint: a directory without "
+            f"{orbax_read.METADATA}, which the JAX package's orbax nodes "
+            "hold")
     if not path.exists(target):
         raise ValueError(
             f"no checkpoint file {target}: the directory is neither a "
-            "port training run nor a port serving export (orbax "
-            "checkpoints of the JAX package cannot be read by the port: "
-            "ROADMAP.md, Queue 1 item 7)")
+            "training run nor a serving export, of the port (torch.save "
+            "files) or of the JAX package (orbax directories)")
     obj = torch.load(target, map_location="cpu", weights_only=True)
     if not isinstance(obj, dict):
         raise ValueError(f"{target} holds a {type(obj).__name__}, not a "
                          "checkpoint dict")
     return obj
+
+
+def _gln_node(target: str, ckpt_dir: str) -> Dict[str, torch.Tensor]:
+    """The GLN state_dict of one checkpoint node: a JAX orbax directory
+    ({params, frozen, batch_stats}, cvpce_tpu/pipeline/serving.py
+    `load_gln_variables`) or a port file (its `model`)."""
+    if orbax_read.is_checkpoint(target):
+        state = orbax_read.restore(target)
+        missing = [k for k in ("params", "frozen", "batch_stats")
+                   if k not in state]
+        if missing:
+            raise ValueError(
+                f"{ckpt_dir} is not a GLN checkpoint: missing {missing}")
+        return gln_state_dict(state)
+    state = _read(target, "GLN")
+    if GLN_PART not in state:
+        raise ValueError(f"{ckpt_dir} is not a GLN checkpoint: missing "
+                         f"['{GLN_PART}'] (keys: {sorted(map(str, state))})")
+    return state[GLN_PART]
+
+
+def _dihe_node(target: str, ckpt_dir: str) -> Dict[str, torch.Tensor]:
+    """The MACVGG state_dict of one checkpoint node: a JAX orbax
+    directory (a serving export's params / batch_stats, or a DIHE train
+    state's emb_params / emb_stats) or a port file (its `embedder`). A
+    GLN tree is refused, as the JAX loader refuses a tree with a
+    'frozen' collection: loading foreign weights into the embedder would
+    serve garbage."""
+    if orbax_read.is_checkpoint(target):
+        state = orbax_read.restore(target)
+        if "frozen" in state:
+            raise ValueError(
+                f"{ckpt_dir} looks like a GLN checkpoint (has a 'frozen' "
+                "collection), not a DIHE encoder")
+        if "params" in state:
+            return macvgg_state_dict(state["params"], state["batch_stats"])
+        if "emb_params" in state:
+            return macvgg_state_dict(state["emb_params"], state["emb_stats"])
+        raise ValueError(f"{ckpt_dir} is not a DIHE checkpoint "
+                         f"(keys: {sorted(state)})")
+    state = _read(target, "DIHE")
+    if GLN_PART in state:
+        raise ValueError(
+            f"{ckpt_dir} looks like a GLN checkpoint (has a '{GLN_PART}' "
+            "entry), not a DIHE encoder")
+    if DIHE_PART in state:
+        return state[DIHE_PART]
+    raise ValueError(f"{ckpt_dir} is not a DIHE checkpoint "
+                     f"(keys: {sorted(map(str, state))})")
 
 
 def _save(target: str, tree: Dict) -> None:
@@ -80,12 +133,10 @@ def _copy_sidecars(run_dir: str, out_dir: str, meta_src: str) -> None:
 
 
 def _export(run_dir: str, out_dir: str, name: str, part: str) -> str:
-    state = _read(path.join(run_dir, name))
-    if part not in state:
-        raise ValueError(f"{path.join(run_dir, name)} holds no '{part}' "
-                         f"(keys: {sorted(map(str, state))})")
+    node = _gln_node if part == GLN_PART else _dihe_node
+    state_dict = node(path.join(run_dir, name), path.join(run_dir, name))
     os.makedirs(out_dir, exist_ok=True)
-    _save(path.join(out_dir, SERVING_NAME), {part: state[part]})
+    _save(path.join(out_dir, SERVING_NAME), {part: state_dict})
     _copy_sidecars(run_dir, out_dir, name)
     return out_dir
 
@@ -114,38 +165,23 @@ def _serving_path(ckpt_dir: str) -> Optional[str]:
 def load_gln_variables(ckpt_dir: str,
                        name: str = "checkpoint") -> Dict[str, torch.Tensor]:
     """The GLN state_dict of a serving export or of a training-run
-    directory's checkpoint `name`.
+    directory's checkpoint `name`, of the port or of the JAX package.
 
     The serving-export shortcut applies only for the default name: a
     caller that asked for a specific node (e.g. epoch_87) gets that node,
     not a serving export that sits in the same directory."""
     serving = _serving_path(ckpt_dir) if name == "checkpoint" else None
-    state = _read(serving or path.join(ckpt_dir, name))
-    if GLN_PART not in state:
-        raise ValueError(f"{ckpt_dir} is not a GLN checkpoint: missing "
-                         f"['{GLN_PART}'] (keys: {sorted(map(str, state))})")
-    return state[GLN_PART]
+    return _gln_node(serving or path.join(ckpt_dir, name), ckpt_dir)
 
 
 def load_dihe_encoder(ckpt_dir: str, name: str = "embedder_checkpoint"
                       ) -> Dict[str, torch.Tensor]:
     """The MACVGG encoder state_dict of a DIHE serving export or of a
-    training-run directory's checkpoint `name`.
-
-    A GLN export or run is refused, as the JAX loader refuses a tree with
-    a 'frozen' collection: loading foreign weights into the embedder
-    would serve garbage."""
+    training-run directory's checkpoint `name`, of the port or of the JAX
+    package. A GLN export or run is refused."""
     serving = (_serving_path(ckpt_dir)
                if name == "embedder_checkpoint" else None)
-    state = _read(serving or path.join(ckpt_dir, name))
-    if GLN_PART in state:
-        raise ValueError(
-            f"{ckpt_dir} looks like a GLN checkpoint (has a '{GLN_PART}' "
-            "entry), not a DIHE encoder")
-    if DIHE_PART in state:
-        return state[DIHE_PART]
-    raise ValueError(f"{ckpt_dir} is not a DIHE checkpoint "
-                     f"(keys: {sorted(map(str, state))})")
+    return _dihe_node(serving or path.join(ckpt_dir, name), ckpt_dir)
 
 
 def load_serving_meta(ckpt_dir: str) -> Dict:

@@ -901,3 +901,96 @@ def write_jpeg(path, array: np.ndarray, quality: int = 90,
     with open(path, "wb") as f:
         f.write(b"".join(out))
     return coefs
+
+
+# ------------------------------------------------- orbax checkpoints
+
+# tests/torch_fixtures/orbax_seeded/ is an orbax checkpoint of
+# `orbax_fixture_tree()`, written by scripts/write_orbax_fixture.py with
+# the JAX package's serving `_save`; tests/torch_fixtures/zstd_frames.bin
+# holds zstd frames of `zstd_fixture_data` (index in zstd_frames.json).
+# The tests and chip_smoke.py regenerate both from the seed and hold the
+# port's reader to them bit for bit.
+ORBAX_FIXTURE_SEED = 2020
+ORBAX_FIXTURE_DIR = "tests/torch_fixtures/orbax_seeded"
+ORBAX_DIGESTS = "tests/torch_fixtures/orbax_digests.json"
+ZSTD_FRAMES = "tests/torch_fixtures/zstd_frames"
+
+
+def orbax_fixture_tree(seed: int = ORBAX_FIXTURE_SEED) -> Dict:
+    """A nested dict and list of numpy leaves: f32 (random, constant, and
+    one of 160 KB quantised to sixteenths, so that its zstd frame has
+    several blocks with matches), int32, a 0-d int32, bool and uint8
+    noise (stored in raw blocks)."""
+    rng = np.random.default_rng(seed)
+    return {
+        "params": {
+            "conv": {"kernel": rng.standard_normal(
+                         (3, 3, 16, 32)).astype(np.float32),
+                     "bias": np.zeros(32, np.float32)},
+            "dense": {"kernel": (np.round(rng.standard_normal(
+                (320, 128)) * 16) / 16).astype(np.float32)},
+        },
+        "batch_stats": {"bn": {
+            "mean": rng.standard_normal(32).astype(np.float32),
+            "var": rng.uniform(0.5, 2.0, 32).astype(np.float32)}},
+        "counts": rng.integers(-1000, 1000, 4096).astype(np.int32),
+        "step": np.array(1234, np.int32),
+        "mask": rng.random(100) < 0.5,
+        "noise": rng.integers(0, 256, 65536).astype(np.uint8),
+        "layers": [rng.standard_normal((64, 64)).astype(np.float32),
+                   {"table": np.repeat(np.arange(8, dtype=np.int32),
+                                       512).reshape(64, 64)}],
+    }
+
+
+def zstd_fixture_data(kind: str, seed: int = ORBAX_FIXTURE_SEED) -> bytes:
+    """Seeded inputs of the committed zstd frames: `text` (words, for
+    Huffman literals and matches), `noise` (raw blocks), `run` (RLE
+    blocks) and `f32q` (quantised floats over several blocks)."""
+    rng = np.random.default_rng((seed, sum(kind.encode())))
+    if kind == "text":
+        words = np.array([b"shelf ", b"product ", b"facing ", b"gap ",
+                          b"price ", b"label ", b"row "], object)
+        return b"".join(words[rng.integers(0, len(words), 3000)])[:20000]
+    if kind == "noise":
+        return rng.integers(0, 256, 5000).astype(np.uint8).tobytes()
+    if kind == "run":
+        return bytes([0x5A]) * 100000
+    if kind == "f32q":
+        return (np.round(rng.standard_normal(65536) * 4) / 4).astype(
+            np.float32).tobytes()
+    raise ValueError(f"unknown zstd fixture {kind!r}")
+
+
+def tree_leaves(tree, trail=()):
+    """('/'-joined path, leaf) of every leaf of a nested dict / list /
+    tuple tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, trail + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, trail + (str(i),))
+    else:
+        yield "/".join(trail), tree
+
+
+def tree_digests(tree) -> Dict[str, Dict]:
+    """{path: {sha256, shape, dtype}} of every array leaf of a nested
+    tree (bfloat16 tensors by their raw bits)."""
+    import hashlib
+
+    out = {}
+    for path, leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            dtype = str(leaf.dtype).replace("torch.", "")
+            shape = list(leaf.shape)
+            raw = leaf.contiguous().view(torch.int16).numpy().tobytes()
+        else:
+            arr = np.ascontiguousarray(np.asarray(leaf))
+            dtype, shape, raw = str(arr.dtype), list(arr.shape), \
+                arr.tobytes()
+        out[path] = {"sha256": hashlib.sha256(raw).hexdigest(),
+                     "shape": shape, "dtype": dtype}
+    return out

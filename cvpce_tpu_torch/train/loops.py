@@ -149,10 +149,10 @@ def train_proposal_generator(
     `load_torch`: start from a reference GaussianLayerNetwork checkpoint
     or a port checkpoint file (cli/common.py:load_gln_state_dict; the
     optimizer starts fresh). `load_orbax`: warm-start from the model of
-    a port serving export or training-run directory
-    (pipeline/serving.py:load_gln_variables; the optimizer starts fresh,
-    as the reference's --load, proposals_training.py:180-189); the JAX
-    package's orbax directories raise (ROADMAP.md, Queue 1 item 7).
+    a serving export or training-run directory, of the port or of the
+    JAX package (pipeline/serving.py:load_gln_variables, as JAX's loop
+    does; the optimizer starts fresh, as the reference's --load,
+    proposals_training.py:180-189).
     Otherwise the weights are a seeded random init from `seed`.
 
     `steps_per_call`: that many optimizer steps per call of

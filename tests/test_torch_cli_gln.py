@@ -266,12 +266,13 @@ def test_loaders_read_the_ports_checkpoints(tmp_path):
     with pytest.raises(ValueError, match="'epoch', 'weights'"):
         load_embedder(str(bad), device="cpu")
     # a directory: the DIHE run loads as its checkpoint file does; it is
-    # no GLN run, so the GLN loader takes it for an orbax node and raises
+    # no GLN run, and no orbax node either (no _METADATA): no GLN
+    # checkpoint
     encode, _ = load_embedder(str(tmp_path), device="cpu")
     got_sd = encode.model.state_dict()
     for k, v in want.state_dict().items():
         assert torch.equal(got_sd[k], v), k
-    with pytest.raises(ValueError, match="directory.*Queue 1 item 7"):
+    with pytest.raises(ValueError, match="not a GLN checkpoint: a directory"):
         load_gln_state_dict(str(tmp_path), config)
 
 

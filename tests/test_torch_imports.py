@@ -1,7 +1,7 @@
 """Import guard: the port and chip_smoke.py import no package that the
 GPU machine lacks. A subprocess refuses jax, flax, optax, orbax, grain,
-networkx, cv2, PIL, click, torchvision, matplotlib and the JAX package
-itself at import time, then imports every module of cvpce_tpu_torch (the modules listed
+networkx, cv2, PIL, click, torchvision, matplotlib, tensorstore,
+zstandard and the JAX package itself at import time, then imports every module of cvpce_tpu_torch (the modules listed
 in REQUIRED among them) and chip_smoke (without running it)."""
 import os
 import subprocess
@@ -13,7 +13,8 @@ SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "grain", "networkx",
-          "cv2", "PIL", "click", "torchvision", "matplotlib", "cvpce_tpu"}
+          "cv2", "PIL", "click", "torchvision", "matplotlib", "cvpce_tpu",
+          "tensorstore", "zstandard"}
 REQUIRED = {"cvpce_tpu_torch.ops.metrics", "cvpce_tpu_torch.eval",
             "cvpce_tpu_torch.eval.coco_protocol",
             "cvpce_tpu_torch.eval.proposals",
@@ -46,7 +47,9 @@ REQUIRED = {"cvpce_tpu_torch.ops.metrics", "cvpce_tpu_torch.eval",
             "cvpce_tpu_torch.data.planograms",
             "cvpce_tpu_torch.data.grozi", "cvpce_tpu_torch.data.coco",
             "cvpce_tpu_torch.data.cache",
-            "cvpce_tpu_torch.data.grain_loader"}
+            "cvpce_tpu_torch.data.grain_loader",
+            "cvpce_tpu_torch.utils.zstd", "cvpce_tpu_torch.utils.ocdbt",
+            "cvpce_tpu_torch.utils.orbax_read"}
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):

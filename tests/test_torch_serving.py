@@ -3,11 +3,13 @@
 `load_orbax`) against the JAX package's (cvpce_tpu/pipeline/serving.py):
 export -> load gives the state bit for bit, the sidecars byte for byte,
 the default-name shortcut follows JAX's rule, a GLN export is refused as
-a DIHE encoder, and an orbax directory that JAX's `_save` wrote raises
-naming ROADMAP.md's Queue 1 item 7. Then `gln eval --weights <dir>` and
-`dihe eval --weights <dir>` through the port (its own export) and
-through JAX's click commands (an orbax export of the same numpy
-weights), on the files of tests/torch_cli_common.py at a 64x64 canvas.
+a DIHE encoder, and an orbax directory that JAX's `_save` wrote loads
+as JAX loads it. Then `gln eval --weights <dir>` and `dihe eval
+--weights <dir>` through the port (its own export) and through JAX's
+click commands (an orbax export of the same numpy weights), and `gln
+eval`, `dihe eval` and `eval-planograms` on the trained exports
+artifacts/gln_r5 and artifacts/dihe_r4 through both, on the files of
+tests/torch_cli_common.py at a 64x64 canvas.
 
 Tolerances: states are equal bit for bit; the printed JSON is equal
 (metrics and accuracies, the same forward as tests/test_torch_cli_eval.py
@@ -22,6 +24,8 @@ import torch
 from click.testing import CliRunner
 
 from torch_cli_common import json_of, small_args, write_inputs
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCORE_TOL = 1e-6
 
@@ -221,40 +225,64 @@ def test_refusals(gln_run, dihe_run, tmp_path):
         load_dihe_encoder(run)
 
 
-def test_orbax_directories_raise_naming_item_7(gln_run, tmp_path):
+def test_orbax_directories_raise_naming_item_7(gln_run, exports, tmp_path):
     """The JAX package's orbax layouts (a serving export, a run's
-    `checkpoint` node, a bare node) through every port loader."""
+    `checkpoint` node, a bare node), which the port refused until it had
+    an orbax reader of its own (ROADMAP.md, Queue 1 item 7), now load
+    through every port loader as the JAX loaders load them: the state
+    bridged by utils/weights.py, bit for bit, equal to the port's import
+    of the same reference weights; a GLN export is refused as an
+    embedder, and the GLN loop warm-starts from the export."""
+    import jax
+
     from cvpce_tpu.pipeline import serving as jserving
     from cvpce_tpu_torch.cli.common import load_embedder, load_gln_state_dict
     from cvpce_tpu_torch.pipeline.serving import (load_dihe_encoder,
                                                   load_gln_variables)
+    from cvpce_tpu_torch.train import gln as gln_train
     from cvpce_tpu_torch.train.loops import train_proposal_generator
+    from cvpce_tpu_torch.utils.weights import (gln_state_dict,
+                                               macvgg_state_dict)
 
-    tree = {"params": {"w": np.ones(3, np.float32)},
-            "batch_stats": {"m": np.zeros(2, np.float32)}}
-    export, run_dir = tmp_path / "export", tmp_path / "run"
-    export.mkdir()
+    _, port_state = gln_run
+    export, run_dir = exports["jax_gln"], tmp_path / "run"
     run_dir.mkdir()
-    jserving._save(str(export / "serving_checkpoint"), tree)
-    jserving._save(str(run_dir / "checkpoint"), tree)
+    shutil.copytree(os.path.join(export, "serving_checkpoint"),
+                    run_dir / "checkpoint")
     node = str(run_dir / "checkpoint")
-    item7 = "orbax.*Queue 1 item 7"
-    for d in (str(export), str(run_dir)):
-        with pytest.raises(ValueError, match=item7):
-            load_gln_variables(d)
-        with pytest.raises(ValueError, match=item7):
-            load_gln_state_dict(d, _config())
-    with pytest.raises(ValueError, match=item7):
-        load_dihe_encoder(str(export))
-    with pytest.raises(ValueError, match=item7):
-        load_embedder(str(export), device="cpu")
-    with pytest.raises(ValueError, match=item7):
-        load_gln_state_dict(node, _config())  # a bare orbax node
-    out = tmp_path / "train_out"
-    with pytest.raises(ValueError, match=item7):
-        train_proposal_generator([], [], str(out), model_cfg=_config(),
-                                 load_orbax=str(export), device="cpu")
-    assert not out.exists()
+    want = gln_state_dict(jax.device_get(jserving.load_gln_variables(export)))
+    _assert_same_state(want, port_state)
+    for d in (export, str(run_dir)):
+        _assert_same_state(load_gln_variables(d), want)
+        _assert_same_state(load_gln_state_dict(d, _config()), want)
+    _assert_same_state(load_gln_state_dict(node, _config()), want)
+    for loader in (load_dihe_encoder,
+                   lambda d: load_embedder(d, device="cpu")):
+        with pytest.raises(ValueError, match="looks like a GLN"):
+            loader(export)
+    params, stats = jax.device_get(
+        jserving.load_dihe_encoder(exports["jax_dihe"]))
+    _assert_same_state(load_dihe_encoder(exports["jax_dihe"]),
+                       macvgg_state_dict(params, stats))
+    _assert_same_state(
+        load_embedder(exports["jax_dihe"], device="cpu")[0]
+        .model.state_dict(),
+        load_embedder(exports["port_dihe"], device="cpu")[0]
+        .model.state_dict())
+    started = []
+
+    def init(*args, state_dict=None, **kwargs):
+        started.append(state_dict)
+        raise StopIteration  # the start is all this test needs
+
+    for d in (export, str(run_dir)):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(gln_train, "init_train_state", init)
+            with pytest.raises(StopIteration):
+                train_proposal_generator(
+                    [], [], str(tmp_path / "out"), model_cfg=_config(),
+                    load_orbax=d, device="cpu")
+        _assert_same_state(started.pop(), want)
 
 
 def test_loop_warm_starts_from_a_port_directory(files, gln_run, tmp_path):
@@ -420,3 +448,74 @@ def test_eval_weights_directory_matches_jax(name, files, exports,
         assert 0 < got["1"] <= got["3"] <= 1, got
     else:
         assert got["0.5"]["ap"] > 0, got
+
+
+# ------------------------------------------- the trained exports
+
+TRAINED = {"gln": os.path.join(REPO, "artifacts", "gln_r5"),
+           "dihe": os.path.join(REPO, "artifacts", "dihe_r4")}
+
+
+def _trained_commands(f):
+    commands = _commands(f, TRAINED["gln"], TRAINED["dihe"])
+    commands["planograms"] = [
+        "eval-planograms", "--test-imgs", f["test_imgs"],
+        "--test-annotations", f["test_ann"], "--planograms", f["planos"],
+        "--gln-weights", TRAINED["gln"], "--encoder-weights",
+        TRAINED["dihe"], "--source", f["source"], "--verbose"] + small_args()
+    return commands
+
+
+@pytest.fixture(scope="module")
+def jax_trained_outputs(files):
+    from cvpce_tpu.cli import cli
+
+    from torch_cli_common import jax_models_built_once
+
+    outputs = {}
+    with jax_models_built_once():
+        for name, args in _trained_commands(files).items():
+            res = CliRunner().invoke(cli, args, catch_exceptions=False)
+            assert res.exit_code == 0, res.output
+            outputs[name] = json_of(res.output)
+    return outputs
+
+
+@pytest.mark.parametrize("name", ["gln", "dihe", "planograms"])
+def test_trained_exports_eval_matches_jax(name, files, jax_trained_outputs):
+    """`gln eval --weights artifacts/gln_r5`, `dihe eval --weights
+    artifacts/dihe_r4` and `eval-planograms` with both, read by the
+    port's own orbax reader (the calibrated threshold from the export's
+    serving_calibration.json), print what JAX's click commands print on
+    the same files."""
+    got = json_of(port_cli(_trained_commands(files)[name]))
+    _assert_same(got, jax_trained_outputs[name])
+
+
+def test_gln_train_load_warm_starts_from_the_trained_export(files,
+                                                            tmp_path):
+    """`gln train --load artifacts/gln_r5` starts from the export's
+    model, read by the port's own orbax reader, as JAX's `gln train
+    --load` starts from its orbax restore: the first step's weights are
+    JAX's load through the bridge, bit for bit."""
+    import jax
+
+    from cvpce_tpu.pipeline import serving as jserving
+    from cvpce_tpu_torch.train import gln as gln_train
+    from cvpce_tpu_torch.utils.weights import gln_state_dict
+
+    started = []
+
+    def init(*args, state_dict=None, **kwargs):
+        started.append(state_dict)
+        raise StopIteration  # the start is all this test needs
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gln_train, "init_train_state", init)
+        with pytest.raises(StopIteration):
+            port_cli(["gln", "train", "--imgs", files["sku_imgs"],
+                      "--annotations", files["sku_ann"], "--out",
+                      str(tmp_path / "run"), "--load", TRAINED["gln"]]
+                     + small_args())
+    _assert_same_state(started.pop(), gln_state_dict(jax.device_get(
+        jserving.load_gln_variables(TRAINED["gln"]))))

@@ -29,6 +29,18 @@ from test_torch_train_gln import LOOP_CFG, LOOP_TRAIN, DetectionSet
 PCA_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two torch threads (tests/test_torch_train_dihe_loops.py): the
+    loops' ResNet-50 and U-Net steps run beside five other test
+    processes in the tier-1 run, where a thread per core oversubscribes
+    the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _both(tmp_path, name, call):
     """call(module, out) with the port's viz and JAX's; the PNGs equal."""
     got, want = str(tmp_path / f"port_{name}"), str(tmp_path / f"jax_{name}")

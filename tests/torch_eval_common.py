@@ -1,8 +1,12 @@
-"""Shared inputs of tests/test_torch_eval.py and
-tests/test_torch_eval_compliance.py: 256x384 windows of synthetic
-planogram scenes, their detection and test-set wrappers, the gallery,
-and the trained artifacts/gln_r5 + artifacts/dihe_r4 stack loaded into
-both packages (a module-scoped fixture each file imports)."""
+"""Shared inputs of tests/test_torch_eval.py,
+tests/test_torch_eval_compliance.py and tests/test_torch_orbax.py:
+256x384 windows of synthetic planogram scenes, their detection and
+test-set wrappers, the gallery, the trained artifacts/gln_r5 +
+artifacts/dihe_r4 stack loaded into both packages (a module-scoped
+fixture each eval file imports: JAX's side through JAX's orbax loaders,
+the port's through its own reader), and one orbax restore of each export
+a process (`jax_restore`, `port_restore`)."""
+import functools
 import os
 
 import jax
@@ -21,7 +25,6 @@ from cvpce_tpu_torch.models.embedders import MACVGG, EmbedFn, fold_bn_variables
 from cvpce_tpu_torch.models.gln import GLNConfig
 from cvpce_tpu_torch.pipeline.classifier import Classifier
 from cvpce_tpu_torch.pipeline.proposals import ProposalGenerator
-from cvpce_tpu_torch.utils.weights import gln_state_dict, macvgg_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GLN_DIR = os.path.join(REPO, "artifacts", "gln_r5")
@@ -112,27 +115,50 @@ def gallery():
     return items
 
 
+def export_dir(name: str) -> str:
+    """The orbax directory of the export artifacts/<name>."""
+    return os.path.join(REPO, "artifacts", name, "serving_checkpoint")
+
+
+@functools.lru_cache(maxsize=None)
+def jax_restore(name: str):
+    """orbax's restore of artifacts/<name>, once a process."""
+    from cvpce_tpu.pipeline.serving import _raw_restore
+
+    return jax.device_get(_raw_restore(export_dir(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def port_restore(name: str):
+    """The port's restore of artifacts/<name>, once a process."""
+    from cvpce_tpu_torch.utils.orbax_read import restore
+
+    return restore(export_dir(name))
+
+
 @pytest.fixture(scope="module")
 def stack():
     from cvpce_tpu.pipeline.serving import (load_dihe_encoder,
                                             load_gln_variables)
+    from cvpce_tpu_torch.pipeline import serving
 
     gln = jax.device_get(load_gln_variables(GLN_DIR))
     params, stats = jax.device_get(load_dihe_encoder(DIHE_DIR))
     j_enc = JEmbedFn(JMACVGG(batch_norm=False),
                      j_fold_bn({"params": params, "batch_stats": stats}))
+    # the port's side reads the exports with its own orbax reader
+    state = serving.load_gln_variables(GLN_DIR)
     vgg = MACVGG(batch_norm=True)
-    vgg.load_state_dict(macvgg_state_dict(params, stats))
+    vgg.load_state_dict(serving.load_dihe_encoder(DIHE_DIR))
     t_enc = EmbedFn(fold_bn_variables(vgg), device="cpu")
     items = gallery()
     j_pg = JProposals(gln, JGLNConfig(canvas_h=H, canvas_w=W),
                       confidence_threshold=THRESHOLD, input_norm="raw01")
-    t_pg = ProposalGenerator(gln_state_dict(gln),
-                             GLNConfig(canvas_h=H, canvas_w=W),
+    t_pg = ProposalGenerator(state, GLNConfig(canvas_h=H, canvas_w=W),
                              confidence_threshold=THRESHOLD,
                              input_norm="raw01", device="cpu")
     return {
-        "gln": gln, "state": gln_state_dict(gln),
+        "gln": gln, "state": state,
         "j_enc": j_enc, "t_enc": t_enc, "gallery": items,
         "j_pg": j_pg, "t_pg": t_pg,
         "j_clf": JClassifier(j_enc, 1024, sample_set=items,
