@@ -92,18 +92,26 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   evaluate and train seconds, launches and the card's name and power
   limit;
 - data.jpeg: the 8 shelf photos again as JPEG files written by
-  testing.write_jpeg (4:2:0 at quality 90, one with a restart interval
-  of 4 MCUs, 4:2:2, 4:4:4, grey) in SKU-110K's layout, and the 4 scenes
-  at 4:2:0 in GP-180's layout, under build/chip_smoke/data/jpeg/: each
-  file's coefficients as the port's decoder reads them equal to those
-  written, its pixels equal to data/jpeg.py:reconstruct_reference's,
-  and 30 small edge files (1x1 to 61x97 and 33x200, every sampling,
-  restart intervals, SOF1) equal to decode_reference's; then
-  SKU110KDataset(device="cuda") over the photos into evaluate_gln (K1)
-  and PlanogramTestSet with data.files' catalogue into
+  testing.write_jpeg (4:2:0 at quality 90: baseline, progressive,
+  progressive with a restart interval of 4 MCUs, one scan a component,
+  baseline with the restart interval; 4:2:2, 4:4:4, grey) in SKU-110K's
+  layout, and the 4 scenes at 4:2:0 in GP-180's layout, under
+  build/chip_smoke/data/jpeg/: each file's coefficients as the port's
+  decoder reads them equal to those written, its pixels equal to
+  data/jpeg.py:reconstruct_reference's, and 30 small edge files (1x1 to
+  61x97 and 33x200, every sampling, restart intervals, SOF1) equal to
+  decode_reference's; the committed PIL and cv2 files of
+  tests/torch_fixtures/jpeg_features (progressive, CMYK, Adobe RGB)
+  read equal to the digests of the JAX package's reads; a 64-product
+  Grocery Products catalogue of progressive, CMYK, YCCK, RGB and
+  one-scan-a-component files read through GroceryProductsDataset and
+  InternalTrainSet equal to reconstruct_reference through to_rgb and
+  to_rgba; then SKU110KDataset(device="cuda") over the photos into
+  evaluate_gln (K1) and PlanogramTestSet with data.files' catalogue into
   evaluate_planograms (K1, K2), each equal to the same pass over the
-  decoded pixels in memory; decode seconds per megapixel of each
-  sampling, the encoder's seconds, launches;
+  decoded pixels in memory; decode seconds per megapixel of each kind
+  and by feature (baseline, progressive, one scan a component), the
+  encoder's seconds, launches;
 - cli: the command line (`cvpce_tpu_torch.cli.main(argv)` in this
   process) on data.files' photos, catalogue and scenes, each command's
   output and K1 / K2 launches held to the library calls with the same
@@ -2410,19 +2418,36 @@ def planogram_pass(ctx, clf, gp, pixels):
             "launches": files["launches"]}
 
 
-# (sampling, restart interval) of each SKU-110K photo of data.jpeg
-DATA_JPEG_PHOTOS = ((("4:2:0", 0),) * 4
-                    + (("4:2:0", 4), ("4:2:2", 0), ("4:4:4", 0), ("grey", 0)))
+# (sampling, restart interval, scans) of each SKU-110K photo of
+# data.jpeg: scans "" is one interleaved scan, "progressive" SOF2 with
+# libjpeg's simple progression, "components" one scan a component
+DATA_JPEG_PHOTOS = (("4:2:0", 0, ""), ("4:2:0", 0, "progressive"),
+                    ("4:2:0", 4, "progressive"), ("4:2:0", 0, "components"),
+                    ("4:2:0", 4, ""), ("4:2:2", 0, ""), ("4:4:4", 0, ""),
+                    ("grey", 0, ""))
 DATA_JPEG_QUALITY = 90
+# the Grocery Products catalogue of data.jpeg, one file a product in
+# turn of these kinds: (label, channels, write_jpeg keyword arguments)
+JPEG_CATALOGUE = 64
+JPEG_CATALOGUE_KINDS = (
+    ("progressive", 3, dict(progressive=True)),
+    ("cmyk", 4, dict(sampling="4:4:4")),
+    ("ycck", 4, dict(colour="ycck")),
+    ("rgb", 3, dict(colour="rgb", sampling="4:4:4")),
+    ("progressive cmyk", 4, dict(progressive=True, sampling="4:4:4")),
+    ("progressive ycck", 4, dict(progressive=True, colour="ycck")),
+    ("progressive rgb", 3, dict(progressive=True, colour="rgb",
+                                restart_interval=2)),
+    ("scan a component", 3, dict(scans="components", sampling="4:2:2")))
 JPEG_EDGE_SIZES = ((1, 1), (2, 3), (17, 9), (61, 97), (33, 200))
 JPEG_EDGE_SAMPLINGS = ("4:4:4", "4:2:2", "4:2:0", "4:4:0", "4:1:1", "grey")
 
 
 class _JPEGWriter:
     """write(i, path, uint8 image) for the dataset writers: the i-th
-    file as JPEG (testing.write_jpeg) at `samplings[i]`; returns (label,
-    the coefficients written). `seconds` adds up the encoder's time over
-    the writing threads."""
+    file as JPEG (testing.write_jpeg) at `samplings[i]` (sampling,
+    restart interval, scans); returns (label, the coefficients written).
+    `seconds` adds up the encoder's time over the writing threads."""
 
     def __init__(self, samplings):
         self.samplings = samplings
@@ -2430,16 +2455,18 @@ class _JPEGWriter:
         self._lock = threading.Lock()
 
     def __call__(self, i, path, u8):
-        sampling, restart = self.samplings[i]
+        sampling, restart, scans = self.samplings[i]
         grey = sampling == "grey"
         t0 = time.perf_counter()
         coefs = testing.write_jpeg(
             path, _grey(u8) if grey else u8, quality=DATA_JPEG_QUALITY,
             sampling="4:2:0" if grey else sampling,
-            restart_interval=restart)
+            restart_interval=restart, progressive=scans == "progressive",
+            scans="components" if scans == "components" else None)
         with self._lock:
             self.seconds += time.perf_counter() - t0
-        return sampling + (f" rst{restart}" if restart else ""), coefs
+        return " ".join(filter(None, (sampling, scans, f"rst{restart}"
+                                      if restart else ""))), coefs
 
 
 def _grey(u8) -> np.ndarray:
@@ -2475,7 +2502,7 @@ def jpeg_exact(files: Dict) -> Dict:
     def plain(path):
         c = coefs[path]
         return jpeg.reconstruct_reference(c.coefficients, c.tables,
-                                          c.sampling, c.size)
+                                          c.sampling, c.size, c.colour)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(8) as pool:
@@ -2485,9 +2512,19 @@ def jpeg_exact(files: Dict) -> Dict:
         require(np.array_equal(refs[path], pixels[path]),
                 f"{path}: the C++ decode differs from reconstruct_reference")
         pixels[path] = jpeg.to_rgb(jpeg.JPEGImage(pixels[path]))
+    by_feature = {}
+    for label, (sec, mp) in per_label.items():
+        feature = ("progressive" if "progressive" in label else
+                   "scan a component" if "components" in label
+                   else "baseline")
+        acc = by_feature.setdefault(feature, [0.0, 0.0])
+        acc[0] += sec
+        acc[1] += mp
     return pixels, {
         "seconds_per_megapixel": {k: v[0] / v[1]
                                   for k, v in per_label.items()},
+        "seconds_per_megapixel_by_feature": {
+            k: v[0] / v[1] for k, v in by_feature.items()},
         "megapixels": {k: v[1] for k, v in per_label.items()},
         "build_seconds": build_s, "reconstruct_reference_seconds": plain_s}
 
@@ -2525,6 +2562,87 @@ def jpeg_edge_files(root: Path, seed) -> Dict:
             "seconds": time.perf_counter() - t0}
 
 
+def jpeg_fixtures() -> Dict:
+    """The committed files of testing.JPEG_FIXTURE_DIR, which PIL and
+    cv2 wrote (progressive at each sampling and with `optimize`, cv2's
+    with restarts, grey progressive, CMYK, Adobe RGB): the port's
+    load_image and load_image_rgba of each equal the digests of the JAX
+    package's reads (PIL's convert("RGB"), cv2's IMREAD_UNCHANGED as
+    RGBA) in testing.JPEG_DIGESTS."""
+    root = Path(__file__).resolve().parent
+    digests = json.loads((root / testing.JPEG_DIGESTS).read_text())
+    t0 = time.perf_counter()
+    for name, want in digests.items():
+        path = root / testing.JPEG_FIXTURE_DIR / name
+        for load, key, lib in ((T.load_image, "rgb", "PIL"),
+                               (T.load_image_rgba, "rgba", "cv2")):
+            require(testing.pixel_digest(load(path)) == want[key],
+                    f"{path}: {load.__name__} differs from {lib}'s read")
+    return {"files": len(digests), "names": sorted(digests),
+            "seconds": time.perf_counter() - t0}
+
+
+def jpeg_catalogue(root: Path, seed) -> Dict:
+    """JPEG_CATALOGUE products in Grocery Products' layout
+    (Training/<family>/<line>/<p>.jpg, gallery images of seeded
+    product styles), written in turn as each of JPEG_CATALOGUE_KINDS
+    (progressive, CMYK, YCCK, RGB, one scan a component; four channels
+    as (R, G, B, 255 - a darkening)); read through GroceryProductsDataset
+    (load_image) and InternalTrainSet (load_image_rgba), each image
+    equal to jpeg.reconstruct_reference of the coefficients written
+    through to_rgb or to_rgba, and one item of each dataset taken."""
+    train = root / "Grocery_products" / "Training"
+    styles = synthetic.product_styles(JPEG_CATALOGUE, seed=seed + 131)
+    wrote, kinds = {}, {}
+    t0 = time.perf_counter()
+    for p, style in enumerate(styles):
+        label, channels, kw = JPEG_CATALOGUE_KINDS[
+            p % len(JPEG_CATALOGUE_KINDS)]
+        u8 = _quantise(synthetic.product_gallery_image(
+            style, height=DATA_VIEW_HEIGHT))
+        if channels == 4:
+            dark = np.full(u8.shape[:2] + (1,), 255 - 17 * (p % 5),
+                           np.uint8)
+            u8 = np.concatenate([u8, dark], -1)
+        path = train / f"{_product_path(p)}.jpg"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        wrote[str(path)] = testing.write_jpeg(path, u8, quality=85, **kw)
+        kinds[str(path)] = label
+    write_s = time.perf_counter() - t0
+
+    def plain(path):
+        c = jpeg.decode_coefficients(Path(path).read_bytes(), path)
+        require(all(np.array_equal(a, b) for a, b in zip(
+            c.coefficients, wrote[path])),
+            f"{path}: the coefficients decoded differ from those written")
+        return jpeg.JPEGImage(jpeg.reconstruct_reference(
+            c.coefficients, c.tables, c.sampling, c.size, c.colour))
+
+    refs = {path: plain(path) for path in wrote}
+    rows = {}
+    for name, ds, to in (
+            ("GroceryProductsDataset", GroceryProductsDataset(
+                [str(train)], random_crop=False), jpeg.to_rgb),
+            ("InternalTrainSet", InternalTrainSet(
+                str(train), random_crop=False), jpeg.to_rgba)):
+        require(sorted(ds.paths) == sorted(wrote),
+                f"{name} indexes other files than were written")
+        t0 = time.perf_counter()
+        for i, path in enumerate(ds.paths):
+            want = np.asarray(to(refs[path])[..., :3], np.float32) / 255.0
+            require(np.array_equal(ds._load(i), want),
+                    f"{path} ({kinds[path]}): {name} reads other pixels "
+                    "than reconstruct_reference's")
+        emb, _, _ = ds[0]
+        require(tuple(emb.shape) == (256, 256, 3)
+                and bool(torch.isfinite(emb).all()),
+                f"{name}[0]: {tuple(emb.shape)}")
+        rows[name] = {"seconds": time.perf_counter() - t0}
+    return {"products": len(wrote),
+            "kinds": collections.Counter(kinds.values()),
+            "write_seconds": write_s, **rows}
+
+
 class _MemorySKU(SKU110KDataset):
     """SKU110KDataset whose images are `pixels` ({name: uint8 RGB}),
     not the files."""
@@ -2541,16 +2659,20 @@ class _MemorySKU(SKU110KDataset):
 
 def phase_data_jpeg(ctx, seed, smi):
     """The readers on JPEG files, under build/chip_smoke/data/jpeg/:
-    DATA_PHOTOS shelf photos of 2448x3264 in SKU-110K's layout (4:2:0
-    at quality 90, one with a restart interval of 4 MCUs, 4:2:2, 4:4:4
-    and grey) and the 4 serve scenes as GP-180 files (4:2:0), written
-    by testing.write_jpeg; every file's coefficients decoded equal to
-    those written and its pixels to reconstruct_reference's; 30 small
-    edge files equal to decode_reference; then SKU110KDataset(device=
-    "cuda") into evaluate_gln with the serve detector (K1) and
-    PlanogramTestSet with data.files' catalogue into evaluate_planograms
-    (K1, K2), each held to the same pass over the decoded pixels in
-    memory."""
+    DATA_PHOTOS shelf photos of 2448x3264 in SKU-110K's layout
+    (DATA_JPEG_PHOTOS: 4:2:0 at quality 90 baseline, progressive,
+    progressive with a restart interval of 4 MCUs and one scan a
+    component, the restart interval alone, 4:2:2, 4:4:4 and grey) and
+    the 4 serve scenes as GP-180 files (4:2:0), written by
+    testing.write_jpeg; every file's coefficients decoded equal to those
+    written and its pixels to reconstruct_reference's; 30 small edge
+    files equal to decode_reference; the committed PIL / cv2 fixtures
+    against their digests (`jpeg_fixtures`); the JPEG_CATALOGUE products
+    through both Grocery Products readers (`jpeg_catalogue`); then
+    SKU110KDataset(device="cuda") into evaluate_gln with the serve
+    detector (K1) and PlanogramTestSet with data.files' catalogue into
+    evaluate_planograms (K1, K2), each held to the same pass over the
+    decoded pixels in memory."""
     t_phase = time.perf_counter()
     root = BUILD / "data" / "jpeg"
     shutil.rmtree(root, ignore_errors=True)
@@ -2560,7 +2682,7 @@ def phase_data_jpeg(ctx, seed, smi):
     t0 = time.perf_counter()
     photos_w = _JPEGWriter(DATA_JPEG_PHOTOS)
     sku = write_sku110k_files(root, seed, photos_w)
-    scenes_w = _JPEGWriter((("4:2:0", 0),) * len(DATA_STORES))
+    scenes_w = _JPEGWriter((("4:2:0", 0, ""),) * len(DATA_STORES))
     gp = write_gp_scenes(root, ctx["styles"], ctx["scenes"], scenes_w)
     write_s = time.perf_counter() - t0
     files = {**sku["outs"], **{p: ("scene " + lbl, c)
@@ -2574,6 +2696,10 @@ def phase_data_jpeg(ctx, seed, smi):
     pixels, decode = jpeg_exact(files)
     edges = jpeg_edge_files(root, seed)
     emit({"phase": "data.jpeg.exact", **decode, "edges": edges})
+    fixtures = jpeg_fixtures()
+    emit({"phase": "data.jpeg.fixtures", **fixtures})
+    catalogue = jpeg_catalogue(root, seed)
+    emit({"phase": "data.jpeg.catalogue", **catalogue})
 
     # SKU-110K: evaluate_gln on the files and on the pixels in memory
     kw = files_ctx["canvas_kw"]
@@ -2628,6 +2754,10 @@ def phase_data_jpeg(ctx, seed, smi):
         "knn_fused": planos["launches"]["knn_fused"]}
     emit({"phase": "data.jpeg",
           "decode_seconds_per_megapixel": decode["seconds_per_megapixel"],
+          "decode_seconds_per_megapixel_by_feature":
+              decode["seconds_per_megapixel_by_feature"],
+          "fixtures": fixtures["files"],
+          "catalogue": catalogue["products"],
           "encoder_seconds": photos_w.seconds + scenes_w.seconds,
           "launches": launches, "nvidia_smi": smi,
           "seconds": time.perf_counter() - t_phase})

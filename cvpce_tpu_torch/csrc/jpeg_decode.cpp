@@ -1,33 +1,52 @@
-// Baseline JPEG decoder for the port's image reader (data/jpeg.py).
+// JPEG decoder for the port's image reader (data/jpeg.py).
 //
 // The card's machine has no image library (no PIL, no cv2), and the
 // SKU-110K and Grocery Products photos are JPEG. This file reads
-// Huffman-coded sequential DCT files (SOF0, and SOF1, which libjpeg
-// writes when a quantisation table has 16-bit entries) at 8-bit
-// precision, with 1 or 3 components in one interleaved scan, and gives
-// the pixels that libjpeg-turbo's default decompression gives, which is
-// what PIL's convert("RGB") and cv2's IMREAD_UNCHANGED return:
+// Huffman-coded DCT files at 8-bit precision: sequential (SOF0, and
+// SOF1, which libjpeg writes when a quantisation table has 16-bit
+// entries) in one interleaved scan or in any split of the components
+// over scans, and progressive (SOF2: DC first and refinement scans, AC
+// first scans with EOB runs, AC refinement scans with their correction
+// bits, DHT and DRI between scans). It gives the samples that
+// libjpeg-turbo's default decompression gives, which is what PIL's
+// convert("RGB") and cv2's IMREAD_UNCHANGED start from:
 //
-//   - the coefficients are dequantised as coef * q in int;
+//   - the coefficients of every scan are gathered into one buffer for
+//     the whole image (jdcoefct.c's full-image buffer), then dequantised
+//     as coef * q in int, with each component's table latched at its
+//     first scan (jdinput.c's latch_quant_tables). A scan of one
+//     component walks the component's own ceil(width / 8) x ceil(height
+//     / 8) blocks; an interleaved scan walks whole MCUs, so the blocks
+//     that only the MCU padding holds keep what an interleaved scan gave
+//     them;
 //   - the IDCT is jidctint.c's jpeg_idct_islow (CONST_BITS 13,
 //     PASS1_BITS 2), its output taken through jdmaster.c's range-limit
 //     table (indexed by value & 1023, so far out-of-range values wrap);
-//   - chroma is upsampled as jdsample.c does with do_fancy_upsampling:
-//     the triangle filters for 2:1 across (when the component is more
-//     than 2 samples wide), 2:1 down, and 2:1 both ways (more than 2
-//     wide), with their alternating rounding biases; replication for
-//     every other integral ratio. The row above the first and below the
-//     last is the edge row itself (jdmainct.c's context rows); a
-//     component holds ceil(image_w * h / h_max) x ceil(image_h * v /
-//     v_max) samples;
-//   - YCbCr -> RGB with jdcolor.c's tables (SCALEBITS 16).
+//   - a component is upsampled as jdsample.c does with
+//     do_fancy_upsampling: the triangle filters for 2:1 across (when the
+//     component is more than 2 samples wide), 2:1 down, and 2:1 both
+//     ways (more than 2 wide), with their alternating rounding biases;
+//     replication for every other integral ratio. The row above the
+//     first and below the last is the edge row itself (jdmainct.c's
+//     context rows); a component holds ceil(image_w * h / h_max) x
+//     ceil(image_h * v / v_max) samples;
+//   - the colour space is jdapimin.c's guess: grey for one component;
+//     for three, YCbCr under JFIF, RGB under Adobe transform 0 or with
+//     component ids 'R' 'G' 'B' and neither marker, else YCbCr; for four,
+//     YCCK under Adobe transform 2 (or any but 0), else CMYK. YCbCr goes
+//     to RGB with jdcolor.c's tables (SCALEBITS 16); YCCK goes to CMYK
+//     through the same tables (ycck_cmyk_convert); RGB and CMYK pass as
+//     they are. The four-component output is libjpeg's JCS_CMYK, Adobe's
+//     inverted form, which data/jpeg.py turns into PIL's and cv2's RGB.
 //
 // Refused with status 2 (data/jpeg.py raises NotImplementedError):
-// progressive, lossless, hierarchical and arithmetic-coded files,
-// 12-bit samples, other than 1 or 3 components, RGB three-component
-// files (Adobe transform 0, or component ids 'R' 'G' 'B' without JFIF),
-// one scan a component, and DNL. Corrupt or truncated data gives status
-// 1 (OSError), as does a file that ends before its EOI marker, which is
+// lossless, hierarchical and arithmetic-coded files, 12-bit samples,
+// other than 1, 3 or 4 components, DNL, and a progressive file whose
+// scans leave one of the first nine AC coefficients of a component
+// unrefined (coded at a point transform above 0, or never), on which
+// libjpeg runs its block smoothing (jdcoefct.c's smoothing_ok and
+// decompress_smooth_data). Corrupt or truncated data gives status 1
+// (OSError), as does a file that ends before its EOI marker, which is
 // what PIL's read does with one.
 //
 // Host code, built with g++ into a shared library with a plain C
@@ -241,11 +260,21 @@ inline int extend(uint32_t v, int s) {
   return v < (1u << (s - 1)) ? int(v) - (1 << s) + 1 : int(v);
 }
 
+enum Colour { kGrey = 0, kYCbCr = 1, kRGB = 2, kCMYK = 3, kYCCK = 4 };
+// libjpeg-turbo's SAVED_COEFS: block smoothing looks at coefficients
+// 0-9 (zigzag), whose natural positions are these
+constexpr int kSmoothCoefs = 10;
+constexpr int kSmoothPos[kSmoothCoefs] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
-  int td = 0, ta = 0;  // Huffman tables of the scan
-  int bw = 0, bh = 0;  // blocks decoded across and down
-  int dw = 0, dh = 0;  // samples across and down
+  int td = 0, ta = 0;    // Huffman tables of the scan
+  int bw = 0, bh = 0;    // blocks stored across and down (MCU-padded)
+  int rbw = 0, rbh = 0;  // the component's own blocks: a lone scan's
+  int dw = 0, dh = 0;    // samples across and down
+  bool latched = false;  // its quantisation table, taken at its first scan
+  uint16_t q[64] = {};
+  int coef_bits[64];     // progressive: the Al last coded, -1 never
   std::vector<int16_t> coef;  // bh x bw blocks of 64, natural order
 };
 
@@ -254,6 +283,7 @@ struct Jpeg {
   size_t n;
   size_t pos = 0;
   int width = 0, height = 0, ncomp = 0, sof = 0;
+  bool progressive = false;
   int hmax = 1, vmax = 1;
   Component comp[4];
   uint16_t quant[4][64] = {};
@@ -262,9 +292,12 @@ struct Jpeg {
   int restart = 0;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
+  int colour = kGrey;
+  // the scan being read
   int scan[4] = {};
   int nscan = 0;
-  int mcux = 0, mcuy = 0;
+  int ss = 0, se = 63, ah = 0, al = 0;
+  bool multi_scan = false;
 
   Jpeg(const uint8_t* d, size_t len) : data(d), n(len) {}
 
@@ -302,6 +335,7 @@ struct Jpeg {
   void read_sof(int m) {
     if (sof) corrupt("two SOF markers");
     sof = m;
+    progressive = m == 0xC2;
     size_t end;
     size_t p = segment(&end);
     if (end - p < 6) corrupt("bad SOF length");
@@ -314,10 +348,9 @@ struct Jpeg {
     if (height == 0) refuse("JPEG with its height in a DNL marker; the port reads no DNL");
     if (width == 0) corrupt("empty JPEG image (width 0)");
     if (ncomp == 0) corrupt("JPEG frame with no components");
-    if (ncomp != 1 && ncomp != 3)
-      refuse(std::to_string(ncomp) + "-component JPEG (" +
-             (ncomp == 4 ? "CMYK or YCCK" : "neither grey nor YCbCr") +
-             "); the port reads grey and YCbCr only");
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+      refuse(std::to_string(ncomp) +
+             "-component JPEG; the port reads grey, YCbCr, RGB, CMYK and YCCK only");
     if (end - p != size_t(6 + 3 * ncomp)) corrupt("bad SOF length");
     for (int i = 0; i < ncomp; ++i) {
       const uint8_t* c = data + p + 6 + 3 * i;
@@ -330,6 +363,23 @@ struct Jpeg {
       if (comp[i].tq > 3) corrupt("bad JPEG quantisation table index");
       hmax = std::max(hmax, comp[i].h);
       vmax = std::max(vmax, comp[i].v);
+    }
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      if (hmax % c.h || vmax % c.v)
+        corrupt("JPEG sampling ratio that is not integral (libjpeg reads none)");
+      c.dw = int((int64_t(width) * c.h + hmax - 1) / hmax);
+      c.dh = int((int64_t(height) * c.v + vmax - 1) / vmax);
+      c.rbw = (c.dw + 7) / 8;
+      c.rbh = (c.dh + 7) / 8;
+      if (ncomp > 1) {
+        c.bw = (width + 8 * hmax - 1) / (8 * hmax) * c.h;
+        c.bh = (height + 8 * vmax - 1) / (8 * vmax) * c.v;
+      } else {
+        c.bw = c.rbw;
+        c.bh = c.rbh;
+      }
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
   }
 
@@ -367,6 +417,13 @@ struct Jpeg {
     }
   }
 
+  void read_dri() {
+    size_t end;
+    const size_t p = segment(&end);
+    if (end - p != 2) corrupt("bad DRI length");
+    restart = (data[p] << 8) | data[p + 1];
+  }
+
   void read_app(int m) {
     size_t end;
     const size_t p = segment(&end);
@@ -399,36 +456,65 @@ struct Jpeg {
       comp[ci].td = tables >> 4;
       comp[ci].ta = tables & 15;
     }
-    if (nscan != ncomp)
-      refuse("JPEG with one scan a component (" + std::to_string(nscan) +
-             " of " + std::to_string(ncomp) +
-             " in the first scan); the port reads one interleaved scan");
+    const uint8_t* tail = data + p + 1 + 2 * nscan;
+    ss = tail[0];
+    se = tail[1];
+    ah = tail[2] >> 4;
+    al = tail[2] & 15;
+    // jdphuff.c's start_pass_phuff_decoder; a sequential decoder only
+    // warns on a spectral band other than 0-63 and decodes it as 0-63
+    if (progressive) {
+      bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || nscan != 1);
+      if (ah != 0 && al != ah - 1) bad = true;
+      if (al > 13) bad = true;
+      if (bad) corrupt("bad progressive JPEG scan parameters (Ss " +
+                       std::to_string(ss) + ", Se " + std::to_string(se) +
+                       ", Ah " + std::to_string(ah) + ", Al " + std::to_string(al) + ")");
+    }
+    if (nscan > 1) {
+      int blocks = 0;
+      for (int i = 0; i < nscan; ++i) blocks += comp[scan[i]].h * comp[scan[i]].v;
+      if (blocks > 10) corrupt("JPEG MCU of more than 10 blocks");
+    }
   }
 
-  // up to and including the first SOS, then checks what the decode needs
+  // jdapimin.c's default_decompress_parms: the colour space from the
+  // markers read before the first scan
+  void guess_colour() {
+    if (ncomp == 1) {
+      colour = kGrey;
+    } else if (ncomp == 3) {
+      bool rgb;
+      if (jfif) rgb = false;
+      else if (adobe) rgb = adobe_transform == 0;
+      else rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
+      colour = rgb ? kRGB : kYCbCr;
+    } else {
+      colour = adobe && adobe_transform != 0 ? kYCCK : kCMYK;
+    }
+  }
+
+  // up to and including the first SOS
   void parse_header() {
     if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) corrupt("not a JPEG file");
     pos = 2;
     for (;;) {
       const int m = next_marker();
       switch (m) {
-        case 0xC0: case 0xC1: read_sof(m); break;
-        case 0xC2: refuse("progressive JPEG (SOF2); the port reads baseline and extended sequential JPEG only");
-        case 0xC3: refuse("lossless JPEG (SOF3); the port reads baseline and extended sequential JPEG only");
+        case 0xC0: case 0xC1: case 0xC2: read_sof(m); break;
+        case 0xC3: refuse("lossless JPEG (SOF3); the port reads sequential and progressive DCT JPEG only");
         case 0xC5: case 0xC6: case 0xC7: case 0xDE: case 0xDF:
-          refuse("hierarchical JPEG (marker FF" + hex2(m) + "); the port reads baseline and extended sequential JPEG only");
+          refuse("hierarchical JPEG (marker FF" + hex2(m) + "); the port reads sequential and progressive DCT JPEG only");
         case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
           refuse("arithmetic-coded JPEG (SOF" + std::to_string(m - 0xC0) + "); the port reads Huffman-coded JPEG only");
         case 0xC4: read_dht(); break;
         case 0xDB: read_dqt(); break;
-        case 0xDD: {
-          size_t end;
-          const size_t p = segment(&end);
-          if (end - p != 2) corrupt("bad DRI length");
-          restart = (data[p] << 8) | data[p + 1];
-          break;
-        }
-        case 0xDA: read_sos(); check(); return;
+        case 0xDD: read_dri(); break;
+        case 0xDA:
+          read_sos();
+          guess_colour();
+          multi_scan = progressive || nscan < ncomp;
+          return;
         case 0xD8: corrupt("two SOI markers");
         case 0xD9: corrupt("JPEG ends before its image (EOI before SOS)");
         case 0xDC: refuse("DNL marker; the port reads no DNL");
@@ -445,48 +531,30 @@ struct Jpeg {
     }
   }
 
-  void check() {
-    if (ncomp == 3) {
-      bool rgb;
-      if (jfif) rgb = false;
-      else if (adobe) rgb = adobe_transform == 0;
-      else rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
-      if (rgb)
-        refuse("RGB JPEG (Adobe transform 0 or components 'R' 'G' 'B'); the port reads YCbCr and grey only");
-    }
-    int blocks = 0;
-    for (int i = 0; i < ncomp; ++i) {
-      Component& c = comp[i];
-      if (hmax % c.h || vmax % c.v)
-        corrupt("JPEG sampling ratio that is not integral (libjpeg reads none)");
-      if (!quant_defined[c.tq]) corrupt("JPEG quantisation table not defined");
-      // libjpeg-turbo fills the undefined slots 0 and 1 with Annex K's
-      if (!dc[c.td].defined) {
+  // what the scan just read needs: each component's quantisation table
+  // (latched at its first scan) and the Huffman tables its mode reads.
+  // libjpeg-turbo fills the undefined slots 0 and 1 with Annex K's.
+  void start_scan() {
+    for (int i = 0; i < nscan; ++i) {
+      Component& c = comp[scan[i]];
+      if (!c.latched) {
+        if (!quant_defined[c.tq]) corrupt("JPEG quantisation table not defined");
+        std::memcpy(c.q, quant[c.tq], sizeof c.q);
+        c.latched = true;
+      }
+      const bool dc_scan = !progressive || (ss == 0 && ah == 0);
+      const bool ac_scan = !progressive || ss > 0;
+      if (dc_scan && !dc[c.td].defined) {
         if (c.td > 1) corrupt("JPEG Huffman table not defined");
         dc[c.td].set(kStdCounts[2 * c.td], kStdDc, true);
       }
-      if (!ac[c.ta].defined) {
+      if (ac_scan && !ac[c.ta].defined) {
         if (c.ta > 1) corrupt("JPEG Huffman table not defined");
         ac[c.ta].set(kStdCounts[2 * c.ta + 1],
                      c.ta ? kStdAcChroma : kStdAcLuma, false);
       }
-      c.dw = int((int64_t(width) * c.h + hmax - 1) / hmax);
-      c.dh = int((int64_t(height) * c.v + vmax - 1) / vmax);
-      blocks += c.h * c.v;
-    }
-    if (ncomp > 1) {
-      if (blocks > 10) corrupt("JPEG MCU of more than 10 blocks");
-      mcux = (width + 8 * hmax - 1) / (8 * hmax);
-      mcuy = (height + 8 * vmax - 1) / (8 * vmax);
-      for (int i = 0; i < ncomp; ++i) {
-        comp[i].bw = mcux * comp[i].h;
-        comp[i].bh = mcuy * comp[i].v;
-      }
-    } else {
-      comp[0].bw = (comp[0].dw + 7) / 8;
-      comp[0].bh = (comp[0].dh + 7) / 8;
-      mcux = comp[0].bw;
-      mcuy = comp[0].bh;
+      if (progressive)
+        for (int k = ss; k <= se; ++k) c.coef_bits[k] = al;
     }
   }
 
@@ -511,6 +579,7 @@ struct Jpeg {
     }
   }
 
+  // jdhuff.c's decode_mcu on one block of a sequential scan
   static void decode_block(BitReader& br, const Huffman& dc,
                            const Huffman& ac, int* pred, int16_t* blk) {
     if (br.bits < 32) br.fill();
@@ -534,14 +603,112 @@ struct Jpeg {
     }
   }
 
+  // jdphuff.c's decode_mcu_DC_first on one block
+  void dc_first(BitReader& br, const Huffman& h, int* pred, int16_t* blk) const {
+    if (br.bits < 32) br.fill();
+    const int s = br.decode(h);
+    int diff = 0;
+    if (s) diff = extend(br.get(s), s);
+    *pred = int(unsigned(*pred) + unsigned(diff));
+    blk[0] = int16_t(unsigned(*pred) << al);
+  }
+
+  // decode_mcu_DC_refine
+  void dc_refine(BitReader& br, int16_t* blk) const {
+    if (br.bits < 1) br.fill();
+    if (br.get(1)) blk[0] = int16_t(blk[0] | (1 << al));
+  }
+
+  // decode_mcu_AC_first
+  void ac_first(BitReader& br, const Huffman& h, int* eobrun, int16_t* blk) const {
+    if (*eobrun > 0) {
+      --*eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      if (br.bits < 32) br.fill();
+      const int rs = br.decode(h);
+      const int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = int16_t(unsigned(extend(br.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        *eobrun = 1 << r;
+        if (r) *eobrun += int(br.get(r));
+        --*eobrun;
+        break;
+      }
+    }
+  }
+
+  // decode_mcu_AC_refine: the correction bits of the coefficients
+  // already nonzero, newly nonzero ones of magnitude 1 << Al
+  void ac_refine(BitReader& br, const Huffman& h, int* eobrun, int16_t* blk) const {
+    const int p1 = 1 << al, m1 = -p1;
+    int k = ss;
+    if (*eobrun == 0) {
+      for (; k <= se; ++k) {
+        if (br.bits < 32) br.fill();
+        const int rs = br.decode(h);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {  // s != 1 is bad data, which libjpeg only warns about
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          *eobrun = 1 << r;
+          if (r) *eobrun += int(br.get(r));
+          break;
+        }
+        do {
+          int16_t* c = blk + kNatural[k];
+          if (*c != 0) {
+            if (br.bits < 1) br.fill();
+            if (br.get(1) && (*c & p1) == 0)
+              *c = int16_t(*c >= 0 ? *c + p1 : *c + m1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = int16_t(s);
+      }
+    }
+    if (*eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* c = blk + kNatural[k];
+        if (*c == 0) continue;
+        if (br.bits < 1) br.fill();
+        if (br.get(1) && (*c & p1) == 0)
+          *c = int16_t(*c >= 0 ? *c + p1 : *c + m1);
+      }
+      --*eobrun;
+    }
+  }
+
+  void decode_unit(BitReader& br, const Component& c, int ci, int* pred,
+                   int* eobrun, int16_t* blk) const {
+    if (!progressive) decode_block(br, dc[c.td], ac[c.ta], &pred[ci], blk);
+    else if (ss == 0 && ah == 0) dc_first(br, dc[c.td], &pred[ci], blk);
+    else if (ss == 0) dc_refine(br, blk);
+    else if (ah == 0) ac_first(br, ac[c.ta], eobrun, blk);
+    else ac_refine(br, ac[c.ta], eobrun, blk);
+  }
+
+  // the entropy-coded data of the scan just started; pos ends at the
+  // marker after it
   void decode_scan() {
-    for (int i = 0; i < ncomp; ++i)
-      comp[i].coef.assign(size_t(comp[i].bw) * comp[i].bh * 64, 0);
     BitReader br;
     br.data = data;
     br.n = n;
     br.reset(pos);
     int pred[4] = {0, 0, 0, 0};
+    int eobrun = 0;
+    // a lone component is walked block by block over its own blocks;
+    // an interleaved scan MCU by MCU
+    const bool lone = nscan == 1;
+    const int mcux = lone ? comp[scan[0]].rbw : (width + 8 * hmax - 1) / (8 * hmax);
+    const int mcuy = lone ? comp[scan[0]].rbh : (height + 8 * vmax - 1) / (8 * vmax);
     const int64_t total = int64_t(mcux) * mcuy;
     int next_rst = 0;
     for (int64_t m = 0; m < total; ++m) {
@@ -555,16 +722,16 @@ struct Jpeg {
         next_rst = (next_rst + 1) & 7;
         br.reset(br.marker_pos + 2);
         std::fill(pred, pred + 4, 0);
+        eobrun = 0;
       }
       const int my = int(m / mcux), mx = int(m % mcux);
       for (int s = 0; s < nscan; ++s) {
         Component& c = comp[scan[s]];
-        const int h = ncomp > 1 ? c.h : 1, v = ncomp > 1 ? c.v : 1;
+        const int h = lone ? 1 : c.h, v = lone ? 1 : c.v;
         for (int by = 0; by < v; ++by)
           for (int bx = 0; bx < h; ++bx) {
             const size_t b = size_t(my * v + by) * c.bw + size_t(mx * h + bx);
-            decode_block(br, dc[c.td], ac[c.ta], &pred[scan[s]],
-                         c.coef.data() + b * 64);
+            decode_unit(br, c, scan[s], pred, &eobrun, c.coef.data() + b * 64);
           }
       }
       br.overrun();
@@ -574,19 +741,60 @@ struct Jpeg {
     pos = br.marker_pos;
   }
 
-  // the markers after the scan, up to EOI
-  void finish() {
+  // every scan after the header's first, up to EOI
+  void decode() {
+    for (int i = 0; i < ncomp; ++i)
+      comp[i].coef.assign(size_t(comp[i].bw) * comp[i].bh * 64, 0);
     for (;;) {
-      const int m = next_marker();
-      if (m == 0xD9) return;
-      if (m == 0xDC) refuse("DNL marker; the port reads no DNL");
-      if (m == 0xDA) corrupt("a second scan in a sequential JPEG");
-      if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
-      if (m == 0xD8 || (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC))
-        corrupt("marker FF" + hex2(m) + " after the scan");
-      size_t end;
-      segment(&end);
+      start_scan();
+      decode_scan();
+      for (;;) {
+        const int m = next_marker();
+        if (m == 0xD9) {
+          check_smoothing();
+          return;
+        }
+        if (m == 0xDA) {
+          if (!multi_scan) corrupt("a second scan in a single-scan sequential JPEG");
+          read_sos();
+          break;
+        }
+        if (m == 0xDC) refuse("DNL marker; the port reads no DNL");
+        if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+        if (m == 0xC4) read_dht();
+        else if (m == 0xDB) read_dqt();
+        else if (m == 0xDD) read_dri();
+        else if (m == 0xD8 || (m >= 0xC0 && m <= 0xCF && m != 0xCC))
+          corrupt("marker FF" + hex2(m) + " after a scan");
+        else {
+          size_t end;
+          segment(&end);
+        }
+      }
     }
+  }
+
+  // jdcoefct.c's smoothing_ok, at the start of the output pass: libjpeg
+  // smooths the blocks of a progressive file when, for every component,
+  // the DC was coded and the quantisers it reads are nonzero, and for
+  // some component one of the first nine AC coefficients is not coded
+  // down to bit 0. The port does not port the smoothing: it refuses.
+  void check_smoothing() const {
+    if (!progressive) return;
+    bool useful = false;
+    for (int i = 0; i < ncomp; ++i) {
+      const Component& c = comp[i];
+      if (!c.latched) return;
+      for (int k = 0; k < kSmoothCoefs; ++k)
+        if (c.q[kSmoothPos[k]] == 0) return;
+      if (c.coef_bits[0] < 0) return;
+      for (int k = 1; k < kSmoothCoefs; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    if (useful)
+      refuse("progressive JPEG whose scans leave a low-frequency AC coefficient "
+             "unrefined, which libjpeg decodes with block smoothing; the port "
+             "reads no block smoothing");
   }
 };
 
@@ -678,15 +886,15 @@ struct Plane {
   int w = 0, h = 0;  // stride and rows: the decoded blocks' samples
 };
 
-Plane reconstruct(const Jpeg& j, const Component& c) {
+// the component's own blocks (the padding's are never output)
+Plane reconstruct(const Component& c) {
   Plane p;
-  p.w = c.bw * 8;
-  p.h = c.bh * 8;
+  p.w = c.rbw * 8;
+  p.h = c.rbh * 8;
   p.px.resize(size_t(p.w) * p.h);
-  const uint16_t* q = j.quant[c.tq];
-  for (int by = 0; by < c.bh; ++by)
-    for (int bx = 0; bx < c.bw; ++bx)
-      idct_islow(c.coef.data() + (size_t(by) * c.bw + bx) * 64, q,
+  for (int by = 0; by < c.rbh; ++by)
+    for (int bx = 0; bx < c.rbw; ++bx)
+      idct_islow(c.coef.data() + (size_t(by) * c.bw + bx) * 64, c.q,
                  p.px.data() + size_t(by) * 8 * p.w + bx * 8, size_t(p.w));
   return p;
 }
@@ -758,37 +966,51 @@ struct ColorTables {
 inline uint8_t clamp255(int v) { return uint8_t(std::min(std::max(v, 0), 255)); }
 
 void decode_pixels(Jpeg& j, uint8_t* out) {
-  const int W = j.width, H = j.height;
-  if (j.ncomp == 1) {
-    const Plane p = reconstruct(j, j.comp[0]);
+  const int W = j.width, H = j.height, nc = j.ncomp;
+  if (nc == 1) {
+    const Plane p = reconstruct(j.comp[0]);
     for (int y = 0; y < H; ++y)
       std::memcpy(out + size_t(y) * W, p.px.data() + size_t(y) * p.w, W);
     return;
   }
-  Plane planes[3];
-  for (int i = 0; i < 3; ++i) {
-    planes[i] = reconstruct(j, j.comp[i]);
+  Plane planes[4];
+  for (int i = 0; i < nc; ++i) {
+    planes[i] = reconstruct(j.comp[i]);
     j.comp[i].coef.clear();
     j.comp[i].coef.shrink_to_fit();
   }
   const ColorTables t;
-  std::vector<uint8_t> rows(3 * size_t(W));
+  std::vector<uint8_t> rows(size_t(nc) * W);
   std::vector<int> colsum;
   std::vector<uint8_t> wide;
   for (int y = 0; y < H; ++y) {
-    for (int i = 0; i < 3; ++i)
+    for (int i = 0; i < nc; ++i)
       upsample_row(j.comp[i], planes[i], j.hmax / j.comp[i].h,
                    j.vmax / j.comp[i].v, y, W, rows.data() + size_t(i) * W,
                    colsum, wide);
-    const uint8_t* Y = rows.data();
-    const uint8_t* Cb = Y + W;
-    const uint8_t* Cr = Cb + W;
-    uint8_t* o = out + size_t(y) * W * 3;
-    for (int x = 0; x < W; ++x) {
-      const int yy = Y[x], cb = Cb[x], cr = Cr[x];
-      o[3 * x] = clamp255(yy + t.cr_r[cr]);
-      o[3 * x + 1] = clamp255(yy + int((t.cb_g[cb] + t.cr_g[cr]) >> 16));
-      o[3 * x + 2] = clamp255(yy + t.cb_b[cb]);
+    const uint8_t* c0 = rows.data();
+    const uint8_t* c1 = c0 + W;
+    const uint8_t* c2 = c1 + W;
+    const uint8_t* c3 = c2 + W;
+    uint8_t* o = out + size_t(y) * W * nc;
+    if (j.colour == kYCbCr) {
+      for (int x = 0; x < W; ++x) {
+        const int yy = c0[x], cb = c1[x], cr = c2[x];
+        o[3 * x] = clamp255(yy + t.cr_r[cr]);
+        o[3 * x + 1] = clamp255(yy + int((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+        o[3 * x + 2] = clamp255(yy + t.cb_b[cb]);
+      }
+    } else if (j.colour == kYCCK) {  // ycck_cmyk_convert
+      for (int x = 0; x < W; ++x) {
+        const int yy = c0[x], cb = c1[x], cr = c2[x];
+        o[4 * x] = clamp255(255 - (yy + t.cr_r[cr]));
+        o[4 * x + 1] = clamp255(255 - (yy + int((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+        o[4 * x + 2] = clamp255(255 - (yy + t.cb_b[cb]));
+        o[4 * x + 3] = c3[x];
+      }
+    } else {  // RGB and CMYK pass as they are
+      for (int x = 0; x < W; ++x)
+        for (int i = 0; i < nc; ++i) o[nc * x + i] = rows[size_t(i) * W + x];
     }
   }
 }
@@ -805,26 +1027,26 @@ int fail(const Failure& f, char* message, int64_t message_len) {
 
 extern "C" {
 
-// Parses up to the first SOS and checks that the port reads the file.
+// Parses up to the first SOS and checks that the port reads the file so
+// far (what only the later scans show is checked by the decode).
 // info receives 8 + 8 x 4 int32: width, height, components, h_max,
-// v_max, restart interval, SOF marker (0xC0 / 0xC1), then for each
-// component id, h, v, quantisation table, blocks across, blocks down,
-// samples across, samples down. quant receives the 4 x 64 tables of the
-// components (natural order). Returns 0, 1 (corrupt or truncated) or 2
-// (refused), with the reason in message.
+// v_max, restart interval of the first scan, SOF marker (0xC0 / 0xC1 /
+// 0xC2), colour space (0 grey, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK), then
+// for each component id, h, v, quantisation table, blocks across, blocks
+// down, samples across, samples down. Returns 0, 1 (corrupt or
+// truncated) or 2 (refused), with the reason in message.
 int32_t jpeg_header(const uint8_t* data, int64_t n, int32_t* info,
-                    uint16_t* quant, char* message, int64_t message_len) {
+                    char* message, int64_t message_len) {
   try {
     Jpeg j(data, size_t(n));
     j.parse_header();
     const int32_t head[8] = {j.width, j.height, j.ncomp, j.hmax,
-                             j.vmax, j.restart, j.sof, 0};
+                             j.vmax, j.restart, j.sof, j.colour};
     std::memcpy(info, head, sizeof head);
     for (int i = 0; i < j.ncomp; ++i) {
       const Component& c = j.comp[i];
       const int32_t row[8] = {c.id, c.h, c.v, c.tq, c.bw, c.bh, c.dw, c.dh};
       std::memcpy(info + 8 + 8 * i, row, sizeof row);
-      std::memcpy(quant + 64 * i, j.quant[c.tq], 64 * sizeof(uint16_t));
     }
     return 0;
   } catch (const Failure& f) {
@@ -834,15 +1056,15 @@ int32_t jpeg_header(const uint8_t* data, int64_t n, int32_t* info,
   }
 }
 
-// Decodes the whole file into out: height x width x components bytes,
-// grey or RGB. Returns as jpeg_header does.
+// Decodes the whole file into out: height x width x channels bytes,
+// grey, RGB or CMYK (libjpeg's JCS_CMYK: Adobe's inverted form). Returns
+// as jpeg_header does.
 int32_t jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
                     char* message, int64_t message_len) {
   try {
     Jpeg j(data, size_t(n));
     j.parse_header();
-    j.decode_scan();
-    j.finish();
+    j.decode();
     decode_pixels(j, out);
     return 0;
   } catch (const Failure& f) {
@@ -852,20 +1074,23 @@ int32_t jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
   }
 }
 
-// The quantised coefficients, before the IDCT: for each component in
-// frame order, blocks down x blocks across x 64 int16 (natural order),
-// one after the other in out. Returns as jpeg_header does.
+// The quantised coefficients of every scan, before the IDCT: for each
+// component in frame order, blocks down x blocks across x 64 int16
+// (natural order), one after the other in out; quant receives each
+// component's quantisation table as latched at its first scan (zeros
+// for a component no scan holds). Returns as jpeg_header does.
 int32_t jpeg_coefficients(const uint8_t* data, int64_t n, int16_t* out,
-                          char* message, int64_t message_len) {
+                          uint16_t* quant, char* message,
+                          int64_t message_len) {
   try {
     Jpeg j(data, size_t(n));
     j.parse_header();
-    j.decode_scan();
-    j.finish();
+    j.decode();
     for (int i = 0; i < j.ncomp; ++i) {
       std::memcpy(out, j.comp[i].coef.data(),
                   j.comp[i].coef.size() * sizeof(int16_t));
       out += j.comp[i].coef.size();
+      std::memcpy(quant + 64 * i, j.comp[i].q, 64 * sizeof(uint16_t));
     }
     return 0;
   } catch (const Failure& f) {

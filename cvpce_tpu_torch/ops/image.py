@@ -1,5 +1,6 @@
-"""Crop + square-pad + resize and normalization (torch); counterpart of
-cvpce_tpu/ops/image.py in its f32 gather form (`crop_resize_square`).
+"""Crop + square-pad + resize, whole-image resizes and normalization
+(torch); counterpart of cvpce_tpu/ops/image.py in its f32 gather form
+(`crop_resize_square`, `resize_bilinear`, `pad_to_square_resize`).
 
 Images are HWC float32 in [0, 1] unless noted.
 """
@@ -78,3 +79,40 @@ def crop_resize_square(image: torch.Tensor, boxes: torch.Tensor,
     inside = inside_y[:, :, None] & inside_x[:, None, :]
     return torch.where(inside[..., None], vals,
                        torch.full_like(vals, PAD_VALUE))
+
+
+def resize_bilinear(image: torch.Tensor, out_h: int, out_w: int
+                    ) -> torch.Tensor:
+    """Plain bilinear resize (align_corners=False) of an HWC image, edge
+    samples clamped."""
+    h, w, _ = image.shape
+    py = (torch.arange(out_h, dtype=torch.float32, device=image.device)
+          + 0.5) * (h / out_h) - 0.5
+    px = (torch.arange(out_w, dtype=torch.float32, device=image.device)
+          + 0.5) * (w / out_w) - 0.5
+    sy = py.clamp(0.0, h - 1.0)
+    sx = px.clamp(0.0, w - 1.0)
+    y0, x0 = torch.floor(sy).long(), torch.floor(sx).long()
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    ly = (sy - y0)[:, None, None]
+    lx = (sx - x0)[None, :, None]
+
+    def at(yi, xi):
+        return image[yi][:, xi]
+
+    return ((1 - ly) * (1 - lx) * at(y0, x0) + (1 - ly) * lx * at(y0, x1)
+            + ly * (1 - lx) * at(y1, x0) + ly * lx * at(y1, x1))
+
+
+def pad_to_square_resize(image: torch.Tensor,
+                         out_size: int = CLASSIFICATION_IMAGE_SIZE
+                         ) -> torch.Tensor:
+    """Square-pad a whole image with PAD_VALUE gray (right / bottom),
+    then resize: the full-image variant of `crop_resize_square`."""
+    h, w, c = image.shape
+    side = max(h, w)
+    canvas = torch.full((side, side, c), PAD_VALUE, dtype=image.dtype,
+                        device=image.device)
+    canvas[:h, :w] = image
+    return resize_bilinear(canvas, out_size, out_size)

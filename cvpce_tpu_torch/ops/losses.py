@@ -126,6 +126,17 @@ def _mined_over_ranks(se: torch.Tensor, pos_mask: torch.Tensor,
     return value + (local - local.detach())
 
 
+def hierarchy_similarity_matrix(pos_depth: torch.Tensor,
+                                shared_prefix: torch.Tensor,
+                                neg_is_prefix: torch.Tensor) -> torch.Tensor:
+    """The shared prefix over the positive path's depth (at least 1), 1
+    where the negative's path is a prefix of the positive's. Not on the
+    training path, which computes the similarity on the host from the
+    category paths (train/dihe.py), as the JAX package does."""
+    sim = shared_prefix / torch.clamp(pos_depth, min=1)
+    return torch.where(neg_is_prefix, torch.ones_like(sim), sim)
+
+
 def hierarchical_triplet_loss(anchor_emb: torch.Tensor,
                               pos_emb: torch.Tensor, neg_emb: torch.Tensor,
                               similarity: torch.Tensor,

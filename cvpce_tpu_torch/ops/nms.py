@@ -176,6 +176,26 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     return _nms(boxes, scores, valid, iou_threshold, nms_keep_sorted_plain)
 
 
+def nms_topk(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             k: int, iou_threshold: float = 0.5):
+    """Hard NMS + static top-k: (boxes (k, 4), scores (k,), valid (k,)),
+    with a leading batch dimension when given one. The kept boxes by
+    score, ties to the lower index as `lax.top_k`; past the kept ones
+    the lowest-index suppressed boxes, score 0 and valid False. k may not
+    exceed the box count (ValueError, as top_k raises)."""
+    if k > scores.shape[-1]:
+        raise ValueError(f"nms_topk: k={k} above the {scores.shape[-1]} "
+                         "boxes")
+    keep = nms_mask(boxes, scores, valid, iou_threshold)
+    kept = torch.where(keep, scores, torch.full_like(scores, -torch.inf))
+    top, idx = torch.sort(kept, dim=-1, descending=True, stable=True)
+    top, idx = top[..., :k], idx[..., :k]
+    out_valid = torch.isfinite(top)
+    picked = torch.take_along_dim(boxes, idx[..., None], dim=-2)
+    return picked, torch.where(out_valid, top, torch.zeros_like(top)), \
+        out_valid
+
+
 def nms_mask_fused(boxes: torch.Tensor, scores: torch.Tensor,
                    valid: torch.Tensor,
                    iou_threshold: float = 0.5) -> torch.Tensor:

@@ -718,156 +718,279 @@ def _segment(marker: int, body: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
 
 
-def write_jpeg(path, array: np.ndarray, quality: int = 90,
-               sampling: str = "4:2:0", restart_interval: int = 0,
-               sof: int = 0xC0):
-    """Write `array` as a Huffman-coded sequential JPEG (a helper of the
-    tests and the smoke run, not part of the data API) and return the
-    quantised coefficients it wrote: one (blocks down, blocks across, 8,
-    8) int16 array a component, natural order.
+def _optimal_huffman(freq: np.ndarray):
+    """(16 code counts, symbols) of a Huffman table for the symbol
+    counts `freq` (256), as libjpeg's jpeg_gen_optimal_table builds one:
+    a reserved symbol of count 1 takes the all-ones code (which no table
+    may use), lengths are cut to 16 bits by its adjust_bits, and the
+    symbols are listed by their code length."""
+    import heapq
 
-    uint8 (H, W) or (H, W, 1) is grey, (H, W, 3) RGB, converted to YCbCr
-    with JFIF's equations. `sampling` is a name of JPEG_SAMPLINGS (the
-    luma factors; chroma is 1 x 1; grey ignores it), the tables those of
-    Annex K at IJG's `quality` scaling, `restart_interval` the MCUs
-    between RST markers (0: none). `sof` 0xC1 writes an extended
-    sequential frame with 16-bit quantisation tables. Vectorised numpy
-    with no Python loop over symbols or blocks: a 2448 x 3264 photo
-    takes seconds."""
-    import struct
+    syms = [int(s) for s in np.nonzero(freq)[0]] + [256]
+    size = dict.fromkeys(syms, 0)
+    heap = [(int(freq[s]) if s < 256 else 1, s, [s]) for s in syms]
+    heapq.heapify(heap)
+    while len(heap) > 1:
+        f1, t1, l1 = heapq.heappop(heap)
+        f2, t2, l2 = heapq.heappop(heap)
+        for s in l1 + l2:
+            size[s] += 1
+        heapq.heappush(heap, (f1 + f2, min(t1, t2), l1 + l2))
+    bits = [0] * (max(max(size.values()), 16) + 1)
+    for s in syms:
+        bits[size[s]] += 1
+    for i in range(len(bits) - 1, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1  # the reserved symbol's code
+    order = sorted(syms[:-1], key=lambda s: (size[s], s))
+    return bytes(bits[1:17]), bytes(order)
 
-    from .data.jpeg import ZIGZAG
 
-    a = np.asarray(array, np.uint8)
-    if a.ndim == 3 and a.shape[2] == 1:
-        a = a[..., 0]
-    height, width = a.shape[:2]
-    grey = a.ndim == 2
-    hmax, vmax = (1, 1) if grey else JPEG_SAMPLINGS[sampling]
-    luma_q, chroma_q = jpeg_quant_tables(quality, baseline=sof == 0xC0)
-    if grey:
-        ph, pw = -(-height // 8) * 8, -(-width // 8) * 8
-        planes = [np.pad(a, ((0, ph - height), (0, pw - width)),
-                         mode="edge").astype(np.float64)]
-        factors = [(1, 1)]
-    else:
-        mh, mw = 8 * vmax, 8 * hmax
-        ph, pw = -(-height // mh) * mh, -(-width // mw) * mw
-        rgb = np.pad(a, ((0, ph - height), (0, pw - width), (0, 0)),
-                     mode="edge").astype(np.float64)
-        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-        ycc = [0.299 * r + 0.587 * g + 0.114 * b,
-               -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
-               0.5 * r - 0.418688 * g - 0.081312 * b + 128]
-        ycc = [np.clip(np.round(p), 0, 255) for p in ycc]
-        planes = [ycc[0]] + [p.reshape(ph // vmax, vmax, pw // hmax,
-                                       hmax).mean((1, 3)) for p in ycc[1:]]
-        factors = [(hmax, vmax), (1, 1), (1, 1)]
-    dct = _dct_matrix()
-    coefs = []
-    for i, p in enumerate(planes):
-        bh, bw = p.shape[0] // 8, p.shape[1] // 8
-        blocks = (p - 128).reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
-        f = dct @ blocks @ dct.T
-        q = luma_q if i == 0 else chroma_q
-        coefs.append(np.round(f / q).astype(np.int16))
+# jcparam.c's jpeg_simple_progression: (components, Ss, Se, Ah, Al) of
+# each scan; the YCbCr script, and the one for every other colour space
+_YCC_PROGRESSION = (
+    ((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+    ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+    ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+    ((0,), 1, 63, 1, 0))
 
-    # blocks in the scan's order: MCU by MCU, each component's h x v
-    # blocks in raster order (grey: one block an MCU)
-    order_c, order_b, mcu_of = [], [], []
-    if grey:
-        n = coefs[0].shape[0] * coefs[0].shape[1]
-        per_mcu, mcus = 1, n
-        order_c.append(np.zeros(n, np.int64))
-        order_b.append(np.arange(n))
-        pos = [np.arange(n)]
-    else:
-        my, mx = ph // (8 * vmax), pw // (8 * hmax)
-        mcus = my * mx
-        per_mcu = sum(h * v for h, v in factors)
-        pos, offset = [], 0
-        for i, (h, v) in enumerate(factors):
-            mi, by, mj, bx = np.meshgrid(np.arange(my), np.arange(v),
-                                         np.arange(mx), np.arange(h),
-                                         indexing="ij")
-            rows, cols = mi * v + by, mj * h + bx
-            order_c.append(np.full(rows.size, i))
-            order_b.append((rows * (mx * h) + cols).ravel())
-            pos.append(((mi * mx + mj) * per_mcu + offset + by * h
-                        + bx).ravel())
-            offset += h * v
+
+def _progression(ncomp: int, colour: str):
+    if colour == "ycbcr":
+        return _YCC_PROGRESSION
+    every = tuple(range(ncomp))
+    lone = [(c,) for c in every]
+    return ((every, 0, 0, 0, 1), *[(c, 1, 5, 0, 2) for c in lone],
+            *[(c, 6, 63, 0, 2) for c in lone],
+            *[(c, 1, 63, 2, 1) for c in lone], (every, 0, 0, 1, 0),
+            *[(c, 1, 63, 1, 0) for c in lone])
+
+
+def _scan_blocks(comps, factors, grids, reals):
+    """(component, flat block index in its stored grid, MCU) of each
+    block of a scan in stream order: a lone component's own blocks in
+    raster order, else MCU by MCU with each component's h x v blocks."""
+    if len(comps) == 1:
+        c = comps[0]
+        rbh, rbw = reals[c]
+        r, q = np.divmod(np.arange(rbh * rbw), rbw)
+        return (np.full(rbh * rbw, c), r * grids[c][1] + q,
+                np.arange(rbh * rbw))
+    h0, v0 = factors[comps[0]]
+    my, mx = grids[comps[0]][0] // v0, grids[comps[0]][1] // h0
+    per_mcu = sum(factors[c][0] * factors[c][1] for c in comps)
+    order_c, order_b, pos, offset = [], [], [], 0
+    for c in comps:
+        h, v = factors[c]
+        mi, by, mj, bx = np.meshgrid(np.arange(my), np.arange(v),
+                                     np.arange(mx), np.arange(h),
+                                     indexing="ij")
+        order_c.append(np.full(mi.size, c))
+        order_b.append(((mi * v + by) * (mx * h) + mj * h + bx).ravel())
+        pos.append(((mi * mx + mj) * per_mcu + offset + by * h + bx).ravel())
+        offset += h * v
     seq = np.argsort(np.concatenate(pos), kind="stable")
-    comp = np.concatenate(order_c)[seq]
-    flat = [c.reshape(-1, 64)[:, ZIGZAG].astype(np.int64) for c in coefs]
-    zz = np.empty((len(seq), 64), np.int64)
-    blk = np.concatenate(order_b)[seq]
-    for i in range(len(flat)):
-        zz[comp == i] = flat[i][blk[comp == i]]
-    mcu = np.arange(len(seq)) // per_mcu
-    seg = mcu // restart_interval if restart_interval else np.zeros_like(mcu)
+    return (np.concatenate(order_c)[seq], np.concatenate(order_b)[seq],
+            np.arange(len(seq)) // per_mcu)
 
-    # DC differences, the predictors reset at each restart
-    diff = np.empty(len(seq), np.int64)
-    for i in range(len(flat)):
-        sel = np.nonzero(comp == i)[0]
-        dc, s = zz[sel, 0], seg[sel]
-        prev = np.concatenate([[0], dc[:-1]])
+
+# event keys: block (in scan order) * _SLOTS + slot; slot 0 is the EOB
+# run flushed before a block's first code and 1 its correction bits, a
+# coefficient at zigzag k codes at 2 + 4k ... 2 + 4k + 3, and the run
+# flushed at a block's end takes _END and _END + 1
+_SLOTS, _END = 1024, 1000
+
+
+def _events(key, sym, xval, xlen, tbl, key2=None):
+    n = len(key)
+    return dict(key=np.asarray(key, np.int64),
+                key2=np.zeros(n, np.int64) if key2 is None
+                else np.asarray(key2, np.int64),
+                tbl=np.broadcast_to(np.asarray(tbl, np.int64), (n,)),
+                sym=np.broadcast_to(np.asarray(sym, np.int64), (n,)),
+                xval=np.asarray(xval, np.int64),
+                xlen=np.broadcast_to(np.asarray(xlen, np.int64), (n,)))
+
+
+def _dc_events(dc, comp, seg, table):
+    """The DC differences of each component, predictors reset at each
+    restart; `dc` after the point transform."""
+    diff = np.empty(len(dc), np.int64)
+    for c in np.unique(comp):
+        sel = np.nonzero(comp == c)[0]
+        prev = np.concatenate([[0], dc[sel][:-1]])
+        s = seg[sel]
         prev[np.concatenate([[True], s[1:] != s[:-1]])] = 0
-        diff[sel] = dc - prev
-    table = np.where(comp == 0, 0, 1)
-    lookups = [_huffman_lookup(*t) for t in JPEG_HUFFMAN]
-    dc_code = np.stack([lookups[0][0], lookups[2][0]])
-    dc_len = np.stack([lookups[0][1], lookups[2][1]])
-    ac_code = np.stack([lookups[1][0], lookups[3][0]])
-    ac_len = np.stack([lookups[1][1], lookups[3][1]])
-
-    # events: (block, slot) keys, a code + extra bits each
-    keys, vals, lens = [], [], []
+        diff[sel] = dc[sel] - prev
     size, extra = _magnitude(diff)
-    keys.append(np.arange(len(seq)) * 256)
-    vals.append((dc_code[table, size] << size) | extra)
-    lens.append(dc_len[table, size] + size)
-    nb, nk = np.nonzero(zz[:, 1:])
-    nk = nk + 1
+    return _events(np.arange(len(dc)) * _SLOTS + 2, size, extra, size,
+                   table)
+
+
+def _eob_runs(contrib, has_codes, seg, maxrun, table):
+    """jcphuff.c's EOB runs: each block whose band ends in zeros (or
+    in correction bits alone) adds one to the run, which is flushed
+    before the next block that codes a coefficient, at a restart or the
+    scan's end, and when it reaches `maxrun` (1 in a sequential scan:
+    an EOB a block). Returns the run events and, for each block, the
+    key of the run that holds it (-1 when none)."""
+    n = len(contrib)
+    seg_end = np.concatenate([seg[1:] != seg[:-1], [True]])
+    # the flush points before block i's first code and after its end,
+    # in time 2i and 2i + 1; a block's count joins the next flush
+    group = (np.cumsum(has_codes)
+             + np.concatenate([[0], np.cumsum(seg_end)[:-1]]))
+    times = np.sort(np.concatenate([2 * np.nonzero(has_codes)[0],
+                                    2 * np.nonzero(seg_end)[0] + 1]))
+    blocks = np.nonzero(contrib)[0]
+    run_key = np.full(n, -1, np.int64)
+    if not len(blocks):
+        return _events([], 0, [], 0, []), run_key
+    g = group[blocks]
+    idx = np.arange(len(blocks))
+    first = np.concatenate([[True], g[1:] != g[:-1]])
+    m = idx - np.maximum.accumulate(np.where(first, idx, 0))
+    sub = m // maxrun
+    t = times[g]
+    flush_key = np.where(t % 2, (t // 2) * _SLOTS + _END, (t // 2) * _SLOTS)
+    # a run that reaches maxrun goes at the end of its last block
+    ends_full = np.zeros(len(blocks), bool)
+    last_of = np.concatenate([(g[1:] != g[:-1]) | (sub[1:] != sub[:-1]),
+                              [True]])
+    ends_full[last_of] = (m[last_of] + 1) % maxrun == 0
+    run_id = np.cumsum(np.concatenate([[True], (g[1:] != g[:-1])
+                                       | (sub[1:] != sub[:-1])])) - 1
+    at_full = np.zeros(run_id[-1] + 1, bool)
+    at_full[run_id[last_of]] = ends_full[last_of]
+    last_block = np.zeros(run_id[-1] + 1, np.int64)
+    last_block[run_id[last_of]] = blocks[last_of]
+    key = np.where(at_full, last_block * _SLOTS + _END,
+                   np.zeros_like(last_block))
+    key[~at_full] = flush_key[last_of][~at_full]
+    run_key[blocks] = key[run_id]
+    length = np.bincount(run_id)
+    nbits = np.floor(np.log2(length)).astype(np.int64)
+    return (_events(key, nbits << 4, length - (1 << nbits), nbits,
+                    table[last_block]), run_key)
+
+
+def _ac_first_events(band, ss, seg, maxrun, table):
+    """An AC scan's first pass over band ss.. (values after the point
+    transform): runs of zeros, ZRL for each 16, EOB runs."""
+    n, length = band.shape
+    nb, nk = np.nonzero(band)
     first = np.concatenate([[True], nb[1:] != nb[:-1]])
-    prev_k = np.where(first, 0, np.concatenate([[0], nk[:-1]]))
+    prev_k = np.where(first, -1, np.concatenate([[0], nk[:-1]]))
     run = nk - prev_k - 1
-    zrl = run // 16
-    size, extra = _magnitude(zz[nb, nk])
-    sym = ((run % 16) << 4) | size
-    t = table[nb]
-    keys.append(nb * 256 + 3 * nk + 3)
-    vals.append((ac_code[t, sym] << size) | extra)
-    lens.append(ac_len[t, sym] + size)
+    size, extra = _magnitude(band[nb, nk])
+    base = nb * _SLOTS + 2 + 4 * (ss + nk)
+    out = [_events(base + 3, ((run % 16) << 4) | size, extra, size,
+                   table[nb])]
     for j in range(3):  # at most 3 runs of 16 zeros before a value
-        w = np.nonzero(zrl > j)[0]
-        keys.append(nb[w] * 256 + 3 * nk[w] + j)
-        vals.append(ac_code[t[w], 0xF0])
-        lens.append(ac_len[t[w], 0xF0])
-    last = np.zeros(len(seq), np.int64)
+        w = np.nonzero(run // 16 > j)[0]
+        out.append(_events(base[w] + j, 0xF0, np.zeros(len(w)), 0,
+                           table[nb[w]]))
+    has_codes = np.zeros(n, bool)
+    has_codes[nb] = True
+    last = np.full(n, -1)
     last[nb] = nk  # np.nonzero is row-major: the last write is the last k
-    eob = np.nonzero(last < 63)[0]
-    keys.append(eob * 256 + 200)
-    vals.append(ac_code[table[eob], 0])
-    lens.append(ac_len[table[eob], 0])
-    keys, vals, lens = (np.concatenate(x) for x in (keys, vals, lens))
-    # each restart segment ends on a byte boundary, padded with 1 bits
-    ev_seg = seg[keys // 256]
-    nseg = int(seg[-1]) + 1
+    runs, _ = _eob_runs(last < length - 1, has_codes, seg, maxrun, table)
+    return out + [runs]
+
+
+def _ac_refine_events(band, ss, al, seg, table):
+    """jcphuff.c's encode_mcu_AC_refine over band ss.. of the original
+    coefficients: a newly nonzero coefficient (magnitude 1 after the
+    point transform) codes its zero run and its sign; one already nonzero
+    sends its next bit, buffered until the next code of its block
+    (a ZRL, emitted only where a newly nonzero one follows, or a new
+    coefficient) or, after the last new one, until its EOB run is
+    flushed."""
+    a = np.abs(band) >> al
+    n, length = a.shape
+    new = a == 1
+    eob = np.where(new.any(1), length - 1 - np.argmax(new[:, ::-1], 1), -1)
+    eb, ek = np.nonzero(a)
+    big = len(eb)
+    idx = np.arange(big)
+    is_new = a[eb, ek] == 1
+    coded = ek <= eob[eb]
+    first = np.concatenate([[True], eb[1:] != eb[:-1]])
+    start = np.maximum.accumulate(np.where(first, idx, 0))
+    zeros_before = ek - (idx - start)
+    last_new = np.maximum.accumulate(np.where(is_new, idx, -1))
+    prev_new = np.concatenate([[-1], last_new[:-1]])
+    since = prev_new >= start
+    z = zeros_before - np.where(
+        since, np.concatenate([[0], zeros_before])[prev_new + 1], 0)
+    zrl_total = z // 16
+    same = ~first & ~np.concatenate([[False], is_new[:-1]])
+    zrl = np.where(coded, zrl_total - np.where(
+        same, np.concatenate([[0], zrl_total[:-1]]), 0), 0)
+    has_ev = coded & ((zrl > 0) | is_new)
+    nxt = np.minimum.accumulate(np.where(has_ev, idx, big)[::-1])[::-1]
+    nxt = np.concatenate([nxt[1:], [big]])
+    base = eb * _SLOTS + 2 + 4 * (ss + ek)
+    out = []
+    w = np.nonzero(has_ev & (zrl > 0))[0]
+    out.append(_events(base[w], 0xF0, np.zeros(len(w)), 0, table[eb[w]]))
+    for j in range(1, 4):
+        w = np.nonzero(has_ev & (zrl > j))[0]
+        out.append(_events(base[w] + 2, 0xF0, np.zeros(len(w)), 0,
+                           table[eb[w]], key2=np.full(len(w), j)))
+    w = np.nonzero(is_new & coded)[0]
+    sign = (band[eb[w], ek[w]] >= 0).astype(np.int64)
+    out.append(_events(base[w] + np.where(zrl[w] > 0, 3, 0),
+                       ((z[w] % 16) << 4) | 1, sign, 1, table[eb[w]]))
+    corr = (a[eb, ek] & 1).astype(np.int64)
+    w = np.nonzero(~is_new & coded)[0]
+    out.append(_events(base[nxt[w]] + 1, -1, corr[w], 1, -1, key2=ek[w]))
+    has_codes = eob >= 0
+    runs, run_key = _eob_runs(eob < length - 1, has_codes, seg, 0x7FFF,
+                              table)
+    out.append(runs)
+    w = np.nonzero(~is_new & ~coded)[0]
+    out.append(_events(run_key[eb[w]] + 1, -1, corr[w], 1, -1,
+                       key2=eb[w] * 64 + ek[w]))
+    return out
+
+
+def _pack_scan(events, seg, nseg, tables) -> bytes:
+    """The scan's entropy-coded bytes: the events in key order, each
+    code from `tables` ({slot: (code of each symbol, its length)}) and
+    its extra bits; each restart segment padded with 1 bits to a byte,
+    0xFF stuffed with 0x00, RSTn between segments."""
+    ev = {k: np.concatenate([e[k] for e in events]) for k in events[0]}
+    order = np.lexsort((ev["key2"], ev["key"]))
+    ev = {k: v[order] for k, v in ev.items()}
+    code = np.zeros(len(order), np.int64)
+    clen = np.zeros(len(order), np.int64)
+    for slot, (codes, lengths) in tables.items():
+        w = ev["tbl"] == slot
+        code[w], clen[w] = codes[ev["sym"][w]], lengths[ev["sym"][w]]
+    vals = (code << ev["xlen"]) | ev["xval"]
+    lens = clen + ev["xlen"]
+    ev_seg = seg[ev["key"] // _SLOTS]
     seg_bits = np.bincount(ev_seg, weights=lens, minlength=nseg).astype(
         np.int64)
     pad = (-seg_bits) % 8
-    ends = np.searchsorted(seg, np.arange(nseg), side="right") - 1
-    keys = np.concatenate([keys, ends * 256 + 255])
-    vals = np.concatenate([vals, (1 << pad) - 1])
-    lens = np.concatenate([lens, pad])
-    order = np.argsort(keys, kind="stable")
-    vals, lens = vals[order], lens[order]
-    ev = np.repeat(np.arange(len(vals)), lens)
+    at = np.searchsorted(ev_seg, np.arange(nseg), side="right")
+    vals = np.insert(vals, at, (1 << pad) - 1)
+    lens = np.insert(lens, at, pad)
+    bit_ev = np.repeat(np.arange(len(vals)), lens)
     start = np.cumsum(lens) - lens
-    shift = lens[ev] - 1 - (np.arange(len(ev)) - start[ev])
-    scan = np.packbits(((vals[ev] >> shift) & 1).astype(np.uint8))
-    # stuff a 0x00 after each 0xFF, then RSTn between the segments
+    shift = lens[bit_ev] - 1 - (np.arange(len(bit_ev)) - start[bit_ev])
+    scan = np.packbits(((vals[bit_ev] >> shift) & 1).astype(np.uint8))
     bounds = np.cumsum((seg_bits + pad) // 8)[:-1]
     ff = np.nonzero(scan == 0xFF)[0] + 1
     rst = 0xD0 + np.arange(len(bounds)) % 8
@@ -875,32 +998,224 @@ def write_jpeg(path, array: np.ndarray, quality: int = 90,
                      np.concatenate([np.zeros(len(ff), np.int64),
                                      np.full(len(bounds), 0xFF),
                                      rst]).astype(np.uint8))
+    return scan.tobytes()
 
-    sixteen = sof != 0xC0
-    out = [b"\xff\xd8",
-           _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
-    for i, q in enumerate([luma_q] if grey else [luma_q, chroma_q]):
+
+# component ids, and whether an Adobe marker (with its transform) or a
+# JFIF one is written, by colour space
+_JPEG_IDS = {"grey": b"\x01", "ycbcr": b"\x01\x02\x03", "rgb": b"RGB",
+             "cmyk": b"CMYK", "ycck": b"\x01\x02\x03\x04"}
+_ADOBE_TRANSFORM = {"rgb": 0, "cmyk": 0, "ycck": 2}
+
+
+def _ycc(rgb: np.ndarray):
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    ycc = [0.299 * r + 0.587 * g + 0.114 * b,
+           -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+           0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+    return [np.clip(np.round(p), 0, 255) for p in ycc]
+
+
+def write_jpeg(path, array: np.ndarray, quality: int = 90,
+               sampling: str = "4:2:0", restart_interval: int = 0,
+               sof: int = 0xC0, colour: str = None,
+               progressive: bool = False, scans=None):
+    """Write `array` as a Huffman-coded JPEG (a helper of the tests and
+    the smoke run, not part of the data API) and return the quantised
+    coefficients it wrote: one (blocks down, blocks across, 8, 8) int16
+    array a component, natural order, zero where no scan codes them.
+
+    uint8 (H, W) or (H, W, 1) is grey, (H, W, 3) RGB, (H, W, 4) CMYK as
+    libjpeg takes and gives it (Adobe's inverted form). `colour` is the
+    file's colour space: for three channels "ycbcr" (the default, JFIF's
+    equations, a JFIF marker) or "rgb" (no transform, an Adobe marker
+    with transform 0); for four "cmyk" (the default, Adobe transform 0)
+    or "ycck" (C, M, Y inverted to R, G, B and taken to YCbCr as
+    jccolor.c's cmyk_ycck_convert does, K kept; Adobe transform 2).
+    `sampling` is a name of JPEG_SAMPLINGS: the factors of the first
+    component (and of K); the others are 1 x 1, grey ignores it. The
+    tables are those of Annex K at IJG's `quality` scaling,
+    `restart_interval` the MCUs between RST markers (0: none). `sof`
+    0xC1 writes an extended sequential frame with 16-bit quantisation
+    tables. `scans` splits the components of a sequential file over
+    scans: None one interleaved scan, "components" one scan each, or a
+    tuple of tuples of component indices; a scan of one component codes
+    its own blocks only, not the MCU padding. `progressive` writes SOF2
+    with jcparam.c's jpeg_simple_progression script (DC first at Al 1,
+    AC bands at Al 2 and 1, refinement down to bit 0; 10 scans for
+    YCbCr, 2 + 4 x components for the others), each scan with Huffman
+    tables built from its own symbol counts (DHT before each scan; the
+    Annex K tables lack the EOB-run symbols). Vectorised numpy with no
+    Python loop over symbols or blocks."""
+    import struct
+
+    from .data.jpeg import CHANNELS, ZIGZAG
+
+    a = np.asarray(array, np.uint8)
+    if a.ndim == 3 and a.shape[2] == 1:
+        a = a[..., 0]
+    height, width = a.shape[:2]
+    ncomp = 1 if a.ndim == 2 else a.shape[2]
+    colour = colour or {1: "grey", 3: "ycbcr", 4: "cmyk"}[ncomp]
+    if CHANNELS[colour] != ncomp:
+        raise ValueError(f"{colour} from {ncomp} channels")
+    if progressive and (sof != 0xC0 or scans is not None):
+        raise ValueError("a progressive file has its own scans and SOF2")
+    hmax, vmax = (1, 1) if ncomp == 1 else JPEG_SAMPLINGS[sampling]
+    factors = [(hmax, vmax) if c in (0, 3) else (1, 1)
+               for c in range(ncomp)]
+    tq = [0 if c in (0, 3) else 1 for c in range(ncomp)]
+    luma_q, chroma_q = jpeg_quant_tables(quality, baseline=sof == 0xC0)
+    mh, mw = 8 * vmax, 8 * hmax
+    ph, pw = -(-height // mh) * mh, -(-width // mw) * mw
+    pad = ((0, ph - height), (0, pw - width)) + ((0, 0),) * (a.ndim - 2)
+    px = np.pad(a, pad, mode="edge").astype(np.float64)
+    if colour == "grey":
+        planes = [px]
+    elif colour == "ycbcr":
+        planes = _ycc(px)
+    elif colour == "ycck":
+        planes = _ycc(255 - px[..., :3]) + [px[..., 3]]
+    else:
+        planes = [px[..., c] for c in range(ncomp)]
+    dct = _dct_matrix()
+    coefs, grids, reals = [], [], []
+    for c, (p, (h, v)) in enumerate(zip(planes, factors)):
+        p = p.reshape(ph * v // vmax, vmax // v, pw * h // hmax,
+                      hmax // h).mean((1, 3))
+        bh, bw = p.shape[0] // 8, p.shape[1] // 8
+        blocks = (p - 128).reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        f = dct @ blocks @ dct.T
+        q = luma_q if tq[c] == 0 else chroma_q
+        coefs.append(np.round(f / q).astype(np.int16))
+        grids.append((bh, bw))
+        dh, dw = -(-height * v // vmax), -(-width * h // hmax)
+        reals.append((-(-dh // 8), -(-dw // 8)))
+
+    if progressive:
+        script = _progression(ncomp, colour)
+    elif scans is None:
+        script = ((tuple(range(ncomp)), 0, 63, 0, 0),)
+    else:
+        split = ([(c,) for c in range(ncomp)] if scans == "components"
+                 else [tuple(s) for s in scans])
+        if sorted(sum(split, ())) != list(range(ncomp)):
+            raise ValueError(f"scans {scans!r} do not split the components")
+        script = tuple((s, 0, 63, 0, 0) for s in split)
+    flat = [c.reshape(-1, 64)[:, ZIGZAG].astype(np.int64) for c in coefs]
+    dc_done = [np.zeros(len(f), bool) for f in flat]
+    ac_done = [np.zeros(len(f), bool) for f in flat]
+    tbl_of = np.array([min(c, 1) for c in range(ncomp)])
+    std = {slot: _huffman_lookup(*JPEG_HUFFMAN[slot]) for slot in range(4)}
+
+    out_scans = []
+    for comps, ss, se, ah, al in script:
+        comp, blk, mcu = _scan_blocks(comps, factors, grids, reals)
+        zz = np.empty((len(blk), 64), np.int64)
+        for c in comps:
+            w = comp == c
+            zz[w] = flat[c][blk[w]]
+            (dc_done if ss == 0 else ac_done)[c][blk[w]] = True
+            if not progressive:
+                ac_done[c][blk[w]] = True
+        seg = mcu // restart_interval if restart_interval else \
+            np.zeros_like(mcu)
+        nseg = int(seg[-1]) + 1
+        # Huffman slots: 2t the DC table t, 2t + 1 the AC table t
+        dc_tbl, ac_tbl = 2 * tbl_of[comp], 2 * tbl_of[comp] + 1
+        if not progressive:
+            events = [_dc_events(zz[:, 0], comp, seg, dc_tbl)]
+            events += _ac_first_events(zz[:, 1:], 1, seg, 1, ac_tbl)
+            out_scans.append((comps, ss, se, ah, al, b"",
+                              _pack_scan(events, seg, nseg, std)))
+            continue
+        if ss == 0 and ah == 0:
+            events = [_dc_events(zz[:, 0] >> al, comp, seg, dc_tbl)]
+        elif ss == 0:
+            events = [_events(np.arange(len(zz)) * _SLOTS + 2, -1,
+                              (zz[:, 0] >> al) & 1, 1, -1)]
+        elif ah == 0:
+            band = zz[:, ss:se + 1]
+            band = np.sign(band) * (np.abs(band) >> al)
+            events = _ac_first_events(band, ss, seg, 0x7FFF, ac_tbl)
+        else:
+            events = _ac_refine_events(zz[:, ss:se + 1], ss, al, seg,
+                                       ac_tbl)
+        ev_tbl = np.concatenate([e["tbl"] for e in events])
+        ev_sym = np.concatenate([e["sym"] for e in events])
+        tables, dht = {}, b""
+        for slot in np.unique(ev_tbl[ev_tbl >= 0]):
+            counts, symbols = _optimal_huffman(np.bincount(
+                ev_sym[ev_tbl == slot], minlength=256))
+            tables[int(slot)] = _huffman_lookup(counts, symbols)
+            dht += bytes([((slot % 2) << 4) | (slot // 2)]) + counts \
+                + symbols
+        out_scans.append((comps, ss, se, ah, al, dht,
+                          _pack_scan(events, seg, nseg, tables)))
+
+    for c in range(ncomp):
+        coefs[c].reshape(-1, 64)[~dc_done[c], 0] = 0
+        coefs[c].reshape(-1, 64)[~ac_done[c], 1:] = 0
+
+    out = [b"\xff\xd8"]
+    if colour in _ADOBE_TRANSFORM:
+        out.append(_segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00"
+                            + bytes([_ADOBE_TRANSFORM[colour]])))
+    else:
+        out.append(_segment(
+            0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
+    sixteen = sof == 0xC1
+    for i, q in enumerate([luma_q] if ncomp == 1 else [luma_q, chroma_q]):
         zq = q.reshape(64)[ZIGZAG]
         body = (bytes([0x10 | i]) + zq.astype(">u2").tobytes() if sixteen
                 else bytes([i]) + zq.astype(np.uint8).tobytes())
         out.append(_segment(0xDB, body))
-    frame = struct.pack(">BHHB", 8, height, width, len(planes))
-    for i, (h, v) in enumerate(factors):
-        frame += bytes([i + 1, (h << 4) | v, min(i, 1)])
-    out.append(_segment(sof, frame))
-    for i, (counts, symbols) in enumerate(JPEG_HUFFMAN[:2 if grey else 4]):
-        index = ((i % 2) << 4) | (i // 2)
-        out.append(_segment(0xC4, bytes([index]) + counts + symbols))
+    frame = struct.pack(">BHHB", 8, height, width, ncomp)
+    ids = _JPEG_IDS[colour]
+    for c, (h, v) in enumerate(factors):
+        frame += bytes([ids[c], (h << 4) | v, tq[c]])
+    out.append(_segment(0xC2 if progressive else sof, frame))
+    if not progressive:
+        for i, (counts, symbols) in enumerate(
+                JPEG_HUFFMAN[:2 if ncomp == 1 else 4]):
+            index = ((i % 2) << 4) | (i // 2)
+            out.append(_segment(0xC4, bytes([index]) + counts + symbols))
     if restart_interval:
         out.append(_segment(0xDD, struct.pack(">H", restart_interval)))
-    scan_head = bytes([len(planes)])
-    for i in range(len(planes)):
-        scan_head += bytes([i + 1, 0x11 * min(i, 1)])
-    out += [_segment(0xDA, scan_head + b"\x00\x3f\x00"), scan.tobytes(),
-            b"\xff\xd9"]
+    for comps, ss, se, ah, al, dht, data in out_scans:
+        if dht:
+            out.append(_segment(0xC4, dht))
+        head = bytes([len(comps)])
+        for c in comps:
+            t = int(tbl_of[c])
+            head += bytes([ids[c], (t << 4) | t])
+        out += [_segment(0xDA, head + bytes([ss, se, (ah << 4) | al])), data]
+    out.append(b"\xff\xd9")
     with open(path, "wb") as f:
         f.write(b"".join(out))
     return coefs
+
+
+# tests/torch_fixtures/jpeg_features/ holds JPEG files that PIL and cv2
+# wrote (progressive, CMYK, Adobe RGB; scripts/write_jpeg_fixtures.py)
+# and tests/torch_fixtures/jpeg_digests.json the digests of the JAX
+# package's two reads of each, so that the card's run, which has neither
+# library, holds the port's readers to them.
+JPEG_FIXTURE_DIR = "tests/torch_fixtures/jpeg_features"
+JPEG_DIGESTS = "tests/torch_fixtures/jpeg_digests.json"
+
+
+def pixel_digest(pixels: np.ndarray) -> str:
+    """sha256 of an image read as the loaders give it (float in [0, 1],
+    turned back into its uint8 samples) or of uint8 samples: the shape,
+    then the bytes."""
+    import hashlib
+
+    a = np.asarray(pixels)
+    if a.dtype != np.uint8:
+        a = np.rint(a.astype(np.float64) * 255).astype(np.uint8)
+    return hashlib.sha256(str(a.shape).encode()
+                          + np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
 # ------------------------------------------------- orbax checkpoints

@@ -117,9 +117,10 @@ def test_target_domain_crops(sku):
 
 
 def test_sku110k_refuses_jpeg_and_falls_back_on_a_broken_png(sku):
-    """A baseline JPEG reads as JAX's does; a progressive one, which the
-    port refuses, raises NotImplementedError (never item 0); a cut file
-    is an OSError in both, and item 0 comes back."""
+    """A baseline and a progressive JPEG read as JAX's do; a progressive
+    one cut short of its last scan, which PIL reads with libjpeg's block
+    smoothing and the port refuses, raises NotImplementedError (never
+    item 0); a cut file is an OSError in both, and item 0 comes back."""
     img_dir, ann = sku
     jpeg = os.path.join(img_dir, "b.jpg")
     Image.open(jpeg).convert("RGB").save(jpeg, format="JPEG")
@@ -131,7 +132,14 @@ def test_sku110k_refuses_jpeg_and_falls_back_on_a_broken_png(sku):
     Image.open(jpeg).convert("RGB").save(jpeg, format="JPEG",
                                          progressive=True)
     assert want[1]["name"] == "b.jpg"
-    with pytest.raises(NotImplementedError, match="b.jpg.*progressive"):
+    _same_item(got[1], want[1])
+    with open(jpeg, "rb") as f:
+        data = f.read()
+    with open(jpeg, "wb") as f:
+        f.write(data[:data.rindex(b"\xff\xda")] + b"\xff\xd9")
+    assert want[1]["name"] == "b.jpg"
+    with pytest.raises(NotImplementedError,
+                       match="b.jpg.*block smoothing"):
         got[1]
     cut = os.path.join(img_dir, "c.jpg")
     with open(cut, "rb") as f:

@@ -10,7 +10,9 @@ patched, from seeded numpy arrays at 1x1, 2x3, 17x9, 61x97 and 33x200
 pixels, grey among them. Tolerance: none, the decoded arrays are equal.
 Then the plain versions (`decode_reference`, `reconstruct_reference`)
 against the C++, the refusals (NotImplementedError naming the file and
-the feature) and truncation (OSError wherever PIL's read is one)."""
+the feature) and truncation (OSError wherever PIL's read is one). The
+progressive, multi-scan, CMYK, YCCK and RGB files are in
+tests/test_torch_jpeg_features.py."""
 import io
 
 import cv2
@@ -158,24 +160,41 @@ def _patch(data: bytes, marker: bytes, offset: int, value: int) -> bytes:
 
 
 def test_refusals_name_the_file_and_the_feature(tmp_path):
+    """Progressive, CMYK and RGB files, once refused, read as JAX reads
+    them (tests/test_torch_jpeg_features.py takes them further); the
+    features still refused raise NotImplementedError naming the file:
+    arithmetic coding, 12-bit samples, lossless (SOF3), hierarchical
+    (SOF5), DNL, 2 components, and a progressive file whose last scan
+    is dropped, which libjpeg decodes with block smoothing."""
     rng = np.random.default_rng(12)
     img = Image.fromarray(_photo(rng, 24, 40))
     base = _pil_bytes(img)
+    progressive = _pil_bytes(img, progressive=True)
+    read = {
+        "progressive": progressive,
+        "cmyk": _pil_bytes(img.convert("CMYK")),
+        "rgb": _pil_bytes(img, keep_rgb=True),
+    }
+    last_scan = progressive.rindex(b"\xff\xda")
     cases = {
-        "progressive": (_pil_bytes(img, progressive=True), "progressive"),
-        "cmyk": (_pil_bytes(img.convert("CMYK")), "CMYK"),
         "sof9": (_patch(base, b"\xff\xc0", 1, 0xC9), "arithmetic"),
         "12bit": (_patch(base, b"\xff\xc0", 4, 12), "12-bit"),
-        "rgb": (_pil_bytes(img, keep_rgb=True), "RGB JPEG"),
+        "sof3": (_patch(base, b"\xff\xc0", 1, 0xC3), "lossless"),
+        "sof5": (_patch(base, b"\xff\xc0", 1, 0xC5), "hierarchical"),
         "dnl": (_patch(_patch(base, b"\xff\xc0", 5, 0), b"\xff\xc0", 6, 0),
                 "DNL"),
+        "2comp": (_patch(base, b"\xff\xc0", 9, 2), "2-component"),
+        "smoothing": (progressive[:last_scan] + b"\xff\xd9",
+                      "block smoothing"),
     }
-    # PIL reads the first two and the RGB file
-    for name in ("progressive", "cmyk", "rgb"):
+    # PIL reads the first three and the file libjpeg smooths
+    for name, data in (*read.items(), ("smoothing", cases["smoothing"][0])):
         path = str(tmp_path / f"{name}.jpg")
         with open(path, "wb") as f:
-            f.write(cases[name][0])
+            f.write(data)
         assert j_T.load_image(path).shape == (24, 40, 3)
+        if name in read:
+            _same_as_jax(path)
     for name, (data, match) in cases.items():
         path = str(tmp_path / f"{name}.jpg")
         with open(path, "wb") as f:

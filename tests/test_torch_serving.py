@@ -225,7 +225,8 @@ def test_refusals(gln_run, dihe_run, tmp_path):
         load_dihe_encoder(run)
 
 
-def test_orbax_directories_raise_naming_item_7(gln_run, exports, tmp_path):
+def test_orbax_directories_load_as_jax_loads_them(gln_run, exports,
+                                                  tmp_path):
     """The JAX package's orbax layouts (a serving export, a run's
     `checkpoint` node, a bare node), which the port refused until it had
     an orbax reader of its own (ROADMAP.md, Queue 1 item 7), now load
