@@ -101,8 +101,10 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   data/jpeg.py:reconstruct_reference's, and 30 small edge files (1x1 to
   61x97 and 33x200, every sampling, restart intervals, SOF1) equal to
   decode_reference's; the committed PIL and cv2 files of
-  tests/torch_fixtures/jpeg_features (progressive, CMYK, Adobe RGB)
-  read equal to the digests of the JAX package's reads; a 64-product
+  tests/torch_fixtures/jpeg_features (progressive, CMYK, Adobe RGB, and
+  five progressive files cut short, which libjpeg decodes with block
+  smoothing) read equal to the digests of the JAX package's reads; a
+  64-product
   Grocery Products catalogue of progressive, CMYK, YCCK, RGB and
   one-scan-a-component files read through GroceryProductsDataset and
   InternalTrainSet equal to reconstruct_reference through to_rgb and
@@ -112,6 +114,16 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   decoded pixels in memory; decode seconds per megapixel of each kind
   and by feature (baseline, progressive, one scan a component), the
   encoder's seconds, launches;
+- data.video: GroZi-120's test layout, two Motion-JPEG AVIs of 90
+  frames at 640x480 written by the port's JPEG encoder and
+  testing.write_avi, 19 annotated frames and one past a video's end:
+  the first video demuxed and decoded by data/avi.py equal to the
+  frames written, `datasets grozi extract-test-images` run in this
+  process (its missing-frame line, index.txt in the JAX package's
+  order, each file byte for byte the port's encode of its frame's
+  decode), GroZiTestSet over the frames and each frame through the
+  serve detector's ProposalGenerator.detect (K1 once a frame); demux +
+  decode and encode seconds a frame, launches;
 - cli: the command line (`cvpce_tpu_torch.cli.main(argv)` in this
   process) on data.files' photos, catalogue and scenes, each command's
   output and K1 / K2 launches held to the library calls with the same
@@ -201,7 +213,7 @@ import torch.distributed as dist
 from cvpce_tpu_torch import _build, testing
 from cvpce_tpu_torch.cli import main as cli_main
 from cvpce_tpu_torch.cli.common import load_embedder, load_gln_state_dict
-from cvpce_tpu_torch.data import defaults, jpeg, png, synthetic
+from cvpce_tpu_torch.data import avi, defaults, grozi, jpeg, png, synthetic
 from cvpce_tpu_torch.data import transforms as T
 from cvpce_tpu_torch.data.cache import CachedDetectionDataset
 from cvpce_tpu_torch.data.grain_loader import GrainLoader
@@ -2565,10 +2577,11 @@ def jpeg_edge_files(root: Path, seed) -> Dict:
 def jpeg_fixtures() -> Dict:
     """The committed files of testing.JPEG_FIXTURE_DIR, which PIL and
     cv2 wrote (progressive at each sampling and with `optimize`, cv2's
-    with restarts, grey progressive, CMYK, Adobe RGB): the port's
-    load_image and load_image_rgba of each equal the digests of the JAX
-    package's reads (PIL's convert("RGB"), cv2's IMREAD_UNCHANGED as
-    RGBA) in testing.JPEG_DIGESTS."""
+    with restarts, grey progressive, CMYK, Adobe RGB, and five
+    progressive files cut short, which libjpeg decodes with block
+    smoothing): the port's load_image and load_image_rgba of each equal
+    the digests of the JAX package's reads (PIL's convert("RGB"), cv2's
+    IMREAD_UNCHANGED as RGBA) in testing.JPEG_DIGESTS."""
     root = Path(__file__).resolve().parent
     digests = json.loads((root / testing.JPEG_DIGESTS).read_text())
     t0 = time.perf_counter()
@@ -2578,7 +2591,10 @@ def jpeg_fixtures() -> Dict:
                                (T.load_image_rgba, "rgba", "cv2")):
             require(testing.pixel_digest(load(path)) == want[key],
                     f"{path}: {load.__name__} differs from {lib}'s read")
+    smoothed = sorted(n for n in digests if n.startswith("pil_smooth_"))
+    require(len(smoothed) == 5, f"block-smoothing fixtures: {smoothed}")
     return {"files": len(digests), "names": sorted(digests),
+            "block_smoothing": smoothed,
             "seconds": time.perf_counter() - t0}
 
 
@@ -2761,6 +2777,120 @@ def phase_data_jpeg(ctx, seed, smi):
           "encoder_seconds": photos_w.seconds + scenes_w.seconds,
           "launches": launches, "nvidia_smi": smi,
           "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# ------------------------------------------------------------- data.video
+
+# GroZi-120's test layout: two Motion-JPEG videos of VIDEO_FRAMES frames
+# at VIDEO_HW, written by the port's encoder (no DHT, as MJPEG frames
+# store them), and VIDEO_INTEREST annotated frames in each, the second
+# video's last one past its end
+VIDEO_FRAMES = 90
+VIDEO_HW = (480, 640)
+VIDEO_INTEREST = 10
+
+
+def phase_data_video(ctx, seed, smi):
+    """GroZi-120's test frames out of its videos, under
+    build/chip_smoke/data/grozi/: the layout written by
+    testing.write_grozi_videos; the first video demuxed and decoded by
+    data/avi.py, every frame equal to the port's decode of the JPEG
+    written; `cvpce-torch datasets grozi extract-test-images` in this
+    process, its missing-frame line and index.txt the frames of interest
+    in the JAX package's order, each extracted file the port's encode of
+    the port's decode of its AVI frame, byte for byte, and so decoding to
+    the same pixels; GroZiTestSet over the frames, each served through
+    the serve detector's ProposalGenerator.detect (K1 once a frame,
+    finite results). Returns the launches."""
+    t_phase = time.perf_counter()
+    root = BUILD / "data" / "grozi"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(seed + 211)
+    videos = {v: testing.smooth_frames(rng, VIDEO_FRAMES, *VIDEO_HW)
+              for v in (1, 2)}
+    interest = {v: sorted(int(f) for f in rng.choice(
+        VIDEO_FRAMES, VIDEO_INTEREST, replace=False)) for v in (1, 2)}
+    interest[2][-1] = VIDEO_FRAMES + 5
+    t0 = time.perf_counter()
+    encoded = testing.write_grozi_videos(str(root), videos, interest, rng)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for frame in videos[1]:
+        jpeg.encode_jpeg(frame)
+    encode_s = (time.perf_counter() - t0) / VIDEO_FRAMES
+
+    t0 = time.perf_counter()
+    decoded = list(avi.open_avi(root / "video" / "Shelf_1.avi").frames())
+    demux_s = (time.perf_counter() - t0) / max(len(decoded), 1)
+    require(len(decoded) == VIDEO_FRAMES,
+            f"Shelf_1.avi: {len(decoded)} frames, not {VIDEO_FRAMES}")
+    for f, (got, data) in enumerate(zip(decoded, encoded[1])):
+        require(np.array_equal(got, jpeg.decode_jpeg(data).samples),
+                f"Shelf_1.avi frame {f} differs from its JPEG's decode")
+
+    text, extract_s, launches = _cli(["datasets", "grozi",
+                                      "extract-test-images", "--root", root])
+    require(not any(launches.values()), "extraction launched a kernel")
+    order: Dict[int, set] = {}
+    for _, v, f, *_ in grozi.iter_grozi_annotations(str(root)):
+        order.setdefault(v, set()).add(f)
+    want_index = [grozi.extracted_img_name(v, f) for v, frames in
+                  order.items() for f in sorted(frames) if f < VIDEO_FRAMES]
+    want_text = "".join(
+        f"Not all frames extracted from video {v}: missing "
+        f"{sorted(f for f in frames if f >= VIDEO_FRAMES)[:10]}...\n"
+        for v, frames in order.items() if max(frames) >= VIDEO_FRAMES)
+    require(text == want_text, f"extract-test-images printed {text!r}")
+    index = (root / "extracted" / "index.txt").read_text().split()
+    require(index == want_index, f"index.txt {index} != {want_index}")
+    require(len(index) == 2 * VIDEO_INTEREST - 1, "frames extracted")
+    for name in index:
+        v, f = (int(s) for s in name[:-4].split("_"))
+        frame = jpeg.decode_jpeg(encoded[v][f]).samples
+        data = (root / "extracted" / name).read_bytes()
+        require(data == jpeg.encode_jpeg(frame),
+                f"{name}: not the port's encode of its AVI frame")
+        require(np.array_equal(jpeg.decode_jpeg(data).samples,
+                               jpeg.decode_jpeg(jpeg.encode_jpeg(
+                                   frame)).samples), f"{name}: pixels")
+
+    testset = grozi.GroZiTestSet(str(root))
+    require([Path(e["path"]).name for e in testset.index] == index,
+            "GroZiTestSet's frames")
+    boxes = sum(len(e["boxes"]) for e in testset.index)
+    pg = ctx["pg"]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        dets = [pg.detect(testset[i][0]) for i in range(len(testset))]
+        torch.cuda.synchronize()
+        detect_s = time.perf_counter() - t0
+        launches = _launches()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    require(launches["nms_hard"] == len(testset),
+            f"nms_hard launched {launches['nms_hard']} times on "
+            f"{len(testset)} frames")
+    require(launches["knn_fused"] == 0, "knn_fused launched in detect")
+    for d in dets:
+        require(np.isfinite(d["scores"]).all()
+                and np.isfinite(d["boxes"]).all()
+                and d["boxes"].shape[1:] == (4,), "non-finite detections")
+    emit({"phase": "data.video", "root": str(root), "videos": len(videos),
+          "frames_per_video": VIDEO_FRAMES, "frame_hw": list(VIDEO_HW),
+          "frames": len(index), "annotated_boxes": boxes,
+          "missing": text.strip(),
+          "write_seconds": write_s,
+          "demux_decode_seconds_per_frame": demux_s,
+          "encode_seconds_per_frame": encode_s,
+          "extract_seconds": extract_s, "detect_seconds": detect_s,
+          "valid_detections": int(sum(int(d["valid"].sum()) for d in dets)),
+          "launches": launches, "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_phase})
+    shutil.rmtree(root, ignore_errors=True)
     return launches
 
 
@@ -3592,14 +3722,6 @@ def phase_cli_dihe(ctx, seed, smi):
             require(not any(_launches().values()),
                     f"{name} launched a kernel before failing")
             fails[name] = seconds
-    t0 = time.perf_counter()
-    try:
-        cli_main(["datasets", "grozi", "extract-test-images", "--root",
-                  str(root)])
-        raise AssertionError("grozi extract-test-images ran")
-    except NotImplementedError as e:
-        require("VideoCapture" in str(e), f"extract-test-images: {e!r}")
-    fails["datasets grozi extract-test-images"] = time.perf_counter() - t0
 
     launches = {k: {name: r["launches"][k] for name, r in rows.items()}
                 for k in ("nms_hard", "knn_fused")}
@@ -4930,6 +5052,7 @@ def main(argv=None) -> int:
     ref = reference_gln_checkpoint(args.seed)
     data_launches = phase_data_files(ctx, args.seed, ref, smi)
     jpeg_launches = phase_data_jpeg(ctx, args.seed, smi)
+    video_launches = phase_data_video(ctx, args.seed, smi)
     cli_launches = phase_cli(ctx, args.seed, ref, smi)
     dihe_cli_launches = phase_cli_dihe(ctx, args.seed, smi)
     # the parallel phases' detector (its head calibrated), embedder and
@@ -4970,6 +5093,7 @@ def main(argv=None) -> int:
                              parallel_launches=parallel["nms_hard"],
                              data_files_launches=data_launches["nms_hard"],
                              data_jpeg_launches=jpeg_launches["nms_hard"],
+                             data_video_launches=video_launches["nms_hard"],
                              cli_launches=cli_launches["nms_hard"]),
             "knn_fused": dict(knn_mac, launches=mac_launches["knn_fused"],
                               d1024=dict(d1024,
@@ -5001,7 +5125,8 @@ def main(argv=None) -> int:
             "bound_by", "library_ms")
     extra = {"nms_hard": ("orbax_launches", "train_launches",
                           "parallel_launches", "data_files_launches",
-                          "data_jpeg_launches", "cli_launches"),
+                          "data_jpeg_launches", "data_video_launches",
+                          "cli_launches"),
              "knn_fused": ("d1024", "orbax_launches", "dihe_train_launches",
                            "parallel_launches", "data_files_launches",
                            "data_jpeg_launches", "cli_launches",

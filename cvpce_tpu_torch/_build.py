@@ -4,7 +4,8 @@
 Each `csrc/<name>.cu` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes); each `csrc/<name>.cpp` (the native graph matcher, the PNG
-row unfilter, the JPEG decoder, the record cache) compiles with the
+row unfilter, the JPEG decoder and writer, the record cache, the zstd
+decoder) compiles with the
 host compiler, `g++ -O3 -shared -fPIC -std=c++17`. Libraries go into
 `build/cvpce_tpu_torch/` at the repository root (listed in .gitignore;
 `CVPCE_TORCH_BUILD_DIR` overrides it), named by a hash of the source
@@ -128,7 +129,7 @@ def build_all() -> Dict[str, Dict]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `name` (a kernel, or one of the host
     sources: `graph_match`, `png_unfilter`, `jpeg_decode`,
-    `record_cache`), built on first use."""
+    `jpeg_encode`, `record_cache`, `zstd_decode`), built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
         with _LOCK:

@@ -7,8 +7,8 @@ print what the JAX package's print. The drawing commands draw what the
 JAX package's draw, with matplotlib; they check for it before they read
 a dataset or build a model, and where it is missing (the card's machine)
 they raise ModuleNotFoundError naming it. `grozi extract-test-images`
-raises NotImplementedError: the port has no video decoder
-(data/grozi.py).
+reads the Motion-JPEG videos with the port's AVI reader and writes the
+frames with its JPEG writer (data/grozi.py).
 """
 from __future__ import annotations
 
@@ -378,8 +378,7 @@ def gp_planogram_test(planograms, device):
 
 def grozi_extract(root, device):
     """Extract GroZi-120's annotated test frames from its videos
-    (cvpce/cli/datasets/grozi.py); raises NotImplementedError in the
-    port, which has no video decoder."""
+    (cvpce/cli/datasets/grozi.py)."""
     from ..data.grozi import extract_grozi_test_imgs
 
     extract_grozi_test_imgs(root)

@@ -37,15 +37,19 @@
 //     to RGB with jdcolor.c's tables (SCALEBITS 16); YCCK goes to CMYK
 //     through the same tables (ycck_cmyk_convert); RGB and CMYK pass as
 //     they are. The four-component output is libjpeg's JCS_CMYK, Adobe's
-//     inverted form, which data/jpeg.py turns into PIL's and cv2's RGB.
+//     inverted form, which data/jpeg.py turns into PIL's and cv2's RGB;
+//   - a progressive file whose scans leave one of the first nine AC
+//     coefficients of a component unrefined (coded at a point transform
+//     above 0, or never) goes through libjpeg-turbo's block smoothing
+//     before the IDCT (jdcoefct.c's smoothing_ok and
+//     decompress_smooth_data, the 5 x 5 DC window of libjpeg-turbo 2.1
+//     on, with its DC interpolation where no AC coefficient was coded).
 //
 // Refused with status 2 (data/jpeg.py raises NotImplementedError):
 // lossless, hierarchical and arithmetic-coded files, 12-bit samples,
-// other than 1, 3 or 4 components, DNL, and a progressive file whose
-// scans leave one of the first nine AC coefficients of a component
-// unrefined (coded at a point transform above 0, or never), on which
-// libjpeg runs its block smoothing (jdcoefct.c's smoothing_ok and
-// decompress_smooth_data). Corrupt or truncated data gives status 1
+// other than 1, 3 or 4 components, DNL, and an interlaced Motion-JPEG
+// frame (an AVI1 APP0 of field polarity 1 or 2). Corrupt or truncated
+// data gives status 1
 // (OSError), as does a file that ends before its EOI marker, which is
 // what PIL's read does with one.
 //
@@ -298,8 +302,11 @@ struct Jpeg {
   int nscan = 0;
   int ss = 0, se = 63, ah = 0, al = 0;
   bool multi_scan = false;
+  bool smooth = false;  // libjpeg's block smoothing applies (smoothing_ok)
 
   Jpeg(const uint8_t* d, size_t len) : data(d), n(len) {}
+
+  int imcu_rows() const { return (height + 8 * vmax - 1) / (8 * vmax); }
 
   int byte() {
     if (pos >= n) truncated();
@@ -430,6 +437,12 @@ struct Jpeg {
     const size_t len = end - p;
     if (m == 0xE0 && len >= 14 && std::memcmp(data + p, "JFIF\0", 5) == 0)
       jfif = true;
+    // a Motion-JPEG frame's AVI1 APP0: field polarity 1 or 2 marks a
+    // frame of two interlaced fields, one JPEG image each
+    if (m == 0xE0 && len >= 5 && std::memcmp(data + p, "AVI1", 4) == 0 &&
+        data[p + 4] != 0)
+      refuse("interlaced Motion-JPEG frame (AVI1 field polarity " +
+             std::to_string(data[p + 4]) + "); the port reads progressive frames only");
     if (m == 0xEE && len >= 12 && std::memcmp(data + p, "Adobe", 5) == 0) {
       adobe = true;
       adobe_transform = data[p + 11];
@@ -751,7 +764,7 @@ struct Jpeg {
       for (;;) {
         const int m = next_marker();
         if (m == 0xD9) {
-          check_smoothing();
+          smooth = smoothing_ok();
           return;
         }
         if (m == 0xDA) {
@@ -778,23 +791,20 @@ struct Jpeg {
   // smooths the blocks of a progressive file when, for every component,
   // the DC was coded and the quantisers it reads are nonzero, and for
   // some component one of the first nine AC coefficients is not coded
-  // down to bit 0. The port does not port the smoothing: it refuses.
-  void check_smoothing() const {
-    if (!progressive) return;
+  // down to bit 0.
+  bool smoothing_ok() const {
+    if (!progressive) return false;
     bool useful = false;
     for (int i = 0; i < ncomp; ++i) {
       const Component& c = comp[i];
-      if (!c.latched) return;
+      if (!c.latched) return false;
       for (int k = 0; k < kSmoothCoefs; ++k)
-        if (c.q[kSmoothPos[k]] == 0) return;
-      if (c.coef_bits[0] < 0) return;
+        if (c.q[kSmoothPos[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
       for (int k = 1; k < kSmoothCoefs; ++k)
         if (c.coef_bits[k] != 0) useful = true;
     }
-    if (useful)
-      refuse("progressive JPEG whose scans leave a low-frequency AC coefficient "
-             "unrefined, which libjpeg decodes with block smoothing; the port "
-             "reads no block smoothing");
+    return useful;
   }
 };
 
@@ -886,16 +896,132 @@ struct Plane {
   int w = 0, h = 0;  // stride and rows: the decoded blocks' samples
 };
 
-// the component's own blocks (the padding's are never output)
-Plane reconstruct(const Component& c) {
+// libjpeg's estimate of a coefficient from num = Q00 x (a sum of DC
+// values): num / (q << 8) rounded, at most 2^al - 1 in magnitude where
+// the coefficient is known above bit al > 0
+inline int16_t estimate(int64_t num, int64_t q, int al) {
+  int pred = int(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+  if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  return int16_t(num >= 0 ? pred : -pred);
+}
+
+// jdcoefct.c's decompress_smooth_data (libjpeg-turbo 2.1 on) on block
+// (row, col) of component c, copied into ws: the first nine AC
+// coefficients that are still zero and not known to bit 0 are estimated
+// from the DC values of the 5 x 5 blocks around it, dc[0..24] row by row
+// (the window at the image's edges as libjpeg's sliding registers fill
+// it). Where no scan coded any of them (`change_dc`), the estimates take
+// a wider kernel and the DC itself is interpolated.
+void smooth_block(const Component& c, const int* dc, bool change_dc,
+                  int16_t* ws) {
+  auto DC = [dc](int k) -> int64_t { return dc[k - 1]; };
+  const int64_t Q00 = c.q[0];
+  const int* bits = c.coef_bits;
+  if (bits[1] != 0 && ws[1] == 0)  // AC01
+    ws[1] = estimate(Q00 * (change_dc ?
+        (-DC(1) - DC(2) + DC(4) + DC(5) - 3 * DC(6) + 13 * DC(7) -
+         13 * DC(9) + 3 * DC(10) - 3 * DC(11) + 38 * DC(12) - 38 * DC(14) +
+         3 * DC(15) - 3 * DC(16) + 13 * DC(17) - 13 * DC(19) + 3 * DC(20) -
+         DC(21) - DC(22) + DC(24) + DC(25)) :
+        (-7 * DC(11) + 50 * DC(12) - 50 * DC(14) + 7 * DC(15))), c.q[1], bits[1]);
+  if (bits[2] != 0 && ws[8] == 0)  // AC10
+    ws[8] = estimate(Q00 * (change_dc ?
+        (-DC(1) - 3 * DC(2) - 3 * DC(3) - 3 * DC(4) - DC(5) - DC(6) +
+         13 * DC(7) + 38 * DC(8) + 13 * DC(9) - DC(10) + DC(16) -
+         13 * DC(17) - 38 * DC(18) - 13 * DC(19) + DC(20) + DC(21) +
+         3 * DC(22) + 3 * DC(23) + 3 * DC(24) + DC(25)) :
+        (-7 * DC(3) + 50 * DC(8) - 50 * DC(18) + 7 * DC(23))), c.q[8], bits[2]);
+  if (bits[3] != 0 && ws[16] == 0)  // AC20
+    ws[16] = estimate(Q00 * (change_dc ?
+        (DC(3) + 2 * DC(7) + 7 * DC(8) + 2 * DC(9) - 5 * DC(12) - 14 * DC(13) -
+         5 * DC(14) + 2 * DC(17) + 7 * DC(18) + 2 * DC(19) + DC(23)) :
+        (-DC(3) + 13 * DC(8) - 24 * DC(13) + 13 * DC(18) - DC(23))), c.q[16], bits[3]);
+  if (bits[4] != 0 && ws[9] == 0)  // AC11
+    ws[9] = estimate(Q00 * (change_dc ?
+        (-DC(1) + DC(5) + 9 * DC(7) - 9 * DC(9) - 9 * DC(17) + 9 * DC(19) +
+         DC(21) - DC(25)) :
+        (DC(10) + DC(16) - 10 * DC(17) + 10 * DC(19) - DC(2) - DC(20) +
+         DC(22) - DC(24) + DC(4) - DC(6) + 10 * DC(7) - 10 * DC(9))), c.q[9], bits[4]);
+  if (bits[5] != 0 && ws[2] == 0)  // AC02
+    ws[2] = estimate(Q00 * (change_dc ?
+        (2 * DC(7) - 5 * DC(8) + 2 * DC(9) + DC(11) + 7 * DC(12) -
+         14 * DC(13) + 7 * DC(14) + DC(15) + 2 * DC(17) - 5 * DC(18) +
+         2 * DC(19)) :
+        (-DC(11) + 13 * DC(12) - 24 * DC(13) + 13 * DC(14) - DC(15))), c.q[2], bits[5]);
+  if (!change_dc) return;
+  if (bits[6] != 0 && ws[3] == 0)  // AC03
+    ws[3] = estimate(Q00 * (DC(7) - DC(9) + 2 * DC(12) - 2 * DC(14) + DC(17) - DC(19)),
+                     c.q[3], bits[6]);
+  if (bits[7] != 0 && ws[10] == 0)  // AC12
+    ws[10] = estimate(Q00 * (DC(7) - 3 * DC(8) + DC(9) - DC(17) + 3 * DC(18) - DC(19)),
+                      c.q[10], bits[7]);
+  if (bits[8] != 0 && ws[17] == 0)  // AC21
+    ws[17] = estimate(Q00 * (DC(7) - DC(9) - 3 * DC(12) + 3 * DC(14) + DC(17) - DC(19)),
+                      c.q[17], bits[8]);
+  if (bits[9] != 0 && ws[24] == 0)  // AC30
+    ws[24] = estimate(Q00 * (DC(7) + 2 * DC(8) + DC(9) - DC(17) - 2 * DC(18) - DC(19)),
+                      c.q[24], bits[9]);
+  ws[0] = estimate(Q00 * (
+      -2 * DC(1) - 6 * DC(2) - 8 * DC(3) - 6 * DC(4) - 2 * DC(5) - 6 * DC(6) +
+      6 * DC(7) + 42 * DC(8) + 6 * DC(9) - 6 * DC(10) - 8 * DC(11) +
+      42 * DC(12) + 152 * DC(13) + 42 * DC(14) - 8 * DC(15) - 6 * DC(16) +
+      6 * DC(17) + 42 * DC(18) + 6 * DC(19) - 6 * DC(20) - 2 * DC(21) -
+      6 * DC(22) - 8 * DC(23) - 6 * DC(24) - 2 * DC(25)), Q00, 0);
+}
+
+// the component's own blocks (the padding's are never output); with
+// `smooth`, each through smooth_block first, walked as libjpeg walks the
+// iMCU rows of `imcu_rows` (image rows / (8 v_max), rounded up): the rows
+// above and below a block are those decompress_smooth_data takes, the
+// edge row itself past the image, and a dummy row of the MCU padding
+// (zero in a file of one component) where its arithmetic reaches one
+Plane reconstruct(const Component& c, bool smooth, int imcu_rows) {
   Plane p;
   p.w = c.rbw * 8;
   p.h = c.rbh * 8;
   p.px.resize(size_t(p.w) * p.h);
-  for (int by = 0; by < c.rbh; ++by)
-    for (int bx = 0; bx < c.rbw; ++bx)
-      idct_islow(c.coef.data() + (size_t(by) * c.bw + bx) * 64, c.q,
-                 p.px.data() + size_t(by) * 8 * p.w + bx * 8, size_t(p.w));
+  if (!smooth) {
+    for (int by = 0; by < c.rbh; ++by)
+      for (int bx = 0; bx < c.rbw; ++bx)
+        idct_islow(c.coef.data() + (size_t(by) * c.bw + bx) * 64, c.q,
+                   p.px.data() + size_t(by) * 8 * p.w + bx * 8, size_t(p.w));
+    return p;
+  }
+  bool change_dc = true;
+  for (int k = 1; k < kSmoothCoefs; ++k)
+    if (c.coef_bits[k] != -1) change_dc = false;
+  auto dc_at = [&c](int row, int col) -> int {
+    return row < c.bh ? c.coef[(size_t(row) * c.bw + col) * 64] : 0;
+  };
+  const int last_col = c.rbw - 1;
+  int16_t ws[64];
+  for (int r = 0; r < imcu_rows; ++r) {
+    int block_rows = c.v;
+    if (r == imcu_rows - 1 && c.rbh % c.v) block_rows = c.rbh % c.v;
+    const int image_rows = block_rows * imcu_rows;
+    for (int br = 0; br < block_rows; ++br) {
+      const int row = r * c.v + br, ib = r * block_rows + br;
+      if (row >= c.rbh) break;
+      const int prev = ib > 0 ? row - 1 : row;
+      const int next = ib < image_rows - 1 ? row + 1 : row;
+      const int rows[5] = {ib > 1 ? row - 2 : prev, prev, row, next,
+                           ib < image_rows - 2 ? row + 2 : next};
+      int dc[25];
+      for (int k = 0; k < 5; ++k)
+        for (int j = 0; j < 5; ++j) dc[5 * k + j] = dc_at(rows[k], 0);
+      for (int bx = 0; bx <= last_col; ++bx) {
+        std::memcpy(ws, c.coef.data() + (size_t(row) * c.bw + bx) * 64, sizeof ws);
+        if (bx == 0 && bx < last_col)
+          for (int k = 0; k < 5; ++k) dc[5 * k + 3] = dc[5 * k + 4] = dc_at(rows[k], 1);
+        if (bx + 1 < last_col)
+          for (int k = 0; k < 5; ++k) dc[5 * k + 4] = dc_at(rows[k], bx + 2);
+        smooth_block(c, dc, change_dc, ws);
+        idct_islow(ws, c.q, p.px.data() + size_t(row) * 8 * p.w + bx * 8, size_t(p.w));
+        for (int k = 0; k < 5; ++k)
+          for (int j = 0; j < 4; ++j) dc[5 * k + j] = dc[5 * k + j + 1];
+      }
+    }
+  }
   return p;
 }
 
@@ -968,14 +1094,14 @@ inline uint8_t clamp255(int v) { return uint8_t(std::min(std::max(v, 0), 255)); 
 void decode_pixels(Jpeg& j, uint8_t* out) {
   const int W = j.width, H = j.height, nc = j.ncomp;
   if (nc == 1) {
-    const Plane p = reconstruct(j.comp[0]);
+    const Plane p = reconstruct(j.comp[0], j.smooth, j.imcu_rows());
     for (int y = 0; y < H; ++y)
       std::memcpy(out + size_t(y) * W, p.px.data() + size_t(y) * p.w, W);
     return;
   }
   Plane planes[4];
   for (int i = 0; i < nc; ++i) {
-    planes[i] = reconstruct(j.comp[i]);
+    planes[i] = reconstruct(j.comp[i], j.smooth, j.imcu_rows());
     j.comp[i].coef.clear();
     j.comp[i].coef.shrink_to_fit();
   }

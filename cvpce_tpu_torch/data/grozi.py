@@ -1,6 +1,8 @@
 """GroZi-120 datasets: the inVitro web-image train set and the
 video-frame test set; counterpart of cvpce_tpu/data/grozi.py. Images
-come from the port's PNG and JPEG decoders (transforms.decode_image)."""
+come from the port's PNG and JPEG decoders (transforms.decode_image);
+the test frames come out of the videos through the port's AVI reader
+and JPEG writer."""
 from __future__ import annotations
 
 import csv
@@ -10,6 +12,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from . import avi, jpeg
 from . import transforms as T
 
 
@@ -27,14 +30,40 @@ def extracted_img_name(video: int, frame: int) -> str:
 
 
 def extract_grozi_test_imgs(base_dir: str, products: int = 120) -> None:
-    """Pulls the annotated frames out of GroZi's Shelf_*.avi videos in
-    the JAX package (cv2.VideoCapture). The card's machine has no video
-    decoder, so the port raises; run the JAX package's function once on
-    a machine with cv2, and the port reads its `extracted/` frames."""
-    raise NotImplementedError(
-        "extract_grozi_test_imgs reads .avi files through "
-        "cv2.VideoCapture, which the port does not have; extract the "
-        f"frames of {base_dir} with cvpce_tpu.data.grozi instead")
+    """Pulls the annotated frames out of GroZi-120's Shelf_*.avi videos
+    (cvpce/datautils.py:528-565), as the JAX package does with cv2: each
+    video's frames of interest (from `inSitu/*/coordinates.txt`) are
+    written as `extracted/{v}_{f}.jpg`, in the order the videos are
+    first named there and then frame by frame, and listed in that order
+    in `extracted/index.txt`; frames past a video's end are reported.
+    The videos are read by `data/avi.py` (Motion-JPEG, decoded as cv2's
+    libjpeg backend decodes) and written by `jpeg.save_jpeg` (the bytes
+    cv2.imwrite writes). A missing video has no frames, as a
+    cv2.VideoCapture of a missing file reads none."""
+    frames_of_interest: Dict[int, set] = {}
+    for _, video, frame, *_ in iter_grozi_annotations(base_dir, products):
+        frames_of_interest.setdefault(video, set()).add(frame)
+
+    video_dir = path.join(base_dir, "video")
+    out_dir = path.join(base_dir, "extracted")
+    os.makedirs(out_dir, exist_ok=True)
+    index = []
+    for v, frames in frames_of_interest.items():
+        video_path = path.join(video_dir, f"Shelf_{v}.avi")
+        video = avi.open_avi(video_path) if path.exists(video_path) \
+            else None
+        for f in sorted(frames) if video is not None else ():
+            if f >= len(video):
+                break
+            filename = extracted_img_name(v, f)
+            jpeg.save_jpeg(path.join(out_dir, filename), video.frame(f))
+            index.append(filename + "\n")
+            frames.remove(f)
+        if frames:
+            print(f"Not all frames extracted from video {v}: "
+                  f"missing {sorted(frames)[:10]}...")
+    with open(path.join(out_dir, "index.txt"), "w") as f:
+        f.writelines(index)
 
 
 class GroZiDataset:

@@ -26,11 +26,17 @@ and cv2 compute RGB differently: `to_rgb` follows Pillow's "CMYK;I"
 unpacking and cmyk2rgb, `to_rgba` OpenCV's icvCvt_CMYK2BGR_8u_C4C3R;
 they differ by up to 2 per channel.
 
+A progressive file whose scans leave one of the first nine AC
+coefficients unrefined (cut short, or written with such a script) goes
+through libjpeg-turbo's block smoothing, as PIL's and cv2's reads do.
+Motion-JPEG frames without Huffman tables take the standard ones.
+
+`encode_jpeg` / `save_jpeg` write a baseline JPEG with
+`csrc/jpeg_encode.cpp`: the bytes cv2.imwrite writes at its defaults.
+
 Refused with NotImplementedError naming the file and the feature:
 lossless, hierarchical and arithmetic-coded JPEG, 12-bit samples, 2 or
-more than 4 components, DNL, and a progressive file whose scans leave
-one of the first nine AC coefficients unrefined, which libjpeg decodes
-with block smoothing (files as PIL and cv2 write them never do). The
+more than 4 components, DNL, and an interlaced Motion-JPEG frame. The
 type is deliberately not an OSError: the SKU-110K reader replaces an
 image that raises OSError with item 0. Corrupt or truncated data raises
 OSError, as PIL does; a file that lacks only its EOI marker is one
@@ -169,6 +175,50 @@ def decode_coefficients(data: bytes, name: str = "<bytes>"
         (height, width), coefs, [q.reshape(8, 8).copy() for q in quant],
         [(int(c[1]), int(c[2])) for c in comps], int(info[6]),
         int(info[5]), COLOURS[info[7]])
+
+
+def _encoder() -> ctypes.CDLL:
+    lib = _build.load("jpeg_encode")
+    lib.jpeg_encode.restype = ctypes.c_int64
+    lib.jpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int32,
+                                ctypes.c_int32, ctypes.c_int32,
+                                ctypes.c_void_p, ctypes.c_int64]
+    return lib
+
+
+def encode_jpeg(pixels: np.ndarray) -> bytes:
+    """(H, W) or (H, W, 1) grey or (H, W, 3) RGB uint8 -> the baseline
+    JPEG that `cv2.imencode(".jpg", bgr)` writes at OpenCV's defaults
+    (quality 95, 4:2:0, JFIF, the standard Huffman tables), byte for
+    byte, from `csrc/jpeg_encode.cpp`."""
+    px = np.ascontiguousarray(pixels)
+    if px.dtype != np.uint8:
+        raise ValueError(f"uint8 samples required, not {px.dtype}")
+    if px.ndim == 2:
+        px = px[..., None]
+    if px.ndim != 3 or px.shape[2] not in (1, 3):
+        raise ValueError(f"(H, W), (H, W, 1) or (H, W, 3) samples "
+                         f"required, not {px.shape}")
+    lib = _encoder()
+    height, width, channels = px.shape
+    out = np.empty(height * width * channels + 4096, np.uint8)
+    for _ in range(2):
+        n = lib.jpeg_encode(px.ctypes.data, height, width, channels,
+                            out.ctypes.data, len(out))
+        if n < 0:
+            raise ValueError(f"cannot encode {px.shape} samples as JPEG")
+        if n <= len(out):
+            return out[:n].tobytes()
+        out = np.empty(n, np.uint8)
+    raise AssertionError("the encoder's length changed between calls")
+
+
+def save_jpeg(path, pixels: np.ndarray) -> None:
+    """Writes `encode_jpeg(pixels)` to `path`, as cv2.imwrite(path, bgr)
+    writes a .jpg."""
+    data = encode_jpeg(pixels)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -31,6 +31,8 @@ MAX_K = 8
 # the smallest gallery the callers search with the fused kernel; smaller
 # ones take the plain distance matrix, as in the JAX package
 FUSED_MIN_ROWS = 4096
+# the largest (Q, rows, D) product `distance_matrix` holds at once
+_PRODUCT_ELEMS = 1 << 24
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -50,10 +52,17 @@ def cosine_distance(a: torch.Tensor, b: torch.Tensor, axis: int = -1,
 
 def distance_matrix(queries: torch.Tensor, anchors: torch.Tensor,
                     eps: float = 1e-8) -> torch.Tensor:
-    """(Q, D) x (A, D) -> (Q, A) cosine distances, f32."""
+    """(Q, D) x (A, D) -> (Q, A) cosine distances, f32. Each similarity
+    is the sum over D of its own row product, whatever the row's place
+    in the gallery: a BLAS GEMM sums the columns at the edge of its
+    tiles in another order, and then two equal gallery rows got two
+    distances and lost the lowest-row tie rule."""
     q = l2_normalize(queries.float(), eps)
     a = l2_normalize(anchors.float(), eps)
-    return 1.0 - q @ a.T
+    step = max(1, _PRODUCT_ELEMS // max(1, q.shape[0] * q.shape[1]))
+    sim = [(q[:, None, :] * a[None, s:s + step]).sum(-1)
+           for s in range(0, a.shape[0], step)]
+    return 1.0 - (torch.cat(sim, 1) if sim else q.new_zeros(len(q), 0))
 
 
 def knn_plain(anchors: torch.Tensor, queries: torch.Tensor,

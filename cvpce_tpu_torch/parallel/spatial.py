@@ -118,7 +118,12 @@ def _exchange(x: torch.Tensor, mesh: DataParallelMesh, left: int,
               else x.new_full(x.shape[:-1] + (left,), fill))
         hi = (every[r + 1][..., :right] if r + 1 < mesh.size
               else x.new_full(x.shape[:-1] + (right,), fill))
-        return torch.cat([lo, x, hi], dim=-1)
+        # in x's memory format: a CPU convolution picks its kernel, and
+        # so its order of summation, by the input's layout, and the int8
+        # convolutions return channels-last tensors
+        fmt = (torch.channels_last if x.dim() == 4 and x.shape[1] > 1
+               and x.stride(1) == 1 else torch.contiguous_format)
+        return torch.cat([lo, x, hi], dim=-1).contiguous(memory_format=fmt)
 
 
 def strip_max(t: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ draw order of the JAX package's tests' builders
 """
 from __future__ import annotations
 
+import struct
 from typing import Dict
 
 import numpy as np
@@ -1216,6 +1217,128 @@ def pixel_digest(pixels: np.ndarray) -> str:
         a = np.rint(a.astype(np.float64) * 255).astype(np.uint8)
     return hashlib.sha256(str(a.shape).encode()
                           + np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+# ------------------------------------------------- Motion-JPEG AVI
+
+def mjpeg_frame(jpeg_bytes: bytes, polarity: int = 0) -> bytes:
+    """A baseline JPEG as a Motion-JPEG AVI stores a frame: its JFIF
+    APP0 replaced by an AVI1 APP0 of field polarity `polarity` (0: one
+    progressive frame, 1 or 2: interlaced fields) and its DHT segments
+    dropped, so that the frame relies on the standard Huffman tables."""
+    out, pos = [jpeg_bytes[:2]], 2
+    while True:
+        marker = jpeg_bytes[pos + 1]
+        if marker == 0xDA:
+            out.append(jpeg_bytes[pos:])
+            return b"".join(out)
+        (length,) = struct.unpack(">H", jpeg_bytes[pos + 2:pos + 4])
+        segment = jpeg_bytes[pos:pos + 2 + length]
+        if marker == 0xE0:
+            segment = _segment(0xE0, b"AVI1" + bytes([polarity]) + bytes(9))
+        if marker != 0xC4:
+            out.append(segment)
+        pos += 2 + length
+
+
+def _riff(cid: bytes, body: bytes) -> bytes:
+    return cid + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
+
+
+def write_avi(path, frames, width: int, height: int,
+              fourcc: bytes = b"MJPG", avix_from: int = None,
+              index: bool = True) -> None:
+    """A RIFF AVI of one video stream whose `00dc` chunks hold `frames`
+    (JPEG bytes, one a frame; b"" writes an empty chunk) at 25 frames a
+    second, its strh handler and strf biCompression `fourcc`.
+    `index` adds an idx1 of the first RIFF's chunks (offsets from the
+    movi fourcc); `avix_from` puts the frames from that one on into an
+    OpenDML `RIFF AVIX` extension of their own movi list."""
+    frames = list(frames)
+    first = frames if avix_from is None else frames[:avix_from]
+    rest = [] if avix_from is None else frames[avix_from:]
+    rate = 25
+    avih = struct.pack("<10I4I", 1000000 // rate, 0, 0, 0x10 if index else 0,
+                       len(frames), 0, 1, 0, width, height, 0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", fourcc, 0, 0, 0, 0,
+                       1, rate, 0, len(frames), 0, 0xFFFFFFFF, 0, 0, 0,
+                       width, height)
+    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, fourcc,
+                       width * height * 3, 0, 0, 0, 0)
+    hdrl = _riff(b"LIST", b"hdrl" + _riff(b"avih", avih) + _riff(
+        b"LIST", b"strl" + _riff(b"strh", strh) + _riff(b"strf", strf)))
+    movi, entries = [b"movi"], []
+    for data in first:
+        entries.append(struct.pack("<4sIII", b"00dc", 0x10,
+                                   sum(map(len, movi)), len(data)))
+        movi.append(_riff(b"00dc", data))
+    body = b"AVI " + hdrl + _riff(b"LIST", b"".join(movi))
+    if index:
+        body += _riff(b"idx1", b"".join(entries))
+    out = _riff(b"RIFF", body)
+    if rest:
+        out += _riff(b"RIFF", b"AVIX" + _riff(b"LIST", b"movi" + b"".join(
+            _riff(b"00dc", data) for data in rest)))
+    with open(path, "wb") as f:
+        f.write(out)
+
+
+def smooth_frames(rng: np.random.Generator, n: int, height: int,
+                  width: int) -> list:
+    """n seeded (H, W, 3) uint8 RGB frames of slowly moving waves of 60
+    to 160 pixel periods: smooth enough that two Motion-JPEG decoders
+    with different IDCTs and chroma filters agree within some levels."""
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    k = 2 * np.pi / rng.uniform(60.0, 160.0, (3, 2))  # periods in pixels
+    phase = rng.uniform(0, 2 * np.pi, (3,))
+    out = []
+    for f in range(n):
+        chans = [120 + 90 * np.sin(k[c, 0] * yy + k[c, 1] * xx + phase[c]
+                                   + 0.1 * f) for c in range(3)]
+        out.append(np.clip(np.rint(np.stack(chans, -1)), 0, 255)
+                   .astype(np.uint8))
+    return out
+
+
+def write_grozi_videos(root, videos: Dict[int, list],
+                       interest: Dict[int, list],
+                       rng: np.random.Generator) -> Dict[int, list]:
+    """A GroZi-120 test layout under `root`: `video/Shelf_{v}.avi` for
+    each v of `videos` (RGB frames, written as Motion-JPEG by the port's
+    encoder, DHT dropped), and `inSitu/{p}/coordinates.txt` for every
+    product p (tab-separated video, frame, x, y, w, h), one to three
+    boxes of random products on each frame of `interest[v]`, frames past
+    a video's end included; all 120 products, as GroZiTestSet reads
+    them. Returns {v: frames encoded as JPEG}."""
+    import os
+
+    from .data.jpeg import encode_jpeg
+
+    os.makedirs(os.path.join(root, "video"), exist_ok=True)
+    encoded = {}
+    for v, frames in videos.items():
+        encoded[v] = [encode_jpeg(f) for f in frames]
+        height, width = frames[0].shape[:2]
+        write_avi(os.path.join(root, "video", f"Shelf_{v}.avi"),
+                  [mjpeg_frame(e) for e in encoded[v]], width, height)
+    products = 120
+    rows: Dict[int, list] = {p: [] for p in range(1, products + 1)}
+    for v, frames in interest.items():
+        height, width = videos[v][0].shape[:2]
+        for f in frames:
+            for p in rng.choice(products, int(rng.integers(1, 4)),
+                                replace=False) + 1:
+                w = int(rng.integers(4, max(5, min(32, width // 2))))
+                h = int(rng.integers(4, max(5, min(32, height // 2))))
+                x = int(rng.integers(0, width - w))
+                y = int(rng.integers(0, height - h))
+                rows[int(p)].append(f"{v}\t{f}\t{x}\t{y}\t{w}\t{h}\n")
+    for p, lines in rows.items():
+        os.makedirs(os.path.join(root, "inSitu", str(p)), exist_ok=True)
+        with open(os.path.join(root, "inSitu", str(p), "coordinates.txt"),
+                  "w") as f:
+            f.writelines(lines)
+    return encoded
 
 
 # ------------------------------------------------- orbax checkpoints

@@ -6,8 +6,11 @@ installed):
   PIL and cv2 in the kinds the port's decoder reads beside baseline
   JPEG: progressive at 4:4:4, 4:2:2 and 4:2:0 (and with `optimize`),
   cv2's progressive file with a restart interval, grey progressive,
-  PIL's CMYK (baseline and progressive) and PIL's `keep_rgb=True`
-  (Adobe transform 0);
+  PIL's CMYK (baseline and progressive), PIL's `keep_rgb=True`
+  (Adobe transform 0), and PIL's progressive files cut after their
+  first scans, which libjpeg decodes with block smoothing: the DC scan
+  alone (4:2:0 and grey), the first AC scans at a point transform above
+  0, luma never refined to bit 0, chroma with its DC alone (4:4:4);
 - tests/torch_fixtures/jpeg_digests.json: for each file, the
   `testing.pixel_digest` of the JAX package's `load_image` (PIL's
   convert("RGB")) and `load_image_rgba` (cv2's IMREAD_UNCHANGED as
@@ -18,6 +21,7 @@ hold the port's two readers to these digests.
 
     JAX_PLATFORMS=cpu python scripts/write_jpeg_fixtures.py
 """
+import io
 import json
 import os
 import sys
@@ -51,6 +55,18 @@ def pil(name, arr, mode=None, **kw):
     Image.fromarray(arr, mode).save(name, format="JPEG", **kw)
 
 
+def pil_cut(name, arr, scans, **kw):
+    """PIL's progressive file of `arr` cut after its first `scans` scans,
+    an EOI after them."""
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="JPEG", progressive=True, **kw)
+    data = buf.getvalue()
+    starts = [i for i in range(len(data) - 1)
+              if data[i:i + 2] == b"\xff\xda"]
+    with open(name, "wb") as f:
+        f.write(data[:starts[scans]] + b"\xff\xd9")
+
+
 FILES = {
     "pil_progressive_444.jpg": lambda p: pil(
         p, photo(1), progressive=True, subsampling=0, quality=90),
@@ -73,6 +89,16 @@ FILES = {
         p, photo(8, 4), "CMYK", quality=80, progressive=True),
     "pil_keep_rgb.jpg": lambda p: pil(
         p, photo(9), quality=90, keep_rgb=True),
+    "pil_smooth_dc_only_420.jpg": lambda p: pil_cut(
+        p, photo(10), 1, subsampling=2, quality=90),
+    "pil_smooth_ac_first_420.jpg": lambda p: pil_cut(
+        p, photo(11), 5, subsampling=2, quality=90),
+    "pil_smooth_luma_unrefined_420.jpg": lambda p: pil_cut(
+        p, photo(12), 9, subsampling=2, quality=75),
+    "pil_smooth_chroma_dc_only_444.jpg": lambda p: pil_cut(
+        p, photo(13), 2, subsampling=0, quality=90),
+    "pil_smooth_grey_dc_only.jpg": lambda p: pil_cut(
+        p, photo(14, 1)[..., 0], 1, quality=85),
 }
 
 

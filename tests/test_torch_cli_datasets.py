@@ -18,9 +18,9 @@ Measured on these fixtures: the discriminator target differs by 1/255
 on 1.6e-6 of its values and internal visualize-train on 8.1e-6; the
 other four are equal.
 
-`grozi extract-test-images` raises NotImplementedError in the port (no
-video decoder), and every drawing command fails naming matplotlib before
-it reads anything where matplotlib is missing (the card's machine).
+`grozi extract-test-images` writes the frames the JAX command writes,
+and every drawing command fails naming matplotlib before it reads
+anything where matplotlib is missing (the card's machine).
 """
 import contextlib
 import io
@@ -35,6 +35,7 @@ import pytest
 import torch
 from click.testing import CliRunner
 
+from cvpce_tpu_torch import testing
 from cvpce_tpu_torch.testing import write_png
 from torch_cli_common import (CANVAS, MAX_DETECTIONS, NMS_CANDIDATES,
                               write_inputs)
@@ -359,9 +360,42 @@ def test_sku_iter_reports_a_broken_photo(files, tmp_path):
     assert text == f"0/4\nFAIL train_1.jpg: {err.value}\n"
 
 
-def test_grozi_extract_names_the_missing_video_decoder(files):
-    with pytest.raises(NotImplementedError, match="VideoCapture"):
-        port_cli(["grozi", "extract-test-images", "--root", files["grozi"]])
+def test_grozi_extract_names_the_missing_video_decoder(files, tmp_path):
+    """The port once had no video decoder and raised here. Now, with
+    Motion-JPEG videos added to copies of the GroZi layout (video 1 too
+    short for its frame 20), the port's command prints the JAX click
+    command's lines and writes the same files and index.txt
+    (tests/test_torch_grozi_video.py holds the pixels)."""
+    from cvpce_tpu.cli import cli
+
+    from cvpce_tpu_torch.data import jpeg
+
+    rng = np.random.default_rng(9)
+    roots = [tmp_path / "jax", tmp_path / "port"]
+    shutil.copytree(files["grozi"], roots[0])
+    (roots[0] / "video").mkdir()
+    for v, n in ((1, 15), (2, 8)):
+        frames = [testing.mjpeg_frame(jpeg.encode_jpeg(f))
+                  for f in testing.smooth_frames(rng, n, 48, 64)]
+        testing.write_avi(roots[0] / "video" / f"Shelf_{v}.avi", frames,
+                          64, 48)
+    shutil.copytree(roots[0], roots[1])
+    res = CliRunner().invoke(cli, ["datasets", "grozi", "extract-test-images",
+                                   "--root", str(roots[0])],
+                             catch_exceptions=False)
+    assert res.exit_code == 0, res.output
+    assert port_cli(["grozi", "extract-test-images", "--root",
+                     str(roots[1])]) == res.output
+    assert res.output == ("Not all frames extracted from video 1: "
+                          "missing [20]...\n")
+    extracted = [sorted(os.listdir(r / "extracted")) for r in roots]
+    assert extracted[0] == extracted[1]
+    index = [(r / "extracted" / "index.txt").read_text() for r in roots]
+    assert index[0] == index[1]
+    assert sorted(index[0].split()) == ["1_10.jpg", "2_5.jpg"]
+    for r in roots:  # the frames written over the layout's PNGs
+        assert (r / "extracted" / "2_5.jpg").read_bytes()[:3] == \
+            b"\xff\xd8\xff"
 
 
 DRAWING = [

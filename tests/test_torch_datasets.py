@@ -12,6 +12,7 @@ where those follow."""
 import json
 import os
 import pathlib
+import shutil
 
 import numpy as np
 import pytest
@@ -117,10 +118,11 @@ def test_target_domain_crops(sku):
 
 
 def test_sku110k_refuses_jpeg_and_falls_back_on_a_broken_png(sku):
-    """A baseline and a progressive JPEG read as JAX's do; a progressive
-    one cut short of its last scan, which PIL reads with libjpeg's block
-    smoothing and the port refuses, raises NotImplementedError (never
-    item 0); a cut file is an OSError in both, and item 0 comes back."""
+    """A baseline and a progressive JPEG read as JAX's do, and so does a
+    progressive one cut short of its last scan, which libjpeg and the
+    port decode with block smoothing; an arithmetic-coded one, which the
+    port refuses, raises NotImplementedError (never item 0); a cut file
+    is an OSError in both, and item 0 comes back."""
     img_dir, ann = sku
     jpeg = os.path.join(img_dir, "b.jpg")
     Image.open(jpeg).convert("RGB").save(jpeg, format="JPEG")
@@ -138,8 +140,14 @@ def test_sku110k_refuses_jpeg_and_falls_back_on_a_broken_png(sku):
     with open(jpeg, "wb") as f:
         f.write(data[:data.rindex(b"\xff\xda")] + b"\xff\xd9")
     assert want[1]["name"] == "b.jpg"
-    with pytest.raises(NotImplementedError,
-                       match="b.jpg.*block smoothing"):
+    _same_item(got[1], want[1])
+    Image.open(jpeg).convert("RGB").save(jpeg, format="JPEG")
+    with open(jpeg, "rb") as f:
+        data = f.read()
+    at = data.index(b"\xff\xc0") + 1
+    with open(jpeg, "wb") as f:
+        f.write(data[:at] + b"\xc9" + data[at + 1:])
+    with pytest.raises(NotImplementedError, match="b.jpg.*arithmetic"):
         got[1]
     cut = os.path.join(img_dir, "c.jpg")
     with open(cut, "rb") as f:
@@ -490,7 +498,7 @@ def grozi_root(tmp_path):
     return str(tmp_path)
 
 
-def test_grozi_sets(grozi_root):
+def test_grozi_sets(grozi_root, tmp_path_factory, capsys):
     got = grozi.GroZiDataset(grozi_root, products=2)
     want = j_grozi.GroZiDataset(grozi_root, products=2)
     assert got.index == want.index and len(got) == 5
@@ -509,8 +517,18 @@ def test_grozi_sets(grozi_root):
     for i in range(len(gt)):
         for g, w in zip(gt[i], wt[i]):
             np.testing.assert_array_equal(g, w)
-    with pytest.raises(NotImplementedError, match="cv2.VideoCapture"):
-        grozi.extract_grozi_test_imgs(grozi_root, products=2)
+    # no videos in this layout: both packages extract none of the
+    # frames, report them and write an empty index.txt
+    jax_root = str(tmp_path_factory.mktemp("jax_grozi"))
+    shutil.copytree(grozi_root, jax_root, dirs_exist_ok=True)
+    j_grozi.extract_grozi_test_imgs(jax_root, products=2)
+    said = capsys.readouterr().out
+    grozi.extract_grozi_test_imgs(grozi_root, products=2)
+    assert capsys.readouterr().out == said
+    assert said.count("Not all frames extracted") == 2
+    for root in (grozi_root, jax_root):
+        with open(os.path.join(root, "extracted", "index.txt")) as f:
+            assert f.read() == ""
 
 
 def test_coco_detection_dataset(tmp_path):

@@ -2,14 +2,16 @@
 GPU machine lacks. A subprocess refuses jax, flax, optax, orbax, grain,
 networkx, cv2, PIL, click, torchvision, matplotlib, tensorstore,
 zstandard and the JAX package itself at import time, then imports every module of cvpce_tpu_torch (the modules listed
-in REQUIRED among them) and chip_smoke (without running it)."""
+in REQUIRED among them) and chip_smoke (without running it). A second
+subprocess, under the same refusals, extracts GroZi-120 frames from a
+Motion-JPEG video that the port writes."""
 import os
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = r"""
+REFUSE = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "grain", "networkx",
@@ -46,6 +48,7 @@ REQUIRED = {"cvpce_tpu_torch.ops.metrics", "cvpce_tpu_torch.eval",
             "cvpce_tpu_torch.data.grocery",
             "cvpce_tpu_torch.data.planograms",
             "cvpce_tpu_torch.data.grozi", "cvpce_tpu_torch.data.coco",
+            "cvpce_tpu_torch.data.avi",
             "cvpce_tpu_torch.data.cache",
             "cvpce_tpu_torch.data.grain_loader",
             "cvpce_tpu_torch.utils.zstd", "cvpce_tpu_torch.utils.ocdbt",
@@ -58,6 +61,9 @@ class Refuse(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Refuse())
+"""
+
+IMPORTS = REFUSE + r"""
 import cvpce_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     cvpce_tpu_torch.__path__, "cvpce_tpu_torch.")]
@@ -72,11 +78,42 @@ print("imported", len(names) + 2)
 """
 
 
-def test_port_imports_no_missing_package():
+# GroZi-120's frame extraction, run under the same refusals: the AVI
+# reader, the JPEG decoder and writer and the layout helpers need none
+# of the refused packages at run time either
+EXTRACT = REFUSE + r"""
+import os, sys, tempfile
+import numpy as np
+from cvpce_tpu_torch import testing
+from cvpce_tpu_torch.data import grozi
+root = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+testing.write_grozi_videos(root, {1: testing.smooth_frames(rng, 4, 24, 32)},
+                           {1: [1, 3, 5]}, rng)
+grozi.extract_grozi_test_imgs(root)
+print(open(os.path.join(root, "extracted", "index.txt")).read().split())
+assert len(grozi.GroZiTestSet(root).index) == 2
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not leaked, leaked
+"""
+
+
+def _run(script: str) -> subprocess.CompletedProcess:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
+    return subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)
+
+
+def test_port_imports_no_missing_package():
+    proc = _run(IMPORTS)
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[-1])
     assert count >= 46
+
+
+def test_video_extraction_runs_without_the_refused_packages():
+    proc = _run(EXTRACT)
+    assert proc.returncode == 0, proc.stderr
+    assert "['1_1.jpg', '1_3.jpg']" in proc.stdout
+    assert "missing [5]" in proc.stdout

@@ -161,11 +161,11 @@ def _patch(data: bytes, marker: bytes, offset: int, value: int) -> bytes:
 
 def test_refusals_name_the_file_and_the_feature(tmp_path):
     """Progressive, CMYK and RGB files, once refused, read as JAX reads
-    them (tests/test_torch_jpeg_features.py takes them further); the
-    features still refused raise NotImplementedError naming the file:
-    arithmetic coding, 12-bit samples, lossless (SOF3), hierarchical
-    (SOF5), DNL, 2 components, and a progressive file whose last scan
-    is dropped, which libjpeg decodes with block smoothing."""
+    them (tests/test_torch_jpeg_features.py takes them further), and so
+    does a progressive file whose last scan is dropped, which libjpeg
+    decodes with block smoothing; the features still refused raise
+    NotImplementedError naming the file: arithmetic coding, 12-bit
+    samples, lossless (SOF3), hierarchical (SOF5), DNL, 2 components."""
     rng = np.random.default_rng(12)
     img = Image.fromarray(_photo(rng, 24, 40))
     base = _pil_bytes(img)
@@ -174,8 +174,9 @@ def test_refusals_name_the_file_and_the_feature(tmp_path):
         "progressive": progressive,
         "cmyk": _pil_bytes(img.convert("CMYK")),
         "rgb": _pil_bytes(img, keep_rgb=True),
+        "smoothing": progressive[:progressive.rindex(b"\xff\xda")]
+        + b"\xff\xd9",
     }
-    last_scan = progressive.rindex(b"\xff\xda")
     cases = {
         "sof9": (_patch(base, b"\xff\xc0", 1, 0xC9), "arithmetic"),
         "12bit": (_patch(base, b"\xff\xc0", 4, 12), "12-bit"),
@@ -184,17 +185,13 @@ def test_refusals_name_the_file_and_the_feature(tmp_path):
         "dnl": (_patch(_patch(base, b"\xff\xc0", 5, 0), b"\xff\xc0", 6, 0),
                 "DNL"),
         "2comp": (_patch(base, b"\xff\xc0", 9, 2), "2-component"),
-        "smoothing": (progressive[:last_scan] + b"\xff\xd9",
-                      "block smoothing"),
     }
-    # PIL reads the first three and the file libjpeg smooths
-    for name, data in (*read.items(), ("smoothing", cases["smoothing"][0])):
+    for name, data in read.items():
         path = str(tmp_path / f"{name}.jpg")
         with open(path, "wb") as f:
             f.write(data)
         assert j_T.load_image(path).shape == (24, 40, 3)
-        if name in read:
-            _same_as_jax(path)
+        _same_as_jax(path)
     for name, (data, match) in cases.items():
         path = str(tmp_path / f"{name}.jpg")
         with open(path, "wb") as f:

@@ -9,7 +9,8 @@ and YCCK (Adobe transforms 0 and 2, and four components with no Adobe
 marker), and RGB (Adobe transform 0, and component ids 'R' 'G' 'B' with
 neither marker); files from PIL, cv2 and `testing.write_jpeg` in each
 of its modes, from seeded numpy arrays at 1x1 to 61x97 pixels, and the
-committed fixtures against their digests. Tolerance: none, the decoded
+committed fixtures against their digests, and progressive files cut
+short, which libjpeg decodes with block smoothing. Tolerance: none, the decoded
 arrays are equal. Then the plain versions (`decode_reference`,
 `reconstruct_reference`) against the C++ on small progressive, multi-scan
 and four-component files, and truncation inside a later scan (OSError
@@ -227,12 +228,15 @@ def test_cmyk_ycck_and_rgb_through_both_reads(tmp_path, hw):
 
 def test_committed_fixtures_match_their_digests():
     """The files of tests/torch_fixtures/jpeg_features (PIL and cv2
-    progressive, CMYK, Adobe RGB): the port's reads equal the digests of
-    the JAX package's reads that scripts/write_jpeg_fixtures.py
-    recorded, and the JAX package's reads here still give them."""
+    progressive, CMYK, Adobe RGB, and five progressive files cut short,
+    which libjpeg decodes with block smoothing): the port's reads equal
+    the digests of the JAX package's reads that
+    scripts/write_jpeg_fixtures.py recorded, and the JAX package's reads
+    here still give them."""
     with open(testing.JPEG_DIGESTS) as f:
         digests = json.load(f)
-    assert len(digests) == 9
+    assert len(digests) == 14
+    assert sum(name.startswith("pil_smooth_") for name in digests) == 5
     for name, want in digests.items():
         path = os.path.join(testing.JPEG_FIXTURE_DIR, name)
         for load, j_load, key in ((T.load_image, j_T.load_image, "rgb"),
@@ -240,6 +244,48 @@ def test_committed_fixtures_match_their_digests():
                                    "rgba")):
             assert testing.pixel_digest(load(path)) == want[key], name
             assert testing.pixel_digest(j_load(path)) == want[key], name
+
+
+def _progressive(arr, writer) -> bytes:
+    """`arr` as a progressive JPEG: PIL's at 4:4:4, 4:2:2, 4:2:0, grey
+    or CMYK, or cv2's at 4:1:1 / 4:4:0 with a restart every 2 MCUs."""
+    if writer.startswith("cv2"):
+        factor = CV2_SAMPLINGS["4:1:1" if writer == "cv2_411" else "4:4:0"]
+        return cv2.imencode(".jpg", arr[..., :3], [
+            cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_RST_INTERVAL, 2,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor])[1].tobytes()
+    buf = io.BytesIO()
+    if writer == "pil_cmyk":
+        img, kw = Image.fromarray(arr, "CMYK"), {}
+    elif writer == "pil_grey":
+        img, kw = Image.fromarray(arr[..., 0]), {}
+    else:
+        img = Image.fromarray(arr[..., :3])
+        kw = {"subsampling": PIL_SUBSAMPLINGS[writer[4:]]}
+    img.save(buf, format="JPEG", quality=85, progressive=True, **kw)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("writer", (
+    "pil_4:4:4", "pil_4:2:2", "pil_4:2:0", "pil_grey", "pil_cmyk",
+    "cv2_411", "cv2_440"))
+@pytest.mark.parametrize("hw", ((8, 8), (17, 9), (40, 16), (61, 97)))
+def test_block_smoothing_reads_as_jax(tmp_path, hw, writer):
+    """A progressive file cut after each of its scans (an EOI after
+    them): every cut but the last leaves low-frequency coefficients
+    unrefined, and libjpeg smooths the blocks from their neighbours' DC
+    values (the DC itself too where no AC scan came). The port's two
+    reads equal the JAX package's (PIL, cv2) bit for bit, at one and two
+    blocks across (the narrow windows of libjpeg's sliding DC
+    registers), at odd sizes, on four components and with restarts."""
+    rng = np.random.default_rng(23)
+    data = _progressive(_photo(rng, *hw, c=4), writer)
+    scans = [i for i in range(len(data) - 1)
+             if data[i:i + 2] == b"\xff\xda"]
+    assert len(scans) == {"pil_grey": 6, "pil_cmyk": 18}.get(writer, 10)
+    for k, start in enumerate(scans[1:], 1):
+        path = _write(tmp_path / f"cut{k}.jpg", data[:start] + b"\xff\xd9")
+        _same_as_jax(path)
 
 
 def test_plain_versions_on_progressive_files():

@@ -142,6 +142,26 @@ def test_knn_ties_go_to_lowest_index():
     np.testing.assert_array_equal(np.asarray(j_nn(g, q, 3)), i.numpy())
 
 
+def test_equal_gallery_rows_get_equal_distances_anywhere():
+    """A BLAS GEMM sums the columns at the edge of its tiles in another
+    order: on an AMD EPYC host a (4, 48) x (48, 10) product gave gallery
+    rows 1 and 8, equal bit for bit, two distances 1 ulp apart, and the
+    tie went to row 8. The port's distance matrix sums each row's own
+    product, so equal rows tie at every gallery size and place."""
+    rng = np.random.default_rng(8)
+    q = rng.uniform(-1, 1, (4, 48)).astype(np.float32)
+    for n in (10, 33, 130):
+        g = rng.uniform(-1, 1, (n, 48)).astype(np.float32)
+        g[n - 2] = g[1]
+        d = knn.distance_matrix(t(q), t(g)).numpy()
+        np.testing.assert_array_equal(d[:, n - 2], d[:, 1])
+        want = 1 - (q / np.linalg.norm(q, axis=1, keepdims=True)) @ (
+            g / np.linalg.norm(g, axis=1, keepdims=True)).T
+        np.testing.assert_allclose(d, want, rtol=0, atol=1e-6)
+        i = knn.nearest_neighbors(t(g), t(q[1:2] * 0 + g[1]), 2).numpy()
+        np.testing.assert_array_equal(i, [[1, n - 2]])
+
+
 def test_crop_resize_square_matches_jax():
     rng = np.random.default_rng(6)
     img = rng.uniform(0, 1, (90, 120, 3)).astype(np.float32)

@@ -5,11 +5,12 @@ on files written by the port's `testing.write_png` (every colour type
 and bit depth it reads, tRNS, each row filter), by PIL and by cv2, from
 seeded numpy arrays. Tolerance: none, the decoded arrays are equal.
 Then the C++ row unfilter against its numpy reference, and the
-refusals: interlaced and 16-bit PNG, a JPEG that libjpeg decodes with
-block smoothing and other formats raise NotImplementedError naming the
-file, never an OSError (baseline and progressive JPEG under a PNG name go
-to the JPEG decoder, by their signature); a truncated or corrupt PNG
-raises OSError."""
+refusals: interlaced and 16-bit PNG, an arithmetic-coded JPEG and other
+formats raise NotImplementedError naming the file, never an OSError
+(baseline and progressive JPEG under a PNG name go to the JPEG decoder,
+by their signature, and so does a progressive one cut short, which it
+decodes with block smoothing); a truncated or corrupt PNG raises
+OSError."""
 import struct
 import zlib
 
@@ -160,16 +161,21 @@ def test_refusals_name_the_file_and_are_not_oserrors(tmp_path):
     progressive = str(tmp_path / "progressive.png")
     Image.fromarray(arr).save(progressive, format="JPEG", progressive=True)
     _same_as_jax(progressive)
-    # without its last scan libjpeg smooths the blocks: refused
+    # without its last scan libjpeg smooths the blocks, as the port does
     data = open(progressive, "rb").read()
     smoothed = str(tmp_path / "smoothed.png")
     open(smoothed, "wb").write(data[:data.rindex(b"\xff\xda")] + b"\xff\xd9")
-    assert j_T.load_image(smoothed).shape == (9, 10, 3)
+    _same_as_jax(smoothed)
+    # an arithmetic-coded frame (SOF9) is refused
+    data = open(jpeg, "rb").read()
+    at = data.index(b"\xff\xc0") + 1
+    arithmetic = str(tmp_path / "arithmetic.png")
+    open(arithmetic, "wb").write(data[:at] + b"\xc9" + data[at + 1:])
     bmp = str(tmp_path / "photo.bmp")
     cv2.imwrite(bmp, arr)
     assert j_T.load_image(bmp).shape == (9, 10, 3)
     for path, match in ((interlaced, "interlaced"), (deep, "16-bit"),
-                        (smoothed, "block smoothing"), (bmp, "BMP")):
+                        (arithmetic, "arithmetic"), (bmp, "BMP")):
         for load in (T.load_image, T.load_image_rgba):
             with pytest.raises(NotImplementedError, match=match) as err:
                 load(path)

@@ -16,6 +16,7 @@ forward and, against the JAX GLN applied op by op, at JAX's test bounds
 (the heatmap within 5e-2 of its largest magnitude)."""
 import contextlib
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,7 @@ from cvpce_tpu_torch.models.gln import GLNConfig
 from cvpce_tpu_torch.models.quant import Int8Conv
 from cvpce_tpu_torch.ops.conv_fused import int8_conv_nhwc, quantize
 from cvpce_tpu_torch.parallel import make_spatial_infer
+from cvpce_tpu_torch.parallel import spatial
 from cvpce_tpu_torch.parallel.mesh import DataParallelMesh
 from cvpce_tpu_torch.parallel.spatial import (pad_strip, strip_mesh,
                                               strip_max, width_sharded)
@@ -159,6 +161,35 @@ def test_outside_a_width_sharded_block_the_ops_are_unchanged():
             want = int8_conv_nhwc(quantize(x.permute(0, 2, 3, 1), a_scale),
                                   kq, 1, 1).permute(0, 3, 1, 2)
             assert torch.equal(acc, want)
+
+
+def test_halo_exchange_keeps_the_channels_last_layout():
+    """The int8 convolutions return channels-last tensors, and a CPU
+    convolution picks its kernel, and so its order of summation, by its
+    input's layout: a bf16 conv of a channels-last (2, 256, 16, 64)
+    tensor on two strips gives the whole tensor's columns bit for bit
+    only because the halo exchange hands the strip back channels-last
+    (103 entries one bf16 step apart on an AMD EPYC host when the
+    exchange returned it contiguous)."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 256, 16, 64)).astype(
+        np.float32)).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    torch.manual_seed(2)
+    conv16 = layers.conv(256, 128, 3, bias=True).to(torch.bfloat16)
+    strips = x.tensor_split(2, -1)
+    # a 3x3 conv of stride 1 takes one column from each neighbour
+    edges = [torch.cat([s[..., :1], s[..., -1:]], -1) for s in strips]
+    with torch.no_grad():
+        whole = conv16(x)
+        for r, strip in enumerate(strips):
+            with width_sharded(fake_mesh(2, r)), mock.patch.object(
+                    spatial, "all_gather", lambda t, mesh: edges):
+                padded, _ = pad_strip(strip, 3, 1, 1)
+                assert padded.is_contiguous(
+                    memory_format=torch.channels_last)
+                got = conv16(strip)
+            assert torch.equal(got, whole.tensor_split(2, -1)[r]), r
 
 
 # --------------------------------------------------- make_spatial_infer
