@@ -149,6 +149,16 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   epoch 0's; seconds per step, per eval and the peak memory; its sample
   pictures skipped (the card's machine has no matplotlib), as
   train.gan's;
+- train.parity.bf16: train.parity in bf16 compute on f32 master weights
+  (`GLNConfig(compute_dtype='bfloat16')`), beside an f32 step on the
+  CPU: every distance of the card's step from the CPU's within twice
+  the CPU's own bf16-against-f32 distance
+  (testing.TRAIN_STEP_TOL_BF16), every trained tensor f32;
+- train.gln.bf16: train.gln in bf16 compute, K1 launched in each epoch
+  eval, f32 tensors in `checkpoint` and `epoch_0`, epoch 1's scores
+  differing from epoch 0's; its median step, step breakdown and peak
+  memory printed beside train.gln's, with the card's name and power
+  limit;
 - train.resume: at 256x384, 2 epochs in one go against 1 epoch and a
   resume=True epoch: the iteration counter continues, the momentum
   buffers come back as saved, the resumed epoch's losses agree;
@@ -3791,14 +3801,63 @@ def phase_train_parity(seed, ref):
           "seconds": time.perf_counter() - t0})
 
 
-def phase_train_gln(seed, ref):
+def phase_train_parity_bf16(seed, ref):
+    """One bf16-compute train step (f32 master weights) on the card and
+    one on the CPU, as train.parity, beside an f32 step on the CPU: the
+    card's step within testing.TRAIN_STEP_TOL_BF16 of the CPU's, twice
+    the CPU's own bf16-against-f32 distance; every trained tensor f32
+    after it, and the frozen stem unmoved."""
+    t0 = time.perf_counter()
+    h, w = TRAIN_SMALL_HW
+    config, train_cfg = train_configs(h, w, steps_per_epoch=1)
+    bf16 = dataclasses.replace(config, compute_dtype="bfloat16")
+    state = load_gln_state_dict(ref, config)
+    scenes = synthetic.SyntheticShelfDataset(TRAIN_BATCH, h, w,
+                                             seed=seed + 500)
+    b = collate_detection([scenes[i] for i in range(TRAIN_BATCH)])
+    batch = (b["images"], b["boxes"], b["box_valid"], b["image_sizes"])
+    steps = testing.train_step_on_devices(bf16, train_cfg, state, batch)
+    f32 = testing.train_step_on_devices(config, train_cfg, state, batch,
+                                        devices=("cpu",))["cpu"]
+    res = testing.train_step_bf16_check(state, steps["cuda"], steps["cpu"],
+                                        f32)
+    for name, (metrics, _) in steps.items():
+        require(all(np.isfinite(v) for v in metrics.values()),
+                f"non-finite bf16 losses on {name}: {metrics}")
+    require(res["frozen_kept"], "the frozen stem or a FrozenBN buffer "
+            "moved in a bf16 train step")
+    require(res["master_f32"], "a tensor is not f32, or a trained one "
+            "lies on the bf16 grid, after a bf16 train step on the card")
+    require(not res["failures"], f"bf16 train step on the card and the "
+            f"CPU: beyond twice the CPU's bf16-against-f32 distance: "
+            f"{res['failures']}")
+    emit({"phase": "train.parity.bf16", "canvas": [h, w],
+          "batch": TRAIN_BATCH, "gt_boxes": int(b["box_valid"].sum()),
+          "losses": {**{k: v[0] for k, v in steps.items()},
+                     "cpu_f32": f32[0]},
+          "loss_rel": res["loss_rel"], "loss_bound": res["loss_bound"],
+          "worst": res["worst"], "tensors_held": res["n_held"],
+          "tolerances": testing.TRAIN_STEP_TOL_BF16,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_train_gln(seed, ref, compute_dtype="float32", f32_run=None,
+                    smi=None):
     """train_proposal_generator at 832x1344, batch 2, 8 scenes (4 steps
     an epoch), 2 epochs, rotating checkpoints every 2 steps and an eval
     on 4 held-out scenes after each epoch. evaluate_gln is wrapped to
-    time each eval, count its K1 launches and keep its scores."""
+    time each eval, count its K1 launches and keep its scores.
+
+    `compute_dtype='bfloat16'` (train.gln.bf16) trains in bf16 on f32
+    master weights, requires f32 tensors in `checkpoint` and `epoch_0`,
+    and prints `f32_run`, train.gln's step times, breakdown and peak
+    memory, beside its own. Returns (the evals' K1 launches, the run's
+    step times, breakdown and peak memory)."""
     t0 = time.perf_counter()
     config, train_cfg = train_configs()
-    out = BUILD / "train"
+    config = dataclasses.replace(config, compute_dtype=compute_dtype)
+    bf16 = compute_dtype == "bfloat16"
+    out = BUILD / ("train_bf16" if bf16 else "train")
     shutil.rmtree(out, ignore_errors=True)
     trainset = synthetic.SyntheticShelfDataset(TRAIN_SCENES, seed=seed + 600)
     evalset = synthetic.SyntheticShelfDataset(TRAIN_EVAL_SCENES,
@@ -3847,23 +3906,34 @@ def phase_train_gln(seed, ref):
     require(s0.shape != s1.shape or not np.array_equal(s0, s1),
             "the epoch-1 eval scored as epoch 0's: the updated weights "
             "did not reach the inference function")
+    if bf16:
+        for name in ("checkpoint", "epoch_0"):
+            saved = torch.load(out / name, map_location="cpu",
+                               weights_only=True)
+            kinds = {str(v.dtype) for v in saved["model"].values()
+                     if v.is_floating_point()}
+            require(kinds == {"torch.float32"},
+                    f"{name} of the bf16 run holds {sorted(kinds)}")
     times = stats["batch_times"]
     breakdown = train_step_breakdown(result["state"], config, train_cfg,
                                      trainset)
-    emit({"phase": "train.gln", "canvas": [config.canvas_h, config.canvas_w],
+    run = {"median_step_seconds": statistics.median(times[1:]),
+           "step_ms_by_stage": breakdown, "max_memory_allocated": peak}
+    emit({"phase": "train.gln.bf16" if bf16 else "train.gln",
+          "canvas": [config.canvas_h, config.canvas_w],
+          "compute_dtype": compute_dtype,
           "batch": TRAIN_BATCH, "steps": steps,
-          "first_step_seconds": times[0],
-          "median_step_seconds": statistics.median(times[1:]),
+          "first_step_seconds": times[0], **run,
           "step_seconds": times,
           "eval_seconds": [e["seconds"] for e in evals],
           "eval_launches": [e["launches"] for e in evals],
           "eval_detections": [int(e["scores"].size) for e in evals],
           "best": result["best"], "losses": losses, "files": files,
           "sample_pictures": sample_pictures(out),
-          "max_memory_allocated": peak,
-          "allocated_before": resident, "step_ms_by_stage": breakdown,
+          "allocated_before": resident,
+          **({"float32": f32_run, "nvidia_smi": smi} if bf16 else {}),
           "seconds": time.perf_counter() - t0})
-    return sum(e["launches"]["nms_hard"] for e in evals)
+    return sum(e["launches"]["nms_hard"] for e in evals), run
 
 
 def sample_pictures(out: Path):
@@ -5066,7 +5136,10 @@ def main(argv=None) -> int:
     del ctx
     gc.collect()
     phase_train_parity(args.seed, ref)
-    train_launches = phase_train_gln(args.seed, ref)
+    train_launches, f32_run = phase_train_gln(args.seed, ref)
+    phase_train_parity_bf16(args.seed, ref)
+    train_bf16_launches, _ = phase_train_gln(
+        args.seed, ref, "bfloat16", f32_run, smi)
     phase_train_resume(args.seed, ref)
     phase_train_dihe_parity(args.seed)
     gan_state = phase_train_gan(args.seed)
@@ -5090,6 +5163,7 @@ def main(argv=None) -> int:
     rows = {"nms_hard": dict(nms_serve, launches=launches["nms_hard"],
                              orbax_launches=orbax_launches["nms_hard"],
                              train_launches=train_launches,
+                             train_bf16_launches=train_bf16_launches,
                              parallel_launches=parallel["nms_hard"],
                              data_files_launches=data_launches["nms_hard"],
                              data_jpeg_launches=jpeg_launches["nms_hard"],
@@ -5124,6 +5198,7 @@ def main(argv=None) -> int:
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     extra = {"nms_hard": ("orbax_launches", "train_launches",
+                          "train_bf16_launches",
                           "parallel_launches", "data_files_launches",
                           "data_jpeg_launches", "data_video_launches",
                           "cli_launches"),

@@ -80,17 +80,24 @@ def _unknown_layout(weights: str, obj, wanted: str) -> ValueError:
 
 
 def load_gln_state_dict(weights: Optional[str], config: GLNConfig,
-                        generator: Optional[torch.Generator] = None
+                        generator: Optional[torch.Generator] = None,
+                        param_dtype: Optional[torch.dtype] = None
                         ) -> Dict[str, torch.Tensor]:
     """GLN state_dict for `config`: a seeded random init from `generator`
     (seed 0 when none is given) when `weights` is None; else a reference
     GaussianLayerNetwork checkpoint file mapped by `import_gln` onto that
     init, the port's GLN training checkpoint (`checkpoint`, `epoch_<e>`:
     its `model`), or a directory (a run or a serving export), each
-    loaded strictly."""
+    loaded strictly.
+
+    The conv tensors come in `param_dtype` (GLN's), by default
+    `config`'s compute dtype, as a serving GLN stores them. Training
+    asks for f32 whatever the compute dtype: a bf16 run keeps f32
+    master weights, and starts from the file's f32 values, as the JAX
+    package loads f32 parameters under any compute dtype."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = GLN(config, generator=generator)
+    model = GLN(config, generator=generator, param_dtype=param_dtype)
     if weights is None:
         return model.state_dict()
     if os.path.isdir(weights):

@@ -55,7 +55,10 @@ def make_variables_inference_fn(config: GLNConfig, mesh=None,
     JAX function applies its variables on every call. The state_dict is
     loaded again unless every tensor in it is the one loaded last and
     unchanged since (same storage, same `_version`), so an in-place
-    update, as an optimizer step makes, reaches the next call.
+    update, as an optimizer step makes, reaches the next call. A bf16
+    config's GLN stores its convs in bf16, so the f32 weights of a bf16
+    training run serve rounded to bf16, as JAX's eval casts its f32
+    parameters at each conv.
 
     `mesh`: the batch is shared out over the ranks (`shard_inference`);
     every rank passes the same weights and batch and gets every image's

@@ -1,7 +1,8 @@
 """FPN + P6/P7 (torch); counterpart of cvpce_tpu/models/fpn.py:FPN.
 Lateral 1x1 convs on C3..C5, nearest 2x top-down merges, 3x3 output
 convs, P6 = 3x3/s2 on P5, P7 = 3x3/s2 on relu(P6). `quant` runs every
-conv as an int8 conv (models/quant.py); outputs are in `dtype`."""
+conv as an int8 conv (models/quant.py); outputs are in `dtype`, the
+float convs' parameters in `param_dtype` (default `dtype`)."""
 from __future__ import annotations
 
 from typing import List, Optional
@@ -18,7 +19,8 @@ class FPN(nn.Module):
     IN_CHANNELS = (512, 1024, 2048)  # C3..C5 of ResNet-50
 
     def __init__(self, quant: Optional[str] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         oc = 256
 
@@ -33,7 +35,7 @@ class FPN(nn.Module):
             setattr(self, f"layer_{i}", _c(oc, 3))
         self.p6 = _c(oc, 3, 2)
         self.p7 = _c(oc, 3, 2)
-        cast_float_convs_(self, dtype)
+        cast_float_convs_(self, param_dtype or dtype)
 
     def forward(self, c3: torch.Tensor, c4: torch.Tensor,
                 c5: torch.Tensor) -> List[torch.Tensor]:

@@ -7,8 +7,13 @@ returns NHWC tensors like the JAX module; inside it runs NCHW. The
 Gaussian branch is the plain upsample -> conv form; the JAX package's
 `_FoldedUpConv` is a TPU lane-packing rewrite with the same parameters.
 
-Serving options, as the JAX config's: `compute_dtype` ('float32' or
-'bfloat16') for the conv stacks; `int8` ('off', 'calibrate', 'static')
+`compute_dtype` ('float32' or 'bfloat16') is the conv stacks' dtype.
+A serving GLN stores its float convs' parameters in it; a training GLN
+(`param_dtype=torch.float32`, train/gln.py) keeps them f32 and casts
+them to bf16 at each conv, as flax's f32 parameters under a bf16
+`dtype`, so the optimizer updates f32 master weights.
+
+Serving options, as the JAX config's: `int8` ('off', 'calibrate', 'static')
 runs the trunk stages, FPN and head towers as int8 convs
 (models/quant.py) while the stem, the cls_logits/bbox_reg predictors and
 the Gaussian branch stay in the compute dtype; `fold_backbone_fbn` serves
@@ -114,6 +119,8 @@ class RetinaNetHead(nn.Module):
         self.cls_logits = conv(256, self.NUM_ANCHORS * num_classes, 3,
                                bias=True)
         self.bbox_reg = conv(256, self.NUM_ANCHORS * 4, 3, bias=True)
+        # widened to f32 at once (layers.Conv2d)
+        self.cls_logits.f32_out = self.bbox_reg.f32_out = True
 
     def forward(self, features: Sequence[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -147,12 +154,17 @@ class GaussianBranch(nn.Module):
         for i, (cin, cout, k) in enumerate(self.SUBNET):
             setattr(self, f"subnet_{i}", conv(cin, cout, k, bias=True))
         self.subnet_4 = conv(16, 1, 1, bias=True)
+        # widened to f32 at once, by the BatchNorms and the heatmap
+        # (layers.Conv2d)
+        for c in (self.block1_conv, self.block2_conv, self.subnet_4):
+            c.f32_out = True
 
     def forward(self, c2: torch.Tensor, p3: torch.Tensor) -> torch.Tensor:
+        dt = c2.dtype
         x = self.lateral(c2) + upsample_nearest_2x(p3)
         # flax's BatchNorm: f32 inside, the compute dtype out
-        x = F.relu(self.block1_bn(self.block1_conv(x)))
-        x = F.relu(self.block2_bn(self.block2_conv(x)))
+        x = F.relu(self.block1_bn(self.block1_conv(x)).to(dt))
+        x = F.relu(self.block2_bn(self.block2_conv(x)).to(dt))
         x = upsample_nearest_2x(x)
         for i in range(len(self.SUBNET)):
             x = F.relu(getattr(self, f"subnet_{i}")(x))
@@ -166,21 +178,29 @@ class GLN(nn.Module):
     (B, H/2, W/2, 1) out, in train mode as in eval mode (JAX's
     GLN(train=True) returns the same dict). `train()` switches only the
     Gaussian branch's two BatchNorms to batch statistics, as
-    GLN(train=True) does; the body's FrozenBN stays frozen."""
+    GLN(train=True) does; the body's FrozenBN stays frozen.
+
+    `param_dtype`, flax's: the dtype the float convs store their
+    parameters in, the compute dtype when None (serving). f32 under a
+    bf16 config gives the f32 GLN's initial parameters from the same
+    generator, bit for bit, computing in bf16."""
 
     def __init__(self, config: GLNConfig = GLNConfig(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
         dt, quant = config.dtype, config.quant
+        pdt = param_dtype or dt
         self.body = ResNet50(
             norm="none" if config.fold_backbone_fbn else "frozen",
-            quant=quant, conv_bias=config.fold_backbone_fbn, dtype=dt)
-        self.fpn = FPN(quant=quant, dtype=dt)
+            quant=quant, conv_bias=config.fold_backbone_fbn, dtype=dt,
+            param_dtype=pdt)
+        self.fpn = FPN(quant=quant, dtype=dt, param_dtype=pdt)
         self.gaussian = GaussianBranch(tanh=config.tanh)
         self.head = RetinaNetHead(config.num_classes, quant, dt)
         init_gln_(self, generator)
-        cast_float_convs_(self, dt)
+        cast_float_convs_(self, pdt)
         self.eval()
 
     def train(self, mode: bool = True) -> "GLN":

@@ -151,11 +151,15 @@ class Bottleneck(nn.Module):
 
 
 class ResNet50(nn.Module):
-    """NCHW in, {'c1'..'c5'} NCHW feature maps out, in `dtype`."""
+    """NCHW in, {'c1'..'c5'} NCHW feature maps out, in `dtype`. The
+    float convs store their parameters in `param_dtype` (default
+    `dtype`); f32 under a bf16 `dtype` keeps master weights for
+    training (layers.py:Conv2d casts them at each call)."""
 
     def __init__(self, norm: str = "frozen", quant: Optional[str] = None,
                  conv_bias: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
         self.conv1 = conv(3, 64, 7, 2, bias=conv_bias)
@@ -174,7 +178,7 @@ class ResNet50(nn.Module):
                 names.append(name)
                 cin = width * 4
             self.stages.append(names)
-        cast_float_convs_(self, dtype)
+        cast_float_convs_(self, param_dtype or dtype)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = x.to(self.dtype)

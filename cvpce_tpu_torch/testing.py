@@ -3,7 +3,9 @@ cases that `tests/test_torch_cuda.py` (under pytest) and `chip_smoke.py`
 (in the smoke run on the card) both hold K1, K2, K3 and K4 to their
 plain versions on. Numpy only; the callers move the arrays to the card.
 Likewise the card-against-CPU checks of one GLN train step
-(`train_step_on_devices`, `train_step_differences`, `TRAIN_STEP_TOL`)
+(`train_step_on_devices`, `train_step_differences`, `TRAIN_STEP_TOL`;
+in bf16 compute `train_step_bf16_check`, `TRAIN_STEP_TOL_BF16`,
+`master_weights_kept`)
 and of one DIHE or GAN pretraining step (`dihe_step_on_devices`,
 `gan_step_on_devices`, `dihe_step_differences`, `DIHE_STEP_TOL`).
 
@@ -16,6 +18,7 @@ draw order of the JAX package's tests' builders
 """
 from __future__ import annotations
 
+import functools
 import struct
 from typing import Dict
 
@@ -421,6 +424,115 @@ def train_step_differences(before: Dict, a, b,
     return {"loss_rel": loss_rel, "param_rel_to_update": param_rel,
             "param_worst": param_worst, "stat_rel": stat_rel,
             "frozen_kept": frozen_kept}
+
+
+# one GLN train step in bf16 compute (f32 master weights) against a
+# bf16 reference step from the same weights and batch (the JAX
+# package's in the tests, the CPU's on the card), held by distances
+# (train_step_bf16_check). Two correct bf16 steps are about as far
+# apart as bf16 is from f32: a 1-ulp difference in one bf16 convolution
+# compounds over the 50-odd layers, so at 64x64 the port's updates lie a
+# median relative L2 of 0.16-0.17 from JAX's bf16 ones, and JAX's 0.19-
+# 0.20 from its f32 ones (scripts/torch_bf16_parity.py), and single
+# elements are no yardstick. So each
+# distance is held to `factor` times the reference's own bf16-against-
+# f32 distance on the same inputs, the repo's convention of twice a
+# measured spread: the losses as the largest relative difference over
+# the loss terms, each trained tensor's and each Gaussian running
+# statistic's update as the L2 norm of its difference. Three floors are
+# added to a tensor's bound. `floor_l2`: tensors whose exact update is
+# below it (FPN's P6/P7 biases at 64x64, 1e-13) move by rounding alone.
+# `pre_bn_floor_l2`, in place of it on the conv biases in front of the
+# Gaussian BatchNorms: their exact gradient is 0, which the BatchNorm
+# after them subtracts out, and in bf16 both packages move them by
+# rounding noise of about 1e-5 in L2; the floor is ten times that.
+# `update_rel` x the L2 norm of the reference's update, the f32 card-
+# against-CPU tolerance (TRAIN_STEP_TOL's 5e-2): one bf16 spread is a
+# poor yardstick for a tensor of a few dozen elements (a Gaussian subnet
+# bias): over chip_smoke.py's train.parity inputs at 24 seeds, two CPU
+# bf16 convolutions (oneDNN's and the f32 one of the rounded operands)
+# put a tensor past twice the spread at 2 seeds without it, and none past
+# 0.44 of its bound with it (scripts/torch_bf16_parity.py --seeds 24).
+TRAIN_STEP_TOL_BF16 = {"factor": 2.0, "floor_l2": 1e-9,
+                       "pre_bn_floor_l2": 1e-4, "update_rel": 5e-2}
+# the biases of the convolutions in front of a BatchNorm
+PRE_BN_BIASES = ("gaussian.block1_conv.bias", "gaussian.block2_conv.bias")
+
+
+def _loss_distance(a: Dict, b: Dict) -> float:
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b)
+
+
+@functools.lru_cache(maxsize=None)
+def _gln_freeze_mask(trainable_layers: int) -> Dict[str, bool]:
+    from .models.gln import GLN, GLNConfig
+    from .train.gln import _freeze_mask
+
+    return _freeze_mask(GLN(GLNConfig(canvas_h=64, canvas_w=64)),
+                        trainable_layers)
+
+
+def master_weights_kept(before: Dict, after: Dict,
+                        trainable_layers: int = 4) -> Dict:
+    """Of a bf16-compute train step from the `before` state_dict to
+    `after`: 'frozen_kept', whether the stem and every FrozenBN buffer
+    kept their values; 'master_f32', whether every float tensor of
+    `after` is f32 and no trained one lies on the bf16 grid (as weights
+    stored in bf16 would)."""
+    mask = _gln_freeze_mask(trainable_layers)
+    frozen_kept, master_f32 = True, True
+    for key, old in before.items():
+        g = after[key]
+        if not g.is_floating_point():
+            continue
+        master_f32 &= g.dtype == torch.float32
+        if key.startswith("body.") and not mask.get(key, False):
+            frozen_kept &= torch.equal(g, old.cpu())
+        elif mask.get(key, False) and bool((g != 0).any()):
+            master_f32 &= bool((g != g.to(torch.bfloat16).float()).any())
+    return {"frozen_kept": frozen_kept, "master_f32": master_f32}
+
+
+def train_step_bf16_check(before: Dict, got, want, ref,
+                          trainable_layers: int = 4,
+                          tol: Dict = TRAIN_STEP_TOL_BF16) -> Dict:
+    """Hold a bf16 step `got` to the bf16 step `want` beside `ref`, an
+    f32 step of the same implementation as `want`, each (metrics as
+    floats, state_dict after the step) from the `before` state_dict
+    (train_step_on_devices' values): every distance of `got` from
+    `want` within tol["factor"] x that of `want` from `ref`, plus the
+    floors (TRAIN_STEP_TOL_BF16 says why). Returns 'loss_rel' and its
+    'loss_bound'; 'worst' (tensor, distance / bound) over the held
+    tensors (the trained ones and the Gaussian running statistics);
+    'failures', a list of (name, distance, bound) beyond their bounds;
+    'n_held', the number of tensors held; and `got`'s
+    master_weights_kept."""
+    (mg, sg), (mw, sw), (mr, sr) = got, want, ref
+    kept = master_weights_kept(before, sg, trainable_layers)
+    loss_rel = _loss_distance(mg, mw)
+    loss_bound = tol["factor"] * _loss_distance(mw, mr)
+    failures = [("losses", loss_rel, loss_bound)] \
+        if loss_rel > loss_bound else []
+    mask = _gln_freeze_mask(trainable_layers)
+    worst, n_held = (None, 0.0), 0
+    for key, old in before.items():
+        if not old.is_floating_point() or (key.startswith("body.")
+                                           and not mask.get(key, False)):
+            continue
+        dg, dw, dr = ((x[key].double() - old.cpu().double())
+                      for x in (sg, sw, sr))
+        dist = (dg - dw).norm().item()
+        floor = tol["pre_bn_floor_l2"] if key in PRE_BN_BIASES \
+            else tol["floor_l2"]
+        bound = (tol["factor"] * (dw - dr).norm().item() + floor
+                 + tol["update_rel"] * dw.norm().item())
+        n_held += 1
+        if dist / bound > worst[1]:
+            worst = (key, dist / bound)
+        if dist > bound:
+            failures.append((key, dist, bound))
+    return {"loss_rel": loss_rel, "loss_bound": loss_bound,
+            "worst": worst, "failures": failures, "n_held": n_held, **kept}
 
 
 # one DIHE three-player step, or one GAN pretraining step, on the card

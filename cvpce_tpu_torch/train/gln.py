@@ -12,6 +12,13 @@ cvpce_tpu/train/gln.py.
   max(#fg, 1), averaged over the batch; the Gaussian heatmap loss over
   the batch against targets rendered at half resolution on the device;
   total = scale_class * cls + reg + scale_gaussian * gauss.
+- compute dtype: `compute_dtype='bfloat16'` runs the convolutions in
+  bf16 on f32 parameters, flax's mixed precision (models/gln.py): each
+  conv casts its f32 weight and bias to bf16, the FrozenBNs fold in f32
+  and apply in bf16, the Gaussian BatchNorms take f32 statistics and
+  return bf16, and the head outputs and heatmap reach the losses in f32.
+  The gradients, the momentum, the update and every checkpoint are f32.
+  int8 configs are serving paths and are refused.
 - the train step works in place: the model's parameters, its Gaussian
   BatchNorm statistics and the optimizer's momentum buffers are updated
   where they are, and the step returns the state it was given.
@@ -254,13 +261,17 @@ def init_train_state(model_cfg: GLNConfig, cfg: GLNTrainConfig,
                      device="cuda") -> GLNTrainState:
     """A GLN on `device` with seeded random weights (init_gln_ drawing
     from a torch.Generator seeded with `seed`) or `state_dict`, and its
-    optimizer. Training runs in f32: the JAX package's bf16 compute and
-    int8 configs are not ported to training."""
-    if model_cfg.compute_dtype != "float32" or model_cfg.int8 != "off":
-        raise ValueError("GLN training runs in float32 with int8='off'; "
-                         f"got {model_cfg.compute_dtype}, int8="
-                         f"{model_cfg.int8}")
-    model = GLN(model_cfg, generator=torch.Generator().manual_seed(seed))
+    optimizer. The parameters are f32 whatever `compute_dtype`: a
+    bf16 config computes in bf16 on f32 master weights (GLN's
+    `param_dtype`), with the f32 config's initial parameters, and a
+    bf16 `state_dict` is widened to f32. int8 configs are refused: the
+    JAX package's train step cannot apply them either (it has no
+    'act_scales' collection)."""
+    if model_cfg.int8 != "off":
+        raise ValueError("GLN training takes int8='off' (int8 is a "
+                         f"serving path); got int8={model_cfg.int8!r}")
+    model = GLN(model_cfg, generator=torch.Generator().manual_seed(seed),
+                param_dtype=torch.float32)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     model.to(resolve_device(device))

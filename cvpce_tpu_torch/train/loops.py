@@ -147,8 +147,8 @@ def train_proposal_generator(
     `device`. Returns {"state": GLNTrainState, "best": keeper record}.
 
     `load_torch`: start from a reference GaussianLayerNetwork checkpoint
-    or a port checkpoint file (cli/common.py:load_gln_state_dict; the
-    optimizer starts fresh). `load_orbax`: warm-start from the model of
+    or a port checkpoint file (cli/common.py:load_gln_state_dict, in f32
+    whatever `model_cfg.compute_dtype`; the optimizer starts fresh). `load_orbax`: warm-start from the model of
     a serving export or training-run directory, of the port or of the
     JAX package (pipeline/serving.py:load_gln_variables, as JAX's loop
     does; the optimizer starts fresh, as the reference's --load,
@@ -168,11 +168,16 @@ def train_proposal_generator(
 
     `use_mesh` in a process group of several ranks: data-parallel
     training over them (module docstring), `device` this rank's.
+
+    `model_cfg.compute_dtype='bfloat16'` trains in bf16 on f32 master
+    weights (train/gln.py); its checkpoints and exports hold f32
+    tensors, and its epoch evals serve them on a bf16 GLN.
     """
     dev = resolve_device(device)
     state_dict = None
     if load_torch is not None:
-        state_dict = load_gln_state_dict(load_torch, model_cfg)
+        state_dict = load_gln_state_dict(load_torch, model_cfg,
+                                         param_dtype=torch.float32)
     elif load_orbax is not None:
         state_dict = load_gln_variables(load_orbax)
     os.makedirs(output_path, exist_ok=True)

@@ -274,12 +274,11 @@ def test_pool_int8_conv_wrapper_refuses_what_the_tiles_cannot_take(cuda):
     assert call().shape == (1, 4, 4, 64)
 
 
-def test_train_step_on_card_matches_cpu(cuda, tmp_path):
-    """One GLN train step at 64x64, batch 2 (an image without a valid
-    gt), on the card and on the CPU from the same seeded reference-layout
-    checkpoint (focal prior on the classification bias, as chip_smoke.py
-    trains from), within testing.TRAIN_STEP_TOL; the frozen stem and
-    FrozenBN stay put."""
+def _train_step_inputs(tmp_path):
+    """A 64x64 GLN config (tanh), its train config, a seeded
+    reference-layout checkpoint loaded through cli/common.py (focal prior
+    on the classification bias, as chip_smoke.py trains from) and a
+    batch of 2 (an image without a valid gt)."""
     import math
 
     from cvpce_tpu_torch.cli.common import load_gln_state_dict
@@ -301,6 +300,16 @@ def test_train_step_on_card_matches_cpu(cuda, tmp_path):
     valid[0, :6] = True
     batch = (rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32), boxes,
              valid, np.array([[64, 64], [48, 56]], np.int32))
+    return config, train_cfg, state, batch
+
+
+def test_train_step_on_card_matches_cpu(cuda, tmp_path):
+    """One GLN train step at 64x64, batch 2 (an image without a valid
+    gt), on the card and on the CPU from the same seeded reference-layout
+    checkpoint (focal prior on the classification bias, as chip_smoke.py
+    trains from), within testing.TRAIN_STEP_TOL; the frozen stem and
+    FrozenBN stay put."""
+    config, train_cfg, state, batch = _train_step_inputs(tmp_path)
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # f32 convolutions, as served
     try:
@@ -313,6 +322,35 @@ def test_train_step_on_card_matches_cpu(cuda, tmp_path):
     assert diff["frozen_kept"]
     for key, tol in testing.TRAIN_STEP_TOL.items():
         assert diff[key] <= tol, (key, diff)
+
+
+def test_bf16_train_step_on_card_keeps_f32_master_weights(cuda, tmp_path):
+    """The same step in bf16 compute on the card: finite losses, every
+    tensor of the state f32 afterwards and every trained one moved off
+    the bf16 grid, the frozen stem and FrozenBN put, and the train state
+    computing in bf16 (a bf16 heatmap before its f32 cast)."""
+    import dataclasses
+
+    from cvpce_tpu_torch.train import gln as gln_train
+
+    config, train_cfg, state, batch = _train_step_inputs(tmp_path)
+    config = dataclasses.replace(config, compute_dtype="bfloat16")
+    metrics, after = testing.train_step_on_devices(
+        config, train_cfg, state, batch, devices=("cuda",))["cuda"]
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    kept = testing.master_weights_kept(state, after)
+    assert kept["frozen_kept"] and kept["master_f32"]
+    moved = [k for k, v in after.items() if v.is_floating_point()
+             and not torch.equal(v, state[k].cpu())]
+    assert len(moved) > 100
+    seen = []
+    model = gln_train.init_train_state(config, train_cfg, state_dict=state,
+                                       device="cuda").model
+    model.gaussian.subnet_3.register_forward_hook(
+        lambda m, i, o: seen.append(o.dtype))
+    with torch.no_grad():
+        model(torch.from_numpy(batch[0]).cuda())
+    assert seen == [torch.bfloat16]
 
 
 @pytest.mark.parametrize("loop", ["dihe", "gan"])

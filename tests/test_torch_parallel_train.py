@@ -9,7 +9,10 @@ under its mesh, tests/test_parallel_e2e.py:21):
   relative, each updated parameter within 1e-2 of its largest update plus
   1e-8, the Gaussian branch's running statistics within 1e-5; then
   make_multi_step under make_dp_train_step(batch_axis=1) against two DP
-  single steps, bit for bit;
+  single steps, bit for bit; the same in bf16 compute against JAX's bf16
+  step, held as tests/test_torch_train_gln_bf16.py holds a one-process
+  bf16 step (testing.train_step_bf16_check: twice JAX's own
+  bf16-against-f32 distance);
 - one DIHE three-player step and one GAN pretraining step at 64 px,
   gen_downs 4, one sample a rank, in float64 against JAX's step in
   float64 (tests/test_torch_train_dihe.py says why f32 gradients cannot
@@ -28,6 +31,7 @@ import torch
 from cvpce_tpu.models.gln import GLNConfig as JGLNConfig
 from cvpce_tpu.train import dihe as jdihe
 from cvpce_tpu.train import gln as jtrain
+from cvpce_tpu_torch import testing
 from cvpce_tpu_torch.utils.weights import (dihe_state_dict, gan_state_dict,
                                            gln_state_dict)
 from test_torch_train_dihe import (BRIDGE, GEN_DOWNS, GRAD_TOL_F64, OPTS,
@@ -50,35 +54,56 @@ def few_threads():
     torch.set_num_threads(threads)
 
 
-def test_gln_dp_step_matches_jax_on_the_global_batch():
-    cfg = JGLNConfig(canvas_h=H, canvas_w=W, tanh=True)
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_gln_dp_step_matches_jax_on_the_global_batch(compute_dtype):
     tcfg = jtrain.GLNTrainConfig(**TRAIN_KW)
-    state, opt = jtrain.init_train_state(cfg, tcfg, jax.random.PRNGKey(0))
+
+    def init(dtype):
+        cfg = JGLNConfig(canvas_h=H, canvas_w=W, tanh=True,
+                         compute_dtype=dtype)
+        return (cfg,) + jtrain.init_train_state(cfg, tcfg,
+                                                jax.random.PRNGKey(0))
 
     def variables(s):
         return jax.device_get({"params": s.params, "frozen": s.frozen,
                                "batch_stats": s.batch_stats})
 
+    def jax_step(cfg, state, opt):
+        step = jax.jit(jtrain.make_train_step(cfg, tcfg, cfg.anchors()[0],
+                                              opt))
+        new, metrics = step(state, *batch)
+        return ({k: float(v) for k, v in metrics.items()},
+                gln_state_dict(variables(new)))
+
+    cfg, state, opt = init(compute_dtype)
     before = gln_state_dict(variables(state))
     batch = gln_batch()
     ranks = start_ranks("gln_step", state_dict=before, batch=batch,
-                        config_kw=dict(canvas_h=H, canvas_w=W, tanh=True),
+                        config_kw=dict(canvas_h=H, canvas_w=W, tanh=True,
+                                       compute_dtype=compute_dtype),
                         train_kw=TRAIN_KW)
-    step = jax.jit(jtrain.make_train_step(cfg, tcfg, cfg.anchors()[0], opt))
-    new, metrics = step(state, *batch)
-    want = gln_state_dict(variables(new))
-    want_metrics = {k: float(v) for k, v in metrics.items()}
+    want_metrics, want = jax_step(cfg, state, opt)
     got = ranks.results()
 
     assert got[0]["digest"] == got[1]["digest"]
     for out in got:
         assert out["step"] == 1
-        for key, value in want_metrics.items():
-            assert out["metrics"][key] == pytest.approx(value, rel=1e-5), key
         assert out["metrics"] == got[0]["metrics"]
         # make_multi_step under batch_axis=1 is two DP steps, bit for bit
         assert out["multi"] == out["singles"]
     sd = got[0]["state"]
+    if compute_dtype == "bfloat16":
+        # JAX's own bf16-against-f32 distance sets the bounds
+        # (tests/test_torch_train_gln_bf16.py)
+        res = testing.train_step_bf16_check(
+            before, (got[0]["metrics"], sd), (want_metrics, want),
+            jax_step(*init("float32")))
+        assert not res["failures"], res["failures"]
+        assert res["frozen_kept"] and res["master_f32"]
+        assert res["n_held"] > 100
+        return
+    for key, value in want_metrics.items():
+        assert got[0]["metrics"][key] == pytest.approx(value, rel=1e-5), key
     n_moved = 0
     for key, w in want.items():
         g, old = sd[key], before[key]

@@ -443,10 +443,13 @@ def test_loop_refusals(tmp_path, monkeypatch):
     assert loops._host_sharding(False, 2) == (0, 1, 2)
     with pytest.raises(AssertionError, match="divide over 2 ranks"):
         loops._host_sharding(True, 3)
-    with pytest.raises(ValueError, match="float32"):
-        ptrain.init_train_state(GLNConfig(canvas_h=H, canvas_w=W,
-                                          compute_dtype="bfloat16"),
-                                ptrain.GLNTrainConfig(), device="cpu")
+    # bf16 compute trains (tests/test_torch_train_gln_bf16.py); int8 is
+    # a serving path, which JAX's train step cannot apply either
+    for int8 in ("static", "calibrate"):
+        with pytest.raises(ValueError, match="int8"):
+            ptrain.init_train_state(
+                GLNConfig(canvas_h=H, canvas_w=W, compute_dtype="bfloat16",
+                          int8=int8), ptrain.GLNTrainConfig(), device="cpu")
 
 
 def test_collate_pads_to_the_box_bucket():
