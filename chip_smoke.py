@@ -67,8 +67,14 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   dihe_r4, K1 and K2 launched and equal to their plain versions, scene
   0's detections within stated bounds of the port's CPU forward, the
   detection counts and compliance printed (synthetic scenes: no quality
-  number). Where the copy to the card lacks the exports, (b) and (c)
-  print that they are absent;
+  number); then (d) the port writes both exports again, as it read
+  them, in the JAX package's orbax layout through export_gln_serving and
+  export_dihe_serving (utils/orbax_write.py, the bridges' inverse),
+  reads them back equal to the digests, and serves
+  scene 0 from them with K1 and K2 launched, its detections and kNN
+  labels bit for bit (c)'s, printing the write seconds and MB/s. Where
+  the copy to the card lacks the exports, (b) to (d) print that they
+  are absent;
 - data.perspective: eval_dihe through the MACResNet index on
   perspective-warped query scenes (the warp is the port's numpy one);
 - data.files: seeded sets written as PNG files (testing.write_png, row
@@ -281,7 +287,8 @@ from cvpce_tpu_torch.train import gln as gln_train
 from cvpce_tpu_torch.train.checkpoint import CheckpointManager
 from cvpce_tpu_torch.train import loops as train_loops
 from cvpce_tpu_torch.train.loops import train_proposal_generator
-from cvpce_tpu_torch.utils import ocdbt, orbax_read, profiling, viz, zstd
+from cvpce_tpu_torch.utils import (ocdbt, orbax_read, orbax_write,
+                                   profiling, viz, zstd)
 from cvpce_tpu_torch.utils.torch_import import (import_gln, import_resnet50,
                                                 import_vgg16_features)
 
@@ -1718,9 +1725,22 @@ def phase_load_orbax(ctx, seed):
         equal to their plain versions, one scene's detections held to
         the port's CPU forward of the same weights. The scenes are
         synthetic: their detection counts and compliance are no quality
-        number.
+        number;
+    (d) both exports written again by the port, as it read them, in the
+        JAX package's orbax layout into a directory under BUILD: each
+        export linked as the checkpoint node of a run with its sidecars,
+        and that run exported by `export_gln_serving` /
+        `export_dihe_serving` (the bridge's inverse, utils/orbax_write.py,
+        the sidecars copied byte for byte), read back
+        by the port's reader with every leaf equal to the digests, and
+        scene 0 served from them, launch counts set to 0 just before:
+        K1 and K2 launched, the detections bit for bit (c)'s on the
+        original exports and the kNN labels of their crops (c)'s. Write
+        seconds of `orbax_write.save` and of the whole export, and the
+        write's MB/s of the arrays' bytes, with the card's name and power
+        limit.
     Only the exports may be missing (the copy to the card may drop
-    them): (b) and (c) then print that they are absent."""
+    them): (b) to (d) then print that they are absent."""
     t0 = time.perf_counter()
     root = Path(__file__).resolve().parent
     # (a)
@@ -1848,6 +1868,8 @@ def phase_load_orbax(ctx, seed):
             "threshold)")
     for r in per_scene:
         emit({"phase": "load.orbax.scene", "synthetic_scene": True, **r})
+    rewrite = orbax_rewrite(dirs, digests, pg, clf, card, ctx["scenes"][:1],
+                            config, threshold, input_norm)
     emit({"phase": "load.orbax", **row, "exports": exports,
           "serve": {"threshold": threshold, "input_norm": input_norm,
                     "gallery": len(clf.embedding), "embedding_size": dim,
@@ -1865,8 +1887,117 @@ def phase_load_orbax(ctx, seed):
                                    "tolerances": {
                                        "score": ORBAX_SCORE_TOL,
                                        "box_px": ORBAX_BOX_TOL}}},
-          "nvidia_smi": nvidia_smi(), "seconds": time.perf_counter() - t0})
+          "rewrite": rewrite, "nvidia_smi": nvidia_smi(),
+          "seconds": time.perf_counter() - t0})
     return launches
+
+
+def orbax_rewrite(dirs, digests, pg, clf, card, scenes, config, threshold,
+                  input_norm):
+    """load.orbax (d): gln_r5 and dihe_r4 written again by the port in
+    the JAX package's orbax layout, read back against the digests, and
+    scene 0 served from them against (c)'s detector `pg`, classifier
+    `clf` and scene-0 detections `card`."""
+    t0 = time.perf_counter()
+    out = BUILD / "orbax_rewrite"
+    shutil.rmtree(out, ignore_errors=True)
+    # each export as the checkpoint node of a training run, its sidecars
+    # beside it, as the serving export finds them
+    exports = {"gln_r5": (export_gln_serving, "checkpoint"),
+               "dihe_r4": (export_dihe_serving, "embedder_checkpoint")}
+    saved = []
+    save = orbax_write.save
+
+    def timed_save(directory, tree):
+        t = time.perf_counter()
+        stats = save(directory, tree)
+        saved.append((time.perf_counter() - t, stats))
+        return stats
+
+    written = {}
+    for name, d in dirs.items():
+        export, node = exports[name]
+        run = out / "runs" / name
+        run.mkdir(parents=True)
+        (run / node).symlink_to(d / "serving_checkpoint")
+        if (d / "serving_calibration.json").exists():
+            shutil.copyfile(d / "serving_calibration.json",
+                            run / "serving_calibration.json")
+        shutil.copyfile(d / "serving_checkpoint.meta.json",
+                        run / f"{node}.meta.json")
+        with mock.patch.object(orbax_write, "save", timed_save):
+            t = time.perf_counter()
+            target = Path(export(str(run), str(out / name)))
+            export_s = time.perf_counter() - t
+        write_s, stats = saved.pop()
+        for sidecar in ("serving_calibration.json",
+                        "serving_checkpoint.meta.json"):
+            require((target / sidecar).exists() == (d / sidecar).exists()
+                    and (not (d / sidecar).exists() or (
+                        (target / sidecar).read_bytes()
+                        == (d / sidecar).read_bytes())),
+                    f"load.orbax (d): {name}'s {sidecar} was not copied "
+                    "byte for byte")
+        stored = sum(f.stat().st_size for f in
+                     (target / "serving_checkpoint").rglob("*")
+                     if f.is_file())
+        t = time.perf_counter()
+        back = orbax_read.restore(str(target / "serving_checkpoint"))
+        read_s = time.perf_counter() - t
+        got = testing.tree_digests(back)
+        bad = [k for k, v in digests[name].items() if got.get(k) != v]
+        require(not bad and len(got) == len(digests[name]),
+                f"load.orbax (d): the port's rewrite of {name}: {len(bad)} "
+                f"leaves differ from orbax_digests.json (first {bad[:3]}), "
+                f"{len(got)} leaves for {len(digests[name])}")
+        written[name] = {"leaves": len(got),
+                         "array_bytes": stats["array_bytes"],
+                         "stored_bytes": stored,
+                         "ocdbt": {k: stats[k] for k in ("keys", "nodes")},
+                         "export_seconds": export_s,
+                         "write_seconds": write_s,
+                         "write_mb_per_s": stats["array_bytes"] / 1e6
+                         / write_s,
+                         "read_back_seconds": read_s}
+        del back
+    gln_dir, dihe_dir = str(out / "gln_r5"), str(out / "dihe_r4")
+    require(resolve_threshold("auto", gln_dir) == threshold
+            and resolve_input_norm(gln_dir) == input_norm,
+            "load.orbax (d): the rewrite's calibration sidecar differs")
+    pg2 = ProposalGenerator(load_gln_variables(gln_dir), config,
+                            confidence_threshold=threshold,
+                            input_norm=input_norm, device="cuda")
+    encoder, dim = load_embedder(dihe_dir, device="cuda")
+    index = BUILD / "orbax_rewrite" / "gallery_index.npz"
+    clf.save_index(str(index))
+    clf2 = Classifier(encoder, dim, k=1, load=str(index), device="cuda")
+    require(clf2._use_fused, "load.orbax (d): gallery too small for K2")
+    evaluator = PlanogramEvaluator(pg2, clf2,
+                                   PlanogramComparator(device="cuda"))
+    _reset_launches()
+    served = serve_scenes(evaluator, scenes)
+    launches = _launches()
+    for kernel, n in launches.items():
+        require(n > 0, f"load.orbax (d): {kernel} was not launched serving "
+                "the rewritten exports")
+    img = scenes[0][0]
+    again = pg2.detect(img)
+    for key in ("boxes", "scores", "valid"):
+        require(np.array_equal(again[key], card[key]),
+                f"load.orbax (d): scene 0's {key} from the rewritten gln_r5 "
+                "differ from (c)'s")
+    kept = card["valid"] & (card["scores"] > threshold)
+    n_det = int(kept.sum())
+    crops = pg.crop_boxes(img, card["boxes"][kept])
+    require(n_det > 0 and clf2.classify(crops) == clf.classify(crops),
+            "load.orbax (d): the rewritten dihe_r4 classifies scene 0's "
+            "crops otherwise than (c)")
+    shutil.rmtree(out, ignore_errors=True)
+    return {"exports": written, "scene0": {
+        "detections": n_det, "launches": launches,
+        "compliance": served[0]["compliance"],
+        "serve_seconds": served[0]["seconds"]},
+        "seconds": time.perf_counter() - t0}
 
 
 def phase_data_perspective(ctx, seed):

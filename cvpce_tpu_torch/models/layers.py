@@ -40,12 +40,20 @@ class Conv2d(nn.Conv2d):
     Parameters stored in f32 under a bf16 input are master weights
     (training, models/gln.py's `param_dtype`): they are cast to bf16 at
     each call, as flax casts its f32 parameters to its compute dtype, and
-    their gradient comes back through the cast. On that path `f32_out`
-    marks a conv whose output the JAX module widens to f32 at once (into
-    a BatchNorm's f32 statistics, or an f32 head output): XLA then adds
-    the bias in f32 without rounding the sum, and so does this, returning
-    f32. Parameters stored in the compute dtype (serving) keep the bf16
-    bias add whatever `f32_out` says."""
+    their gradient comes back through the cast. Parameters stored in the
+    compute dtype serve. On either path `f32_out` marks a conv whose
+    output the JAX module widens to f32 at once (into a BatchNorm's f32
+    statistics, or an f32 head output): XLA then adds the bf16 bias to
+    the bf16 convolution in f32 without rounding the sum, and so does
+    this, returning f32.
+
+    On the CPU a bf16 conv runs as the f32 convolution of the bf16
+    operands, rounded to bf16: the product XLA's CPU computes. oneDNN's
+    own bf16 convolution sums in an order that depends on the shape (a
+    width-sharded strip and the whole canvas round a few outputs one
+    step apart), and its weight gradient reads uninitialised memory at
+    taps that see padding alone (a 1x1 map under a strided 3x3, FPN's P7
+    on a small canvas). The card runs cuDNN's bf16 convolution."""
 
     f32_out = False
 
@@ -53,31 +61,22 @@ class Conv2d(nn.Conv2d):
         x, pad_w = pad_strip(x, self.kernel_size[1], self.stride[1],
                              self.padding[1])
         padding = (self.padding[0], pad_w)
-        if self.weight.dtype == torch.float32 and x.dtype in (
-                torch.bfloat16, torch.float16):
-            return self._mixed(x, padding)
-        if self.bias is None or self.weight.dtype == torch.float32:
+        if x.dtype not in (torch.bfloat16, torch.float16):
             return F.conv2d(x, self.weight, self.bias, self.stride, padding,
                             self.dilation, self.groups)
-        return (F.conv2d(x, self.weight, None, self.stride, padding,
-                         self.dilation, self.groups)
-                + self.bias[None, :, None, None])
+        return self._reduced(x, padding)
 
-    def _mixed(self, x: torch.Tensor, padding) -> torch.Tensor:
+    def _reduced(self, x: torch.Tensor, padding) -> torch.Tensor:
         weight = self.weight.to(x.dtype)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
         if x.device.type == "cpu":
-            # the f32 convolution of the rounded operands, rounded: the
-            # same product, where oneDNN's bf16 weight gradient reads
-            # uninitialised memory at taps that see padding alone (a 1x1
-            # map under a strided 3x3, FPN's P7 on a small canvas)
             y = F.conv2d(x.float(), weight.float(), None, self.stride,
                          padding, self.dilation, self.groups).to(x.dtype)
         else:
             y = F.conv2d(x, weight, None, self.stride, padding,
                          self.dilation, self.groups)
-        if bias is None:
+        if self.bias is None:
             return y
+        bias = self.bias.to(x.dtype)
         if self.f32_out:
             return y.float() + bias.float()[None, :, None, None]
         return y + bias[None, :, None, None]

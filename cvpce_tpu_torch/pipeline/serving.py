@@ -6,11 +6,14 @@ The training loops checkpoint the whole train state
 (train/checkpoint.py: one `torch.save` file of a state's `state_dict()`:
 for GLN the model, the SGD momentum buffers and the step; for DIHE the
 three players, their Adam states and the step). Serving needs only the
-model. An export is a directory holding:
+model. An export is a directory in the JAX package's layout, which its
+serving loaders read:
 
-- `serving_checkpoint`: one `torch.save` file, `{"model": state_dict}`
-  for a GLN (the part that the JAX package's `params`, `frozen` and
-  `batch_stats` play), `{"embedder": state_dict}` for a DIHE encoder;
+- `serving_checkpoint`: an orbax checkpoint (OCDBT, zarr v2, zstd),
+  written by the port's own writer (utils/orbax_write.py) with the trees
+  of cvpce_tpu/pipeline/serving.py: `{params, frozen, batch_stats}` for
+  a GLN, `{params, batch_stats}` for a DIHE encoder, with flax's names
+  (utils/weights.py: `gln_variables`, `macvgg_variables`);
 - `serving_calibration.json` and `serving_checkpoint.meta.json`, copied
   byte for byte from the run, so that the calibrated threshold, the
   input preprocessing and the epoch travel with the weights
@@ -24,7 +27,10 @@ export whose `serving_checkpoint` is an orbax directory (artifacts/),
 or a JAX run's `checkpoint`, `epoch_N` or `embedder_checkpoint` node.
 Those go through the port's own orbax reader (utils/orbax_read.py) and
 the bridges of utils/weights.py (`gln_state_dict`, `macvgg_state_dict`).
-The exports read either layout and write the port's.
+The loaders also read the exports that earlier versions of the port
+wrote: a `serving_checkpoint` file of `torch.save`, `{"model":
+state_dict}` for a GLN or `{"embedder": state_dict}` for a DIHE encoder.
+The exports read any of these and write the JAX package's layout.
 """
 from __future__ import annotations
 
@@ -36,8 +42,9 @@ from typing import Dict, Optional
 
 import torch
 
-from ..utils import orbax_read
-from ..utils.weights import gln_state_dict, macvgg_state_dict
+from ..utils import orbax_read, orbax_write
+from ..utils.weights import (gln_state_dict, gln_variables,
+                             macvgg_state_dict, macvgg_variables)
 from .calibrate import CALIBRATION_FILE
 
 SERVING_NAME = "serving_checkpoint"
@@ -116,10 +123,12 @@ def _dihe_node(target: str, ckpt_dir: str) -> Dict[str, torch.Tensor]:
                      f"(keys: {sorted(map(str, state))})")
 
 
-def _save(target: str, tree: Dict) -> None:
-    tmp = target + ".tmp"
-    torch.save(tree, tmp)
-    os.replace(tmp, target)
+def _serving_tree(state_dict: Dict[str, torch.Tensor], part: str) -> Dict:
+    """The tree that the JAX package's `export_*_serving` saves."""
+    if part == GLN_PART:
+        return gln_variables(state_dict)
+    params, batch_stats = macvgg_variables(state_dict)
+    return {"params": params, "batch_stats": batch_stats}
 
 
 def _copy_sidecars(run_dir: str, out_dir: str, meta_src: str) -> None:
@@ -136,24 +145,26 @@ def _export(run_dir: str, out_dir: str, name: str, part: str) -> str:
     node = _gln_node if part == GLN_PART else _dihe_node
     state_dict = node(path.join(run_dir, name), path.join(run_dir, name))
     os.makedirs(out_dir, exist_ok=True)
-    _save(path.join(out_dir, SERVING_NAME), {part: state_dict})
+    orbax_write.save(path.join(out_dir, SERVING_NAME),
+                     _serving_tree(state_dict, part))
     _copy_sidecars(run_dir, out_dir, name)
     return out_dir
 
 
 def export_gln_serving(run_dir: str, out_dir: str,
                        name: str = "checkpoint") -> str:
-    """Export a GLN training run's model state_dict, its calibration and
-    meta sidecars to `out_dir`; the SGD buffers and the step stay
-    behind."""
+    """Export a GLN training run's model, as the JAX package's
+    {params, frozen, batch_stats}, with its calibration and meta
+    sidecars to `out_dir`; the SGD buffers and the step stay behind."""
     return _export(run_dir, out_dir, name, GLN_PART)
 
 
 def export_dihe_serving(run_dir: str, out_dir: str,
                         name: str = "embedder_checkpoint") -> str:
-    """Export a DIHE run's encoder state_dict to `out_dir`. The GAN
-    players and every optimizer state stay behind: eval needs only the
-    embedder (cvpce/cli/dihe.py:301-309)."""
+    """Export a DIHE run's encoder, as the JAX package's {params,
+    batch_stats}, to `out_dir`. The GAN players and every optimizer
+    state stay behind: eval needs only the embedder
+    (cvpce/cli/dihe.py:301-309)."""
     return _export(run_dir, out_dir, name, DIHE_PART)
 
 

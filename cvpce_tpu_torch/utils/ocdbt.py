@@ -27,12 +27,24 @@ Only the newest version is read. Numbered manifests (the
 `manifest_kind` 1 that tensorstore writes when several writers share a
 store) raise NotImplementedError; corrupt or truncated files raise
 OSError.
+
+`write_store` is the inverse: it writes keys and values as a new store
+of one version, in the config that orbax writes (`ORBAX_CONFIG`, as
+`OcdbtStore.config` reads it from an export): values longer than the
+inline limit go into one data file under `d/`, the b+tree after them
+as one leaf node of every key (a serving export's ~650 keys take a few
+tens of KB of the node's 100 MB limit; a store whose node would pass it
+raises), the manifest and the node framed as above around a zstd frame
+of Raw blocks (utils/zstd.py:compress). tensorstore's `ocdbt` kvstore
+reads it.
 """
 from __future__ import annotations
 
 import os
 import struct
-from typing import Dict, List, Optional, Tuple
+import time
+import uuid
+from typing import Dict, Iterable, List, Optional, Tuple
 
 from . import zstd
 
@@ -40,6 +52,14 @@ MANIFEST = "manifest.ocdbt"
 MANIFEST_MAGIC = 0x0CDB3A2A
 NODE_MAGIC = 0x0CDB20DE
 _FORMAT_VERSION = 0
+_ZSTD = 1
+_MISSING = (1 << 64) - 1
+# what orbax's StandardCheckpointer writes (its tensorstore spec), as
+# OcdbtStore(...).config reads it from artifacts/*/serving_checkpoint
+ORBAX_CONFIG = {"manifest_kind": 0, "max_inline_value_bytes": 1024,
+                "max_decoded_node_bytes": 100_000_000,
+                "version_tree_arity_log2": 4, "compression": _ZSTD,
+                "zstd_level": 0}
 
 
 def _crc32c_table() -> List[int]:
@@ -187,11 +207,14 @@ class OcdbtStore:
                     name)
         r.raw(16)                               # uuid
         kind = r.varint()
-        r.varint()                              # inline value limit
-        self.max_decoded_node_bytes = r.varint()
-        r.byte()                                # version tree arity log2
-        if r.varint() == 1:                     # node compression: zstd
-            r.u32()                             # its level
+        self.config = {"manifest_kind": kind,
+                       "max_inline_value_bytes": r.varint(),
+                       "max_decoded_node_bytes": r.varint(),
+                       "version_tree_arity_log2": r.byte(),
+                       "compression": r.varint()}
+        if self.config["compression"] == _ZSTD:
+            self.config["zstd_level"] = r.u32()
+        self.max_decoded_node_bytes = self.config["max_decoded_node_bytes"]
         if kind != 0:
             raise NotImplementedError(
                 f"{name}: numbered manifests (manifest kind {kind})")
@@ -300,3 +323,136 @@ class OcdbtStore:
 
 def _key(key) -> bytes:
     return key.encode() if isinstance(key, str) else bytes(key)
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while n >= 0x80:
+        out.append(n & 0x7F | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _varints(values: Iterable[int]) -> bytes:
+    return b"".join(_varint(v) for v in values)
+
+
+def _frame(body: bytes, magic: int) -> bytes:
+    """`_unframe`'s inverse: magic, length, format version, zstd, the
+    body as a zstd frame, CRC-32C."""
+    head = _varint(_FORMAT_VERSION) + _varint(_ZSTD)
+    packed = zstd.compress(body)
+    length = 4 + 8 + len(head) + len(packed) + 4
+    encoded = (struct.pack(">I", magic) + struct.pack("<Q", length) + head
+               + packed)
+    return encoded + struct.pack("<I", crc32c(encoded))
+
+
+def _common(a: bytes, b: bytes) -> int:
+    n = min(len(a), len(b))
+    i = 0
+    while i < n and a[i] == b[i]:
+        i += 1
+    return i
+
+
+def _file_table(paths: List[str]) -> bytes:
+    """A data-file table of paths relative to the store (base path
+    empty), each prefix-coded against the one before."""
+    raw = [p.encode() for p in paths]
+    prefix = [_common(raw[i - 1], raw[i]) for i in range(1, len(raw))]
+    return (_varint(len(raw)) + _varints(prefix)
+            + _varints(len(r) - p for r, p in zip(raw, [0] + prefix))
+            + _varints(0 for _ in raw)
+            + b"".join(r[p:] for r, p in zip(raw, [0] + prefix)))
+
+
+def _keys(keys: List[bytes]) -> Tuple[bytes, bytes, bytes]:
+    """(prefix lengths, suffix lengths, suffix bytes) of sorted keys."""
+    prefix = [_common(keys[i - 1], keys[i]) for i in range(1, len(keys))]
+    starts = [0] + prefix
+    return (_varints(prefix),
+            _varints(len(k) - p for k, p in zip(keys, starts)),
+            b"".join(k[p:] for k, p in zip(keys, starts)))
+
+
+def _leaf_body(entries, file_table: bytes) -> bytes:
+    """A height-0 node of (key, inline bytes or (offset, length))."""
+    keys = [k for k, _ in entries]
+    prefix, suffix, key_bytes = _keys(keys)
+    inline = [v for _, v in entries if isinstance(v, bytes)]
+    indirect = [v for _, v in entries if not isinstance(v, bytes)]
+    return (b"\x00" + (file_table if indirect else _varint(0))
+            + _varint(len(entries)) + prefix + suffix + key_bytes
+            + _varints(len(v) if isinstance(v, bytes) else v[1]
+                       for _, v in entries)
+            + _varints(0 if isinstance(v, bytes) else 1 for _, v in entries)
+            + _varints(0 for _ in indirect)
+            + _varints(off for off, _ in indirect) + b"".join(inline))
+
+
+def write_store(directory: str,
+                items: Iterable[Tuple[bytes, bytes]]) -> Dict[str, int]:
+    """Write `items` (distinct keys, str or bytes, with their bytes) as
+    a new OCDBT store in `directory` (created; an existing store there
+    raises). Returns the version's statistics: keys, nodes, tree bytes
+    and indirect value bytes."""
+    if os.path.exists(os.path.join(directory, MANIFEST)):
+        raise ValueError(f"{directory} already holds an OCDBT store")
+    entries = sorted((_key(k), bytes(v)) for k, v in items)
+    for a, b in zip(entries, entries[1:]):
+        if a[0] == b[0]:
+            raise ValueError(f"OCDBT key {a[0]!r} given twice")
+    stats = {"keys": len(entries), "nodes": 0, "tree_bytes": 0,
+             "indirect_value_bytes": 0}
+    os.makedirs(os.path.join(directory, "d"), exist_ok=True)
+    if entries:
+        table, root = _write_tree(directory, entries, stats)
+    else:
+        # an empty tree: its root is missing, in a file of no name, as
+        # tensorstore writes it
+        table, root = _file_table([""]), (_MISSING, _MISSING, 0, 0, 0)
+    cfg = ORBAX_CONFIG
+    body = (uuid.uuid4().bytes + _varint(cfg["manifest_kind"])
+            + _varint(cfg["max_inline_value_bytes"])
+            + _varint(cfg["max_decoded_node_bytes"])
+            + bytes([cfg["version_tree_arity_log2"]])
+            + _varint(cfg["compression"]) + struct.pack("<I",
+                                                        cfg["zstd_level"])
+            + table + _varint(1) + _varint(1) + b"\x00"
+            + _varints((0,) + root)
+            + struct.pack("<Q", time.time_ns()) + _varint(0))
+    with open(os.path.join(directory, MANIFEST), "wb") as f:
+        f.write(_frame(body, MANIFEST_MAGIC))
+    return stats
+
+
+def _write_tree(directory: str, entries, stats: Dict[str, int]):
+    """Write the values over the inline limit, then the b+tree's one
+    leaf node, into one data file; (the file table, the root's offset,
+    length, keys, tree bytes and indirect bytes)."""
+    data_name = "d/" + uuid.uuid4().hex
+    table = _file_table([data_name])
+    leaf, at = [], 0
+    with open(os.path.join(directory, data_name), "wb") as f:
+        for key, value in entries:
+            if len(value) > ORBAX_CONFIG["max_inline_value_bytes"]:
+                f.write(value)
+                leaf.append((key, (at, len(value))))
+                at += len(value)
+                stats["indirect_value_bytes"] += len(value)
+            else:
+                leaf.append((key, value))
+        body = _leaf_body(leaf, table)
+        if len(body) > ORBAX_CONFIG["max_decoded_node_bytes"]:
+            raise ValueError(
+                f"{len(entries)} OCDBT keys take a leaf node of {len(body)} "
+                f"bytes, over the limit of "
+                f"{ORBAX_CONFIG['max_decoded_node_bytes']}")
+        encoded = _frame(body, NODE_MAGIC)
+        f.write(encoded)
+    stats["nodes"] = 1
+    stats["tree_bytes"] = len(encoded)
+    return table, (at, len(encoded), len(entries), len(encoded),
+                   stats["indirect_value_bytes"])

@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's variable trees -> the port's
+"""Weight bridge: the JAX package's variable trees <-> the port's
 state_dicts.
 
 Input trees are nested dicts of numpy arrays, as the JAX serving
@@ -11,6 +11,16 @@ flax BatchNorm likewise plus a `num_batches_tracked` counter. Module paths
 keep the JAX names (`body.layer2_0.conv1`), and the detector head needs
 no reordering: the port flattens its NCHW outputs in the same
 (y, x, anchor) order the JAX head uses.
+
+`gln_variables` and `macvgg_variables` go the other way, for the port's
+orbax exports (pipeline/serving.py): each undoes a step of `_convert`
+(OIHW -> HWIO, the `fbn` level put back, flax's leaf names, the counter
+dropped) and sorts the state_dict into flax's collections by the port's
+module types, read off the state_dict: a module with running statistics
+and a `num_batches_tracked` counter is a BatchNorm (its affine to
+`params`, its statistics to `batch_stats`), one without the counter a
+FrozenBatchNorm (all four to `frozen`), anything else a conv (`params`).
+Every leaf comes back as f32 numpy, as the JAX package stores it.
 
 The int8 path's `act_scales` collection is not part of a state_dict: the
 port keeps each scale in its Int8Conv's buffer, and `load_act_scales`
@@ -64,6 +74,79 @@ def _convert(trees, rename_module=lambda path: path,
     for name in bn_modules:
         out[f"{name}.num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+_FROZEN = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+           "running_var": "var"}
+_BN = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+       "running_mean": ("batch_stats", "mean"),
+       "running_var": ("batch_stats", "var")}
+_CONV = {"weight": "kernel", "bias": "bias"}
+
+
+def _variables(state_dict: Mapping[str, torch.Tensor],
+               collections: Tuple[str, ...],
+               rename_module=lambda mods: mods) -> Dict[str, Dict]:
+    """`_convert`'s inverse: flax collections of numpy f32 trees."""
+    modules: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, value in state_dict.items():
+        name, _, leaf = key.rpartition(".")
+        modules.setdefault(name, {})[leaf] = value
+    out: Dict[str, Dict] = {c: {} for c in collections}
+
+    def put(coll: str, mods, leaf: str, arr: np.ndarray, key: str):
+        if coll not in out:
+            raise KeyError(f"{key}: a {coll} leaf, which this model's "
+                           "variables do not hold")
+        node = out[coll]
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = arr
+
+    for name, leaves in modules.items():
+        mods = rename_module(name.split("."))
+        norm = "running_mean" in leaves
+        bn = norm and "num_batches_tracked" in leaves
+        table = _BN if bn else _FROZEN if norm else _CONV
+        for leaf, value in leaves.items():
+            if bn and leaf == "num_batches_tracked":
+                continue
+            if leaf not in table:
+                raise KeyError(f"unexpected state_dict entry {name}.{leaf}")
+            arr = value.detach().cpu().float().numpy()
+            if table is _CONV and leaf == "weight" and arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+            arr = np.array(arr, np.float32, order="C")
+            if table is _BN:
+                coll, flax_leaf = _BN[leaf]
+                put(coll, mods, flax_leaf, arr, f"{name}.{leaf}")
+            elif table is _FROZEN:
+                put("frozen", mods + ["fbn"], _FROZEN[leaf], arr,
+                    f"{name}.{leaf}")
+            else:
+                put("params", mods, _CONV[leaf], arr, f"{name}.{leaf}")
+    return out
+
+
+def gln_variables(state_dict: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, Dict]:
+    """models.gln.GLN state_dict -> GLN variables {params, frozen,
+    batch_stats} with flax's names (`gln_state_dict`'s inverse)."""
+    return _variables(state_dict, ("params", "frozen", "batch_stats"))
+
+
+def macvgg_variables(state_dict: Mapping[str, torch.Tensor]
+                     ) -> Tuple[Dict, Dict]:
+    """models.embedders.MACVGG state_dict (features.{idx}.*) ->
+    (params, batch_stats) with flax's names f{idx}
+    (`macvgg_state_dict`'s inverse)."""
+    def rename(mods):
+        if len(mods) != 2 or mods[0] != "features":
+            raise KeyError(f"not a MACVGG layer: {'.'.join(mods)}")
+        return [f"f{mods[1]}"]
+
+    v = _variables(state_dict, ("params", "batch_stats"), rename)
+    return v["params"], v["batch_stats"]
 
 
 def gln_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:

@@ -8,9 +8,10 @@ package's on the CPU, on the inputs of tests/test_torch_train_gln_bf16.py
   port's training GLN (f32 master weights, `param_dtype=torch.float32`)
   and of the port's serving GLN (weights stored in bf16), each as the
   relative L2 distance from JAX's bf16 output beside JAX's own
-  bf16-against-f32 distance. The serving GLN rounds each conv's bias sum
-  to bf16; XLA keeps it f32 where the JAX module widens the result at
-  once, and so does the training GLN;
+  bf16-against-f32 distance. Both GLNs add the bf16 bias in f32 where
+  the JAX module widens a conv's result at once, as XLA does. Beside
+  them, JAX's bf16 GLN run op by op (`jax.disable_jit`, which rounds
+  each of those bias sums to bf16) against its jitted run;
 - one train step's losses and per-tensor update distances, as
   testing.train_step_bf16_check computes them, against JAX's bf16 step
   with the up-convolution folded and unfolded, and the median over the
@@ -73,10 +74,14 @@ def main() -> dict:
                                 "batch_stats": state.batch_stats})
     before = gln_state_dict(variables)
 
-    def jax_forward(dtype, fold=True):
+    def jax_forward(dtype, fold=True, jit=True):
         model = JGLN(config=jcfg(dtype, fold), train=True)
-        out, _ = jax.jit(lambda v, x: model.apply(
-            v, x, mutable=["batch_stats"]))(variables, batch[0])
+        apply = (lambda v, x: model.apply(v, x, mutable=["batch_stats"]))
+        if jit:
+            out, _ = jax.jit(apply)(variables, batch[0])
+        else:
+            with jax.disable_jit():
+                out, _ = apply(variables, batch[0])
         return {k: np.asarray(v, np.float32) for k, v in out.items()}
 
     def port_forward(param_dtype):
@@ -94,10 +99,13 @@ def main() -> dict:
              "unfolded": jax_forward("bfloat16", False)}
     ports = {"training": port_forward(torch.float32),
              "serving": port_forward(None)}
+    eager = jax_forward("bfloat16", jit=False)
     forward = {}
     for key in j32:
         row = {f"jax_{f}_vs_f32": rel_l2(o[key], j32[key])
                for f, o in jax16.items()}
+        row["jax_eager_vs_jax_folded"] = rel_l2(eager[key],
+                                                jax16["folded"][key])
         for name, out in ports.items():
             for f, o in jax16.items():
                 row[f"port_{name}_vs_jax_{f}"] = rel_l2(out[key], o[key])
@@ -167,7 +175,7 @@ def card_spread(seeds: int) -> list:
     from cvpce_tpu_torch.data.sku110k import collate_detection
     from cvpce_tpu_torch.models import layers
 
-    port_path = layers.Conv2d._mixed
+    port_path = layers.Conv2d._reduced
 
     def onednn(self, x, padding):
         y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride,
@@ -196,11 +204,11 @@ def card_spread(seeds: int) -> list:
                 config, train_cfg, state, batch, devices=("cpu",))["cpu"]
 
         ref, want = step(f32), step(bf16)
-        layers.Conv2d._mixed = onednn
+        layers.Conv2d._reduced = onednn
         try:
             got = step(bf16)
         finally:
-            layers.Conv2d._mixed = port_path
+            layers.Conv2d._reduced = port_path
         row = {"seed": seed}
         for name, tol in (("with_update_rel", testing.TRAIN_STEP_TOL_BF16),
                           ("without_update_rel", no_rel)):

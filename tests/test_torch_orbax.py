@@ -392,8 +392,9 @@ def test_trained_exports_through_the_loaders():
 
 
 def test_jax_run_nodes_through_the_loaders(jax_runs, tmp_path):
-    """A JAX GLN run, its bare `epoch_0` node and its export to the
-    port's layout load as JAX loads them; a JAX DIHE run gives its
+    """A JAX GLN run, its bare `epoch_0` node and the port's export of
+    it (an orbax directory, which the JAX loader reads as well) load as
+    JAX loads them; a JAX DIHE run gives its
     embedder; `dihe train --gan` takes a JAX GAN run's players; a DIHE
     run is no GLN checkpoint and a GLN run no DIHE encoder."""
     from cvpce_tpu.pipeline import serving as jserving
@@ -412,8 +413,10 @@ def test_jax_run_nodes_through_the_loaders(jax_runs, tmp_path):
     _state(load_gln_state_dict(os.path.join(run, "epoch_0"),
                                default_gln_config()), want)
     out = serving.export_gln_serving(run, str(tmp_path / "export"))
-    assert not os.path.isdir(os.path.join(out, "serving_checkpoint"))
+    assert orbax_read.is_checkpoint(os.path.join(out, "serving_checkpoint"))
     _state(serving.load_gln_variables(out), want)
+    _state(gln_state_dict(jax.device_get(jserving.load_gln_variables(out))),
+           want)
     drun = jax_runs["dihe"]
     params, stats = jax.device_get(jserving.load_dihe_encoder(drun))
     _state(serving.load_dihe_encoder(drun), macvgg_state_dict(params, stats))

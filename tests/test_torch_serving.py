@@ -1,7 +1,8 @@
 """The port's serving exports and directory loaders
 (cvpce_tpu_torch/pipeline/serving.py, cli/common.py, the GLN loop's
 `load_orbax`) against the JAX package's (cvpce_tpu/pipeline/serving.py):
-export -> load gives the state bit for bit, the sidecars byte for byte,
+export -> load gives the state bit for bit, in the JAX package's orbax
+layout and trees, the sidecars byte for byte,
 the default-name shortcut follows JAX's rule, a GLN export is refused as
 a DIHE encoder, and an orbax directory that JAX's `_save` wrote loads
 as JAX loads it. Then `gln eval --weights <dir>` and `dihe eval
@@ -24,6 +25,9 @@ import torch
 from click.testing import CliRunner
 
 from torch_cli_common import json_of, small_args, write_inputs
+
+from cvpce_tpu_torch.utils import orbax_read
+from cvpce_tpu_torch.utils.weights import gln_state_dict, macvgg_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -130,10 +134,11 @@ def test_gln_export_round_trip(gln_run, tmp_path):
     assert export_gln_serving(run, out) == out
     _assert_same_state(load_gln_variables(out), want)
     _assert_same_state(load_gln_variables(run), want)
-    # the model only: no SGD buffers, no step
-    saved = torch.load(os.path.join(out, "serving_checkpoint"),
-                       weights_only=True)
-    assert sorted(saved) == ["model"]
+    # the model only, in the JAX package's orbax layout and trees: no
+    # SGD buffers, no step
+    saved = orbax_read.restore(os.path.join(out, "serving_checkpoint"))
+    assert sorted(saved) == ["batch_stats", "frozen", "params"]
+    _assert_same_state(gln_state_dict(saved), want)
     assert resolve_threshold("auto", out) == pytest.approx(0.62)
     assert resolve_input_norm(out, default="imagenet") == "raw01"
     assert load_serving_meta(out) == {"epoch": 3, "ap": 0.5}
@@ -173,10 +178,12 @@ def test_dihe_export_round_trip(dihe_run, tmp_path):
     export_dihe_serving(run, out)
     _assert_same_state(load_dihe_encoder(out), want)
     _assert_same_state(load_dihe_encoder(run), want)
-    # the encoder only: the GAN players and the optimizers stay behind
-    saved = torch.load(os.path.join(out, "serving_checkpoint"),
-                       weights_only=True)
-    assert sorted(saved) == ["embedder"]
+    # the encoder only, in the JAX package's orbax layout and trees: the
+    # GAN players and the optimizers stay behind
+    saved = orbax_read.restore(os.path.join(out, "serving_checkpoint"))
+    assert sorted(saved) == ["batch_stats", "params"]
+    _assert_same_state(macvgg_state_dict(saved["params"],
+                                         saved["batch_stats"]), want)
     assert load_serving_meta(out)["epoch"] == 7
 
 
@@ -200,6 +207,14 @@ def test_default_name_shortcut_follows_jax(gln_run, tmp_path):
     # an export of a named node exports that node
     export_gln_serving(both, str(tmp_path / "node"), name="epoch_3")
     _assert_same_state(load_gln_variables(str(tmp_path / "node")), want)
+    # exporting over the port's earlier torch.save export replaces it
+    # with the orbax one
+    old = tmp_path / "old"
+    old.mkdir()
+    torch.save({"model": other}, os.path.join(old, SERVING_NAME))
+    export_gln_serving(both, str(old), name="epoch_3")
+    assert os.path.isdir(os.path.join(old, SERVING_NAME))
+    _assert_same_state(load_gln_variables(str(old)), want)
 
 
 def test_refusals(gln_run, dihe_run, tmp_path):

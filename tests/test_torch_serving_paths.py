@@ -1,8 +1,10 @@
 """Serving paths of the port held against the JAX package on the same
 weights, through the weight bridge: MACVGG with the dynamic int8 favored
 set, MACVGG in bf16 with BatchNorm unfolded, the GLN in bf16 without
-int8, and the GLN without its Gaussian branch. Inputs are seeded numpy;
-each tolerance is stated with its reason."""
+int8 (its f32 bias adds held to jitted JAX), and the GLN without its
+Gaussian branch. Inputs are seeded numpy; each tolerance is stated with
+its reason."""
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -136,8 +138,11 @@ def test_gln_bf16_without_int8_matches_jax(gln_bf16, key):
     7.6e-2 (gaussians), 1.3e-2 (bbox_regression) and 3.7e-3
     (cls_logits) of the largest magnitude from its f32 run. Port-bf16 to
     JAX-bf16 is bounded by twice that distance, which the port does not
-    enter (measured 9.1e-2, 1.3e-2, 6.8e-3 against 1.5e-1, 2.5e-2,
-    7.4e-3); the f32 runs agree to 1.2e-5."""
+    enter (measured 8.0e-2, 1.4e-2, 3.4e-3 against 1.5e-1, 2.5e-2,
+    7.4e-3); the f32 runs agree to 1.2e-5. JAX here runs op by op and
+    rounds each bias sum to bf16, where the port and jitted XLA keep it
+    f32; test_gln_bf16_serving_logits_match_jitted_jax holds the port to
+    jitted JAX."""
     (j32, p32), (j16, p16) = gln_bf16["f32"], gln_bf16["bf16"]
     assert p16[key].shape == j16[key].shape
     assert rel_err(p32[key], j32[key]) <= 1e-4
@@ -163,3 +168,110 @@ def test_gln_without_gaussians_matches_jax(gln_no_gaussians, key):
     want, got = gln_no_gaussians
     assert got[key].shape == want[key].shape
     assert rel_err(got[key], want[key]) <= 1e-4
+
+
+def rel_l2(got, want):
+    """|got - want| over |want|, L2 over all elements."""
+    got, want = (np.asarray(a, np.float64).ravel() for a in (got, want))
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+# the serving GLN's convs whose output the JAX module widens to f32 at
+# once (cvpce_tpu/models/gln.py: the head's `.astype(jnp.float32)`, the
+# Gaussian BatchNorms' f32 statistics, the heatmap's `.astype`)
+F32_OUT_SITES = ("head.cls_logits", "head.bbox_reg", "gaussian.block1_conv",
+                 "gaussian.block2_conv", "gaussian.subnet_4")
+
+
+@pytest.mark.parametrize("int8", ["off", "static"])
+@pytest.mark.parametrize("site", F32_OUT_SITES)
+def test_gln_bf16_serving_adds_biases_in_f32(site, int8):
+    """The serving bf16 GLN (weights stored in bf16, int8 off or
+    static: these convs are float convs either way) at each conv that
+    the JAX module widens to f32 at once. Jitted, as the JAX package
+    serves, XLA rounds the bf16 convolution and adds the bf16 bias in
+    f32 without rounding the sum; `.astype` keeps it. So does the port
+    (models/layers.py:Conv2d `f32_out`). Seeded input (2, Cin, 12, 16)
+    of bf16 values, lecun-normal f32 kernel, N(0, 1) bias. Bound: a
+    tenth of JAX's own bf16-against-f32 distance on the same conv, in
+    relative L2 (measured at most 2.1e-3 of it: summation order flips a
+    few roundings; the parent's bf16 sum was 0.75-1.6 times it). The
+    int8 trunk convs (models/quant.py:Int8Conv) round their f32 sum to
+    bf16 in both packages, jitted or not, and are held by
+    tests/test_torch_int8_models.py."""
+    cfg = GLNConfig(canvas_h=64, canvas_w=64, compute_dtype="bfloat16",
+                    int8=int8)
+    conv = GLN(cfg).get_submodule(site)
+    assert conv.weight.dtype == torch.bfloat16 and conv.f32_out
+    cout, cin, k, _ = conv.weight.shape
+    rng = np.random.default_rng(F32_OUT_SITES.index(site))
+    kernel = (rng.standard_normal((k, k, cin, cout))
+              / np.sqrt(k * k * cin)).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+    x = np.maximum(rng.standard_normal((2, 12, 16, cin)), 0).astype(
+        jnp.bfloat16).astype(np.float32)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(kernel.transpose(3, 2, 0, 1)))
+        conv.bias.copy_(torch.from_numpy(bias))
+        got = conv(torch.from_numpy(x).permute(0, 3, 1, 2).to(
+            torch.bfloat16))
+    assert got.dtype == torch.float32
+    got = got.permute(0, 2, 3, 1).numpy()
+    variables = {"params": {"kernel": kernel, "bias": bias}}
+
+    def jax_conv(dtype):
+        layer = fnn.Conv(cout, (k, k), padding=[(k // 2, k // 2)] * 2,
+                         dtype=dtype)
+        return np.asarray(jax.jit(lambda v, a: layer.apply(
+            v, a.astype(dtype)).astype(jnp.float32))(variables, x))
+
+    want, ref = jax_conv(jnp.bfloat16), jax_conv(jnp.float32)
+    assert rel_l2(got, want) <= 0.1 * rel_l2(want, ref)
+
+
+@pytest.fixture(scope="module")
+def gln_jitted():
+    """A 64x64 GLN from JAX's PRNGKey(0) init (the head's focal prior
+    bias -4.595 on cls_logits) with seeded BN statistics, through jitted
+    JAX in f32 and bf16 and the port's serving bf16 GLN, eval mode."""
+    x = np.random.default_rng(16).uniform(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    cfg = dict(canvas_h=64, canvas_w=64, tanh=True)
+    v = jax.device_get(JGLN(config=JGLNConfig(**cfg)).init(
+        jax.random.PRNGKey(0), x[:1]))
+    variables = {"params": v["params"], "frozen": perturb(v["frozen"], 17),
+                 "batch_stats": perturb(v["batch_stats"], 18)}
+    want = {}
+    for dtype in ("float32", "bfloat16"):
+        model = JGLN(config=JGLNConfig(compute_dtype=dtype, **cfg))
+        want[dtype] = {k: np.asarray(o, np.float32) for k, o in jax.jit(
+            model.apply)(variables, x).items()}
+    port = GLN(GLNConfig(compute_dtype="bfloat16", **cfg))
+    port.load_state_dict(gln_state_dict(variables), strict=False)
+    with torch.no_grad():
+        got = {k: o.float().numpy() for k, o in
+               port(torch.from_numpy(x)).items()}
+    return got, want
+
+
+def test_gln_bf16_serving_logits_match_jitted_jax(gln_jitted):
+    """The whole serving bf16 GLN against JAX's jitted bf16 GLN, in
+    relative L2 against JAX's own bf16-against-f32 distance. The class
+    logits, which the focal prior bias dominates at init, lie within a
+    tenth of it (measured 0.037 of it; the parent, which rounded the
+    bias sum to bf16, 4.2 times it). The boxes and the heatmap are held
+    at that tenth conv by conv (test_gln_bf16_serving_adds_biases_in_f32).
+    On the whole network the two frameworks' convolutions sum in other
+    orders, so a few bf16 roundings flip at each layer and the flips
+    compound through ResNet-50 + FPN. The bound there is 1.25 times the
+    distance: measured 0.80 and 0.82 here, 0.92 and 1.01 on the training
+    GLN's inputs (scripts/torch_bf16_parity.py), where two bf16 runs
+    with rounding noise of JAX's size and no correlation would lie
+    sqrt(2) apart."""
+    got, want = gln_jitted
+    bound = {"cls_logits": 0.1, "bbox_regression": 1.25, "gaussians": 1.25}
+    for key in GLN_KEYS:
+        assert got[key].shape == want["bfloat16"][key].shape
+        own = rel_l2(want["bfloat16"][key], want["float32"][key])
+        assert rel_l2(got[key], want["bfloat16"][key]) <= bound[key] * own, \
+            key
