@@ -86,7 +86,8 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   serve detector (K1), one train_proposal_generator epoch of 4 steps at
   batch 2 with GrainLoader and its eval (K1), the same epoch cut at its
   third batch and resumed through GrainLoader.iter_from with the
-  uninterrupted run's losses (cuDNN deterministic), and a
+  uninterrupted run's losses (cuDNN deterministic) from an orbax
+  train-state node equal to the state saved, and a
   CachedDetectionDataset whose batches equal the dataset's; a Grocery
   Products catalogue of 4096 products (the walk, and TrainingFiles.txt
   the same) through GroceryProductsDataset into a MACVGG Classifier
@@ -166,8 +167,12 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   memory printed beside train.gln's, with the card's name and power
   limit;
 - train.resume: at 256x384, 2 epochs in one go against 1 epoch and a
-  resume=True epoch: the iteration counter continues, the momentum
-  buffers come back as saved, the resumed epoch's losses agree;
+  resume=True epoch: the node resumed from is an orbax directory in the
+  JAX package's GLNTrainState layout whose leaves equal the saved state
+  bit for bit (train/checkpoint.py; its write, read and load seconds
+  and MB/s on a line of their own, `train.resume.node`), the iteration
+  counter continues, the momentum comes back as saved, the resumed
+  epoch's losses agree;
 - train.dihe.parity: one DIHE three-player step and one GAN pretraining
   step on the card and on the CPU at 128x128 (gen_downs 7), batch 2,
   from the same seeded weights: losses, first moments, updates and
@@ -184,7 +189,10 @@ it serves at full width, on 4 synthetic planogram scenes of 832x1344:
   seconds per step and per sub-step (CUDA events), per eval, peak
   memory, the embedder's movement, BestKeeper's epoch files;
 - train.dihe.resume: at 64x64, both loops for 2 epochs against 1 epoch
-  and a resume=True epoch, cuDNN deterministic: the iteration counter
+  and a resume=True epoch, cuDNN deterministic: the `gan_checkpoint`
+  and `embedder_checkpoint` nodes are orbax directories in the JAX
+  package's layouts whose leaves equal the saved state (their seconds
+  and MB/s on `train.dihe.resume.node` lines), the iteration counter
   continues, the Adam moments come back bit for bit, the resumed losses
   agree.
 
@@ -229,6 +237,7 @@ import torch.distributed as dist
 from cvpce_tpu_torch import _build, testing
 from cvpce_tpu_torch.cli import main as cli_main
 from cvpce_tpu_torch.cli.common import load_embedder, load_gln_state_dict
+from cvpce_tpu_torch.cli.dihe import load_gan_state
 from cvpce_tpu_torch.data import avi, defaults, grozi, jpeg, png, synthetic
 from cvpce_tpu_torch.data import transforms as T
 from cvpce_tpu_torch.data.cache import CachedDetectionDataset
@@ -265,6 +274,7 @@ from cvpce_tpu_torch.parallel import (data_parallel_mesh, make_dp_train_step,
                                       make_spatial_infer, put_replicated,
                                       put_sharded, spatial_mesh)
 from cvpce_tpu_torch.parallel.multihost import initialize_multihost
+from cvpce_tpu_torch.parallel.spatial import strip_width
 from cvpce_tpu_torch.ops.metrics import calculate_metrics
 from cvpce_tpu_torch.pipeline import native
 from cvpce_tpu_torch.pipeline.calibrate import (calibrate_confidence,
@@ -284,13 +294,14 @@ from cvpce_tpu_torch.pipeline.serving import (export_dihe_serving,
                                               load_serving_meta)
 from cvpce_tpu_torch.train import dihe as dihe_train
 from cvpce_tpu_torch.train import gln as gln_train
-from cvpce_tpu_torch.train.checkpoint import CheckpointManager
+from cvpce_tpu_torch.train.checkpoint import CheckpointManager, load_node
 from cvpce_tpu_torch.train import loops as train_loops
 from cvpce_tpu_torch.train.loops import train_proposal_generator
 from cvpce_tpu_torch.utils import (ocdbt, orbax_read, orbax_write,
                                    profiling, viz, zstd)
 from cvpce_tpu_torch.utils.torch_import import (import_gln, import_resnet50,
                                                 import_vgg16_features)
+from cvpce_tpu_torch.utils.weights import macvgg_state_dict
 
 # H100 SXM peaks from NVIDIA's data sheet: HBM bytes/s, f32 FLOP/s
 # outside the tensor cores and dense int8 tensor-core OP/s, at the full
@@ -2449,13 +2460,25 @@ def _data_files_train(seed, ref, sku, kw, evalset):
 
     split = out / "split"
     small = _TimedReads(evalset, DATA_RESUME_EVAL)
+    saved = {}
+    save_rotating = CheckpointManager.save_rotating
+
+    def recorded(manager, state, meta):
+        save_rotating(manager, state, meta)
+        saved["tree"] = state.to_tree()
+
     try:
-        train_proposal_generator(trainset, small, str(split),
-                                 loader_cls=_InterruptedGrainLoader,
-                                 **common)
+        with mock.patch.object(CheckpointManager, "save_rotating",
+                               recorded):
+            train_proposal_generator(trainset, small, str(split),
+                                     loader_cls=_InterruptedGrainLoader,
+                                     **common)
         require(False, "the interrupted run was not interrupted")
     except _Interrupt:
         pass
+    node = check_node("data.files", split, "checkpoint", saved["tree"],
+                      gln_train.init_train_state(config, train_cfg,
+                                                 device="cuda"))
     meta = CheckpointManager(str(split)).load_meta()
     require((meta["epoch"], meta["iteration"], meta["epoch_step"])
             == (0, 0, 0), f"interval checkpoint at {meta}")
@@ -2476,7 +2499,8 @@ def _data_files_train(seed, ref, sku, kw, evalset):
             "step_seconds": stats["batch_times"], "train_seconds": train_s,
             "read_seconds": trainset.seconds, "launches": launches,
             "best": whole["best"], "resumed_steps": len(got["class_loss"]),
-            "resume_loss_rel": rel, "resume_launches": resume_launches}
+            "resume_loss_rel": rel, "resume_launches": resume_launches,
+            "resume_node": node}
 
 
 def _data_files_planograms(ctx, gp):
@@ -3109,7 +3133,10 @@ def _cli_files(root: Path, ctx, seed):
     calibration beside it (threshold and input norm, read by
     --confidence auto), the serve embedder in train_dihe's checkpoint
     layout, a pipeline-demo folder gallery and planogram for the first
-    scene, and a COCO `instances` JSON for the SKU-110K photos."""
+    scene, and a COCO `instances` JSON for the SKU-110K photos. The
+    embedder is a `torch.save` file, the layout of the port's runs
+    before their nodes became orbax directories, which the loaders
+    still read."""
     pg, sku = ctx["pg"], ctx["data_files"]["sku"]
     gp = ctx["data_files"]["gp"]
     weights_dir = root / "serve_gln"
@@ -3480,19 +3507,12 @@ DIHE_CLI_ITEMS = 32  # the catalogue's products that the training commands see
 DIHE_CLI_STEP = DATA_GALLERY // DIHE_CLI_ITEMS
 
 
-def _same_checkpoint(a, b, label) -> None:
-    """Two nested checkpoint dicts with the same keys and equal entries,
-    tensors bit for bit (the command's and the library's training runs:
-    the same seeds, cuDNN deterministic, the loader on one thread)."""
-    if isinstance(b, dict):
-        require(isinstance(a, dict) and set(a) == set(b),
-                f"{label}: keys differ")
-        for k in b:
-            _same_checkpoint(a[k], b[k], f"{label}.{k}")
-    elif torch.is_tensor(b):
-        require(torch.equal(a, b), f"{label}: the tensors differ")
-    else:
-        require(a == b, f"{label}: {a} != {b}")
+def _same_checkpoint(run_a: Path, run_b: Path, name: str) -> None:
+    """Two runs' orbax train-state nodes `name` with the same leaves,
+    bit for bit (the command's and the library's training runs: the
+    same seeds, cuDNN deterministic, the loader on one thread)."""
+    _same_tree_bits(orbax_read.restore(str(run_a / name)),
+                    orbax_read.restore(str(run_b / name)), name)
 
 
 def _dihe_cli_files(root: Path, gp, seed) -> Dict:
@@ -3670,9 +3690,7 @@ def phase_cli_dihe(ctx, seed, smi):
             gallery(), discset(), str(gan_lib), epochs=1,
             batch_size=DIHE_BATCH, device="cuda"))
         held("dihe pretrain-gan", s, ln, out, want, lib)
-        _same_checkpoint(torch.load(gan_cli / "gan_checkpoint"),
-                         torch.load(gan_lib / "gan_checkpoint"),
-                         "gan_checkpoint")
+        _same_checkpoint(gan_cli, gan_lib, "gan_checkpoint")
 
         run_cli, run_lib = root / "dihe_cli", root / "dihe_lib"
         out, s, ln = _cli(["dihe", "train", "--source", small, *targets,
@@ -3685,16 +3703,14 @@ def phase_cli_dihe(ctx, seed, smi):
                 data, discset(), data, GroceryProductsTestSet(
                     gp["test_dir"], gp["ann_dir"],
                     only=defaults.GP_TEST_VALIDATION_SET_SIZE),
-                str(run_lib), gan_state=CheckpointManager(
-                    str(gan_cli), name="gan_checkpoint").read(),
+                str(run_lib), gan_state=load_gan_state(str(gan_cli)),
                 epochs=1, batch_size=DIHE_BATCH,
                 train_cfg=dihe_train.DIHETrainConfig(), device="cuda")
         want, lib = _library_text(train)
         held("dihe train --gan", s, ln, out, want, lib)
         require("epoch 0: top-1 accuracy" in out, "dihe train: no eval")
         for name in ("embedder_checkpoint", "epoch_0"):
-            _same_checkpoint(torch.load(run_cli / name),
-                             torch.load(run_lib / name), name)
+            _same_checkpoint(run_cli, run_lib, name)
         one_thread.stop()
 
         # the run directory and its serving export serve the same encoder
@@ -3736,9 +3752,10 @@ def phase_cli_dihe(ctx, seed, smi):
             require(not t["failed"] and len(t["results"]) == 1,
                     f"trial {t['trial_id']}: {t}")
             model = MACVGG(batch_norm=t["config"]["batchnorm"])
-            model.load_state_dict(torch.load(
-                search / f"trial_{t['trial_id'] + 1:03d}" / "epoch_0")[
-                    "embedder"])
+            node = orbax_read.restore(str(
+                search / f"trial_{t['trial_id'] + 1:03d}" / "epoch_0"))
+            model.load_state_dict(macvgg_state_dict(node["emb_params"],
+                                                    node["emb_stats"]))
             acc = eval_dihe(EmbedFn(model, device="cuda"), size, data,
                             valset, batch_size=DIHE_BATCH, k=(1,),
                             verbose=False, device="cuda")
@@ -4039,11 +4056,11 @@ def phase_train_gln(seed, ref, compute_dtype="float32", f32_run=None,
             "did not reach the inference function")
     if bf16:
         for name in ("checkpoint", "epoch_0"):
-            saved = torch.load(out / name, map_location="cpu",
-                               weights_only=True)
-            kinds = {str(v.dtype) for v in saved["model"].values()
-                     if v.is_floating_point()}
-            require(kinds == {"torch.float32"},
+            saved = orbax_read.restore(str(out / name))
+            kinds = {str(a.dtype) for c in ("params", "frozen",
+                                            "batch_stats")
+                     for _, a in _tree_arrays(saved[c])}
+            require(kinds == {"float32"},
                     f"{name} of the bf16 run holds {sorted(kinds)}")
     times = stats["batch_times"]
     breakdown = train_step_breakdown(result["state"], config, train_cfg,
@@ -4148,6 +4165,71 @@ def _loss_rel(got: Dict, want: Dict, skip: int) -> float:
     return worst
 
 
+def _tree_arrays(tree, trail=()):
+    """((dotted path, array), ...) of a train-state tree; None leaves
+    (optax's empty nodes) hold none."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_arrays(v, trail + (str(k),))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _tree_arrays(v, trail + (str(i),))
+    elif tree is not None:
+        yield ".".join(trail), np.asarray(tree)
+
+
+def _same_tree_bits(got, want, label) -> int:
+    """Two train-state trees leaf for leaf, dtype, shape and bytes;
+    returns the number of arrays."""
+    a, b = dict(_tree_arrays(got)), dict(_tree_arrays(want))
+    require(sorted(a) == sorted(b), f"{label}: the leaves differ "
+            f"{sorted(set(a) ^ set(b))[:4]}")
+    for k, w in b.items():
+        require(a[k].dtype == w.dtype and a[k].shape == w.shape
+                and a[k].tobytes() == w.tobytes(),
+                f"{label}: leaf {k} differs from the saved state")
+    return len(b)
+
+
+def check_node(phase: str, run: Path, name: str, saved, fresh) -> Dict:
+    """The node a run resumes from (train/checkpoint.py): `run / name`
+    is an orbax directory, not a torch.save file, whose tree equals
+    `saved` (the state's `to_tree()` when it was written) bit for bit,
+    and restored into `fresh` (a new train state on the card) gives that
+    tree back. Its write (to_tree and orbax_write.save into a scratch
+    node, as the loops write one), read (orbax_read.restore) and load
+    (onto the card) seconds, host time, and MB/s over the arrays' bytes
+    print on a line of their own."""
+    node = run / name
+    require(orbax_read.is_checkpoint(str(node)),
+            f"{phase}: {node} is not an orbax train-state node")
+    manager = CheckpointManager(str(run), name=name)
+    t = time.perf_counter()
+    read = manager.read()
+    read_s = time.perf_counter() - t
+    require(read.layout == "orbax", f"{phase}: {name} read as {read.layout}")
+    n = _same_tree_bits(read.value, saved, f"{phase}: {name}")
+    t = time.perf_counter()
+    load_node(fresh, read)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    _same_tree_bits(fresh.to_tree(), saved, f"{phase}: {name} restored")
+    scratch = BUILD / "node_timing"
+    shutil.rmtree(scratch, ignore_errors=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    CheckpointManager(str(scratch)).save_named(fresh, name, {})
+    write_s = time.perf_counter() - t
+    shutil.rmtree(scratch, ignore_errors=True)
+    mb = sum(a.nbytes for _, a in _tree_arrays(saved)) / 1e6
+    line = {"phase": f"{phase}.node", "node": name, "arrays": n, "mb": mb,
+            "write_seconds": write_s, "write_mb_per_s": mb / write_s,
+            "read_seconds": read_s, "read_mb_per_s": mb / read_s,
+            "load_seconds": load_s, "clock": "host"}
+    emit(line)
+    return line
+
+
 def _train_resume(seed, ref, t0):
     h, w = TRAIN_SMALL_HW
     config, train_cfg = train_configs(h, w)
@@ -4167,18 +4249,13 @@ def _train_resume(seed, ref, t0):
     first = train_proposal_generator(trainset, evalset, str(split),
                                      epochs=1, **common)
     manager = CheckpointManager(str(split))
-    saved = torch.load(split / "checkpoint", map_location="cpu",
-                       weights_only=True)
     meta_first = manager.load_meta()
-    fresh = gln_train.init_train_state(config, train_cfg, device="cuda")
-    manager.restore(fresh)
-    restored = fresh.optimizer.state_dict()["state"]
-    require(len(restored) == len(saved["optimizer"]["state"]) > 100,
-            "momentum buffers missing from the checkpoint")
-    for i, s in saved["optimizer"]["state"].items():
-        require(torch.equal(restored[i]["momentum_buffer"].cpu(),
-                            s["momentum_buffer"]),
-                f"momentum buffer {i} differs from the saved one")
+    saved = first["state"].to_tree()
+    node = check_node("train.resume", split, "checkpoint", saved,
+                      gln_train.init_train_state(config, train_cfg,
+                                                 device="cuda"))
+    momentum = dict(_tree_arrays(saved["opt_state"]))
+    require(len(momentum) > 100, "momentum missing from the checkpoint")
     resumed = train_proposal_generator(trainset, evalset, str(split),
                                        epochs=1, resume=True, **common)
     meta = manager.load_meta()
@@ -4200,7 +4277,7 @@ def _train_resume(seed, ref, t0):
             f"the uninterrupted run's (a rerun {rerun}, bound {bound})")
     emit({"phase": "train.resume", "canvas": [h, w], "steps": steps,
           "iterations": [meta_first["iteration"], meta["iteration"]],
-          "momentum_buffers": len(restored), "loss_rel": worst,
+          "momentum_arrays": len(momentum), "node": node, "loss_rel": worst,
           "rerun_loss_rel": rerun, "bound": bound,
           "seconds": time.perf_counter() - t0})
 
@@ -4513,20 +4590,18 @@ def _dihe_resume(seed, loop):
                            {"epochs": 1, "resume": True})):
         rec = _Recorder(getattr(train_loops, factory), gan=loop == "gan")
         with mock.patch.object(train_loops, factory, rec):
-            run(path, **kw)
+            result = run(path, **kw)
         losses[key] = rec.metrics
         if key == "first":
             manager = CheckpointManager(str(path), name=name)
             meta_first = manager.load_meta()
-            saved = torch.load(path / name, map_location="cpu",
-                               weights_only=True)
-            restored = manager.restore(fresh()).state_dict()[opt]["state"]
-            require(len(restored) == len(saved[opt]["state"]) > 10,
+            saved = result["state"].to_tree()
+            node = check_node("train.dihe.resume", path, name, saved,
+                              fresh())
+            adam = dict(_tree_arrays(saved[opt][0]))
+            require(len(adam) > 20 and int(saved[opt][0]["count"])
+                    == len(losses["first"]),
                     f"{loop}: Adam state missing from the checkpoint")
-            for i, s in saved[opt]["state"].items():
-                for k in ("exp_avg", "exp_avg_sq", "step"):
-                    require(torch.equal(restored[i][k].cpu(), s[k]),
-                            f"{loop}: Adam {k} {i} differs from the saved")
     meta = manager.load_meta()
     steps = len(losses["whole"])
     require(meta_first["iteration"] == steps // 2 - 1
@@ -4547,7 +4622,7 @@ def _dihe_resume(seed, loop):
             f"{bound})")
     return {"steps": steps, "iterations": [meta_first["iteration"],
                                            meta["iteration"]],
-            "adam_states": len(restored), "loss_rel": worst,
+            "adam_arrays": len(adam), "node": node, "loss_rel": worst,
             "rerun_loss_rel": rerun, "bound": bound}
 
 
@@ -4957,6 +5032,9 @@ SPATIAL_RANKS = 4
 SPATIAL_STRIP = 1024  # columns a rank: 4 serve scenes side by side
 SPATIAL_ONE_RANK_WIDTH = 1408  # 11 x 128
 SPATIAL_REPS = 3
+# a canvas width that is no multiple of 128 x SPATIAL_RANKS: strips of
+# 1024 columns, the last 448 of the padded canvas pad (parallel/spatial.py)
+SPATIAL_PADDED_WIDTH = 3648
 SPATIAL_HALOS = 78  # exchanges a GLN forward (parallel/spatial.py)
 SPATIAL_SCORE_TOL = 1e-4  # JAX's own test's bounds (tests/test_parallel_e2e.py)
 SPATIAL_BOX_TOL = 1e-2  # px
@@ -5001,8 +5079,9 @@ def spatial_worker(rank: int, port: int, work: Path) -> int:
     """One of parallel.spatial's SPATIAL_RANKS ranks, all on cuda:0 over
     gloo: make_spatial_infer on the wide photo in `work`, a warm-up,
     SPATIAL_REPS timed runs with K1 counted, make_spatial_forward's
-    gathered outputs, and on rank 0 one run under utils.profiling.trace;
-    the results go to work/rank<r>.pt."""
+    gathered outputs, and on rank 0 one run under utils.profiling.trace
+    (`reps` and `trace` in the inputs change the last two); the results
+    go to work/rank<r>.pt."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     initialize_multihost(f"tcp://127.0.0.1:{port}", SPATIAL_RANKS, rank,
@@ -5018,7 +5097,7 @@ def spatial_worker(rank: int, port: int, work: Path) -> int:
     run(image, sizes)
     torch.cuda.synchronize()
     seconds, launches = [], []
-    for _ in range(SPATIAL_REPS):
+    for _ in range(inputs.get("reps", SPATIAL_REPS)):
         dist.barrier()
         _reset_launches()
         ts = time.perf_counter()
@@ -5029,7 +5108,7 @@ def spatial_worker(rank: int, port: int, work: Path) -> int:
     outputs = make_spatial_forward(model, config, mesh)(image)
     dist.barrier()
     regions = None
-    if rank == 0:
+    if rank == 0 and inputs.get("trace", True):
         with profiling.trace(str(work / "trace")) as prof:
             ts = time.perf_counter()
             run(image, sizes)
@@ -5051,6 +5130,71 @@ def spatial_worker(rank: int, port: int, work: Path) -> int:
     return 0
 
 
+def _spatial_padded(par, base, image, work: Path) -> Dict:
+    """The SPATIAL_RANKS gloo ranks again at 832 x SPATIAL_PADDED_WIDTH
+    (the wide photo's first columns), a width that is no multiple of 128
+    x ranks: rank 0's detections held to the one-process forward at that
+    width as the 832x4096 run's are, every rank's equal, K1 once a rank
+    a run."""
+    config = dataclasses.replace(base, canvas_w=SPATIAL_PADDED_WIDTH)
+    require(config.canvas_w % (128 * SPATIAL_RANKS),
+            "SPATIAL_PADDED_WIDTH splits evenly")
+    image = image[:, :, :config.canvas_w].contiguous()
+    sizes = torch.tensor([[config.canvas_h, config.canvas_w]],
+                         dtype=torch.float32)
+    work = work / "padded"
+    work.mkdir()
+    torch.save({"state": par["gln_state"], "config": config, "image": image,
+                "sizes": sizes, "reps": 1, "trace": False},
+               work / "inputs.pt")
+    ts = time.perf_counter()
+    ranks = _run_ranks(work, "spatial", SPATIAL_RANKS)
+    ranks_s = time.perf_counter() - ts
+    model = GLN(config)
+    model.load_state_dict(par["gln_state"])
+    model.cuda()
+    anchors, counts = config.anchors()
+    with torch.inference_mode():
+        outputs = model(image.cuda())
+        want = postprocess_detections(outputs, torch.from_numpy(
+            anchors).cuda(), counts, sizes.cuda(), config)
+    want = {k: v.cpu() for k, v in want.items()}
+    got = ranks[0]["detections"]
+    for r, out in enumerate(ranks):
+        for key, v in out["detections"].items():
+            require(torch.equal(v, got[key]), f"parallel.spatial padded: "
+                    f"rank {r}'s {key} differs from rank 0's")
+        require(out["launches"] == [1], f"parallel.spatial padded: rank "
+                f"{r}: K1 launches {out['launches']}")
+    keep = want["valid"]
+    keep_diff = int((got["valid"] != keep).sum())
+    score_err = float((got["scores"][keep] - want["scores"][keep]).abs().max())
+    box_err = float((got["boxes"][keep] - want["boxes"][keep]).abs().max())
+    require(keep_diff == 0 and bool(keep.any()),
+            f"parallel.spatial padded: {keep_diff} keep-set differences "
+            f"from the one-process forward ({int(keep.sum())} kept)")
+    require(score_err <= SPATIAL_SCORE_TOL and box_err <= SPATIAL_BOX_TOL,
+            f"parallel.spatial padded against one process: scores "
+            f"{score_err}, boxes {box_err} px")
+    gathered = ranks[0]["outputs"]
+    for key, v in outputs.items():
+        require(tuple(gathered[key].shape) == tuple(v.shape),
+                f"parallel.spatial padded: gathered {key} "
+                f"{tuple(gathered[key].shape)}, not {tuple(v.shape)}")
+    strip = strip_width(config.canvas_w, SPATIAL_RANKS)
+    return {"canvas": [config.canvas_h, config.canvas_w],
+            "strip": [config.canvas_h, strip],
+            "pad_columns": strip * SPATIAL_RANKS - config.canvas_w,
+            "detections": int(keep.sum()), "keep_set_differences": keep_diff,
+            "max_score_err": score_err, "max_box_err_px": box_err,
+            "max_gaussians_err": float((gathered["gaussians"]
+                                        - outputs["gaussians"].cpu())
+                                       .abs().max()),
+            "run_seconds": ranks[0]["seconds"],
+            "launches": [out["launches"][-1] for out in ranks],
+            "ranks_seconds": ranks_s}
+
+
 def phase_parallel_spatial(par, seed):
     """Width-sharded GLN inference (parallel/spatial.py) on the serve
     detector. World size 1 over parallel.init's NCCL group at
@@ -5061,7 +5205,9 @@ def phase_parallel_spatial(par, seed):
     within JAX's test bounds of the one-process forward at 832x4096 on
     the card with no keep-set difference, every rank's equal, K1 once a
     rank a run, 78 halo exchanges a forward; seconds beside the one
-    process's and the halo / gather / postprocess split."""
+    process's and the halo / gather / postprocess split. Last the same
+    ranks at a width that is no multiple of 128 x ranks
+    (`_spatial_padded`)."""
     t0 = time.perf_counter()
     base = par["config"]
     mesh = spatial_mesh()
@@ -5164,7 +5310,14 @@ def phase_parallel_spatial(par, seed):
             f"exchanges in a traced forward, not {SPATIAL_HALOS}")
     launches = {"one_rank": one_rank_k1,
                 "ranks4": [out["launches"][-1] for out in ranks]}
+    gaussians_err = float((gathered["gaussians"]
+                           - outputs["gaussians"].cpu()).abs().max())
+    del model, outputs
+    torch.cuda.empty_cache()
+    padded = _spatial_padded(par, base, image, work)
+    launches["padded"] = padded["launches"]
     emit({"phase": "parallel.spatial", "one_rank": one_rank,
+          "padded": padded,
           "ranks": {"world_size": SPATIAL_RANKS, "backend": "gloo",
                     "device": "cuda:0 (every rank)",
                     "canvas": [config.canvas_h, config.canvas_w],
@@ -5172,9 +5325,7 @@ def phase_parallel_spatial(par, seed):
                     "detections": int(keep.sum()),
                     "keep_set_differences": keep_diff,
                     "max_score_err": score_err, "max_box_err_px": box_err,
-                    "max_gaussians_err": float(
-                        (gathered["gaussians"]
-                         - outputs["gaussians"].cpu()).abs().max()),
+                    "max_gaussians_err": gaussians_err,
                     "levels": levels,
                     "run_seconds": [out["seconds"] for out in ranks],
                     "run_median_s": statistics.median(ranks[0]["seconds"]),

@@ -2,13 +2,14 @@
 commands; counterpart of cvpce_tpu/cli/common.py.
 
 Weights are a file or a directory. A file is a reference torch
-checkpoint or one of the port's own training checkpoints
-(train/checkpoint.py: `torch.save` of a train state's `state_dict()`,
-e.g. `<run>/checkpoint` or `<run>/epoch_3`). A directory is a training
-run or a serving export (pipeline/serving.py), of the port or of the
-JAX package (its orbax directories, read by utils/orbax_read.py), taken
-as the JAX package takes its orbax directories (`_load_gln_orbax`): what
-a run saved, a command loads. A reference checkpoint overlays a model built
+checkpoint or a training checkpoint the port wrote before its nodes
+became orbax directories (`torch.save` of a train state's
+`state_dict()`, e.g. `<run>/checkpoint` or `<run>/epoch_3`). A directory
+is a training run, one of its checkpoint nodes (`<run>/epoch_3`) or a
+serving export (pipeline/serving.py), of the port or of the JAX package
+(orbax directories, read by utils/orbax_read.py), taken as the JAX
+package takes its orbax directories (`_load_gln_orbax`): what a run
+saved, a command loads. A reference checkpoint overlays a model built
 from its config (`_merge`): a key the model lacks raises KeyError and a
 shape mismatch ValueError, both naming the key, so a checkpoint of
 another architecture fails at load time. The port's own checkpoints and
@@ -50,22 +51,25 @@ def _read(weights: str):
     return torch.load(weights, map_location="cpu", weights_only=True)
 
 
-def _gln_directory(ckpt_dir: str) -> Dict[str, torch.Tensor]:
-    """The GLN state_dict of a directory (JAX's `_load_gln_orbax`): a
-    training run or a serving export; else the directory is taken as a
-    checkpoint node inside a run (a JAX orbax node such as
-    `<run>/epoch_3`)."""
+def _directory(ckpt_dir: str, node: str, load):
+    """`load(run, name)` of a directory: a training run or a serving
+    export (`load(dir)`); else the directory is taken as a checkpoint
+    node inside a run (an orbax node such as `<run>/epoch_3`)."""
     d = os.path.normpath(ckpt_dir)
     if (os.path.exists(os.path.join(d, SERVING_NAME))
-            or os.path.exists(os.path.join(d, "checkpoint"))):
-        return load_gln_variables(d)
-    return load_gln_variables(os.path.dirname(d),
-                              name=os.path.basename(d))
+            or os.path.exists(os.path.join(d, node))):
+        return load(d)
+    return load(os.path.dirname(d), name=os.path.basename(d))
+
+
+def _gln_directory(ckpt_dir: str) -> Dict[str, torch.Tensor]:
+    """The GLN state_dict of a directory (JAX's `_load_gln_orbax`)."""
+    return _directory(ckpt_dir, "checkpoint", load_gln_variables)
 
 
 def _train_state_part(obj, part: str) -> Optional[Dict[str, torch.Tensor]]:
-    """`obj[part]` where `obj` is one of the port's training checkpoints
-    holding `part`, else None."""
+    """`obj[part]` where `obj` is a `torch.save` training checkpoint of
+    the port's earlier runs holding `part`, else None."""
     if isinstance(obj, dict) and "step" in obj \
             and isinstance(obj.get(part), dict):
         return obj[part]
@@ -126,10 +130,11 @@ def load_embedder(weights: Optional[str], batch_norm: bool = True,
     """(EmbedFn on `device`, embedding size).
 
     `encoder='vgg16'`: MACVGG from torchvision vgg16(_bn) `features.*`,
-    a reference MACVGG checkpoint (`block1.` / `block2.` slices), the
-    port's DIHE training checkpoint (`embedder_checkpoint`,
-    `epoch_<e>`: its `embedder`, loaded strictly) or a directory: a
-    DIHE run or serving export of the port or of the JAX package
+    a reference MACVGG checkpoint (`block1.` / `block2.` slices), a
+    `torch.save` DIHE training checkpoint of the port's earlier runs
+    (`embedder_checkpoint`, `epoch_<e>`: its `embedder`, loaded
+    strictly) or a directory: a DIHE run, one of its checkpoint nodes
+    or a serving export, of the port or of the JAX package
     (pipeline/serving.py:load_dihe_encoder, loaded strictly; a GLN's
     raises). Its BatchNorms are
     folded into the convs for serving. `int8` serves the
@@ -161,7 +166,9 @@ def load_embedder(weights: Optional[str], batch_norm: bool = True,
     model = MACVGG(batch_norm=batch_norm, generator=generator,
                    **({} if batch_norm else served))
     if weights is not None and os.path.isdir(weights):
-        model.load_state_dict(load_dihe_encoder(weights), strict=True)
+        model.load_state_dict(
+            _directory(weights, "embedder_checkpoint", load_dihe_encoder),
+            strict=True)
     elif weights is not None:
         obj = _read(weights)
         own = _train_state_part(obj, DIHE_PART)

@@ -72,21 +72,21 @@ def pretrain_gan(source, imgs, annotations, out, epochs, batch_size, masks,
 def load_gan_state(gan_path: str):
     """The generator's and discriminator's state_dicts of a
     `pretrain-gan` run's `gan_checkpoint`, for train_dihe to load into
-    players it builds: the port's file, or the JAX package's orbax node
-    (its gen_params / gen_stats / disc_params / disc_stats, bridged by
-    utils/weights.py:gan_state_dict)."""
+    players it builds: an orbax node of either package (its gen_params /
+    gen_stats / disc_params / disc_stats, bridged by
+    utils/weights.py:gan_state_dict), or the `torch.save` file of the
+    port's earlier runs."""
     from ..train.checkpoint import CheckpointManager
-    from ..utils import orbax_read
     from ..utils.weights import gan_state_dict
 
-    node = path.join(gan_path, "gan_checkpoint")
-    if orbax_read.is_checkpoint(node):
-        tree = orbax_read.restore(node)
-        return {"generator": gan_state_dict(tree["gen_params"],
-                                            tree["gen_stats"]),
-                "discriminator": gan_state_dict(tree["disc_params"],
-                                                tree["disc_stats"])}
-    return CheckpointManager(gan_path, name="gan_checkpoint").read()
+    node = CheckpointManager(gan_path, name="gan_checkpoint").read()
+    if node.layout == "torch":
+        return node.value
+    tree = node.value
+    return {"generator": gan_state_dict(tree["gen_params"],
+                                        tree["gen_stats"]),
+            "discriminator": gan_state_dict(tree["disc_params"],
+                                            tree["disc_stats"])}
 
 
 def train(source, source_type, only, eval_data, imgs, annotations,

@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from ..ops.conv_fused import int8_conv_nhwc, quantize
-from ..parallel.spatial import pad_strip, strip_max
+from ..parallel.spatial import pad_strip, strip_max, strip_valid
 
 MODES = ("dynamic", "static", "calibrate")
 
@@ -69,7 +69,7 @@ class Int8Conv(nn.Module):
     def _activation_scale(self, xf: torch.Tensor) -> torch.Tensor:
         if self.mode == "static":
             return self.act_scale.clamp(min=1e-8)
-        a_scale = strip_max(xf.abs().amax()).clamp(min=1e-8) \
+        a_scale = strip_max(strip_valid(xf).abs().amax()).clamp(min=1e-8) \
             / torch.tensor(127.0, device=xf.device)
         if self.mode == "calibrate":
             with torch.no_grad():
@@ -81,7 +81,7 @@ class Int8Conv(nn.Module):
         """(int32 accumulators (B, Cout, Ho, Wo), activation scale).
         Under parallel/spatial.py:width_sharded the halo columns join in
         float before the elementwise quantize, and a dynamic scale is
-        the whole canvas's."""
+        the whole canvas's (its pad columns left out)."""
         xf = x.float()
         a_scale = self._activation_scale(xf)
         kq, _ = self.quantized_weight()

@@ -19,11 +19,27 @@ are written out:
   every 3x3/2 conv 1 and 0, the 1x1 convs none: 78 exchanges a forward
   (18 in the ResNet-50, 5 in the FPN, 50 in the head, 5 in the Gaussian
   branch).
-- The rest of the forward needs no exchange once every pyramid level
-  splits evenly (a canvas width that is a multiple of 128 x size):
-  FrozenBN, the Gaussian branch's eval-mode BatchNorm, ReLU and the 1x1
-  convs act on each column alone, and the nearest 2x upsample maps
-  strip r of a level onto strip r of the level above.
+- The rest of the forward needs no exchange: FrozenBN, the Gaussian
+  branch's eval-mode BatchNorm, ReLU and the 1x1 convs act on each
+  column alone, and the nearest 2x upsample maps strip r of a level
+  onto strip r of the level above.
+- Any canvas width: every rank holds a strip of `strip_width(W, size)`
+  columns, ceil(W / size) rounded up to a multiple of 128, so that every
+  pyramid level down to P7 (stride 128) splits into whole columns and
+  each strided op's strips stay aligned. The canvas is padded on the
+  right to size x strip; at every level the columns past the level's
+  width in the unsharded forward (ceil(W / stride): every strided conv
+  and pool of the GLN rounds up) are pad. Each op that reads a
+  neighbour (`pad_strip`) first sets this strip's pad columns to what
+  the unsharded op reads there (0, or -inf for the max-pool), so no pad
+  reaches a real column; the column-local ops compute garbage in the
+  pad, which nothing real reads. A dynamic int8 scale takes its maximum
+  over the real columns only (`strip_valid`). The gather crops every
+  level back to its unsharded width. So no level falls back to a
+  gathered strip: at P7 each rank holds at least one column, and no
+  halo there is wider than one. A width that is a multiple of 128 x
+  size has no pad and runs as before; a narrower one costs the pad's
+  compute (192 on 2 ranks runs 256 columns).
 - An exchange is one all-gather of every rank's (first, last) edge
   columns, from which each rank takes its neighbours'. That moves
   `size` edge pairs to each rank where sends to the two neighbours
@@ -47,7 +63,8 @@ Inference only: no halo carries a gradient, as in the JAX package.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -61,16 +78,26 @@ from .mesh import DataParallelMesh, all_gather, data_parallel_mesh
 # every pyramid level, down to P7 at stride 2**7, splits evenly
 WIDTH_QUANTUM = 2 ** LEVELS[-1]
 
-# the mesh of the width-sharded forward that is running
-_STRIPS: List[DataParallelMesh] = []
+
+class _Strips(NamedTuple):
+    mesh: DataParallelMesh
+    # the unsharded canvas width; None: the strips hold it with no pad
+    canvas_w: Optional[int]
+
+
+# the strips of the width-sharded forward that is running
+_STRIPS: List[_Strips] = []
 
 
 @contextlib.contextmanager
-def width_sharded(mesh: DataParallelMesh):
+def width_sharded(mesh: DataParallelMesh, canvas_w: Optional[int] = None):
     """Within the block, every NCHW tensor that reaches a convolution
     or max-pool is this rank's strip of the width: `strip_mesh()`
-    returns `mesh` where it has more than one rank."""
-    _STRIPS.append(mesh)
+    returns `mesh` where it has more than one rank. `canvas_w`: the
+    unsharded canvas's width, padded on the right to `mesh.size` strips
+    of `strip_width` columns (module docstring); None when the strips
+    hold the canvas with no pad."""
+    _STRIPS.append(_Strips(mesh, canvas_w))
     try:
         yield
     finally:
@@ -80,9 +107,39 @@ def width_sharded(mesh: DataParallelMesh):
 def strip_mesh() -> Optional[DataParallelMesh]:
     """The mesh of the enclosing `width_sharded` block if it spans more
     than one rank, else None (one rank's strip is the whole width)."""
-    if _STRIPS and _STRIPS[-1].size > 1:
-        return _STRIPS[-1]
+    if _STRIPS and _STRIPS[-1].mesh.size > 1:
+        return _STRIPS[-1].mesh
     return None
+
+
+def strip_valid(x: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+    """`x`, this rank's strip of a level, with the columns past the
+    level's unsharded width (the canvas's pad) set to `fill`; `x` itself
+    where the strip holds no pad or outside a width-sharded block."""
+    mesh, canvas_w = strip_mesh(), _STRIPS[-1].canvas_w if _STRIPS else None
+    if mesh is None or canvas_w is None:
+        return x
+    strip = strip_width(canvas_w, mesh.size)
+    width = x.shape[-1]
+    if strip % width:
+        raise ValueError(f"a strip of {width} columns is no level of a "
+                         f"{strip}-column strip")
+    stride = strip // width
+    real = -(-canvas_w // stride) - mesh.rank * width
+    if real >= width:
+        return x
+    real = max(real, 0)
+    return torch.cat([x[..., :real],
+                      x.new_full(x.shape[:-1] + (width - real,), fill)],
+                     dim=-1).contiguous(memory_format=_layout(x))
+
+
+def _layout(x: torch.Tensor) -> torch.memory_format:
+    """x's memory format: a CPU convolution picks its kernel, and so its
+    order of summation, by the input's layout, and the int8 convolutions
+    return channels-last tensors."""
+    return (torch.channels_last if x.dim() == 4 and x.shape[1] > 1
+            and x.stride(1) == 1 else torch.contiguous_format)
 
 
 def pad_strip(x: torch.Tensor, kernel: int, stride: int, padding: int,
@@ -98,7 +155,7 @@ def pad_strip(x: torch.Tensor, kernel: int, stride: int, padding: int,
         return x, padding
     left, right = padding, max(0, kernel - padding - stride)
     if left or right:
-        x = _exchange(x, mesh, left, right, fill)
+        x = _exchange(strip_valid(x, fill), mesh, left, right, fill)
     return x, 0
 
 
@@ -118,12 +175,8 @@ def _exchange(x: torch.Tensor, mesh: DataParallelMesh, left: int,
               else x.new_full(x.shape[:-1] + (left,), fill))
         hi = (every[r + 1][..., :right] if r + 1 < mesh.size
               else x.new_full(x.shape[:-1] + (right,), fill))
-        # in x's memory format: a CPU convolution picks its kernel, and
-        # so its order of summation, by the input's layout, and the int8
-        # convolutions return channels-last tensors
-        fmt = (torch.channels_last if x.dim() == 4 and x.shape[1] > 1
-               and x.stride(1) == 1 else torch.contiguous_format)
-        return torch.cat([lo, x, hi], dim=-1).contiguous(memory_format=fmt)
+        return torch.cat([lo, x, hi], dim=-1).contiguous(
+            memory_format=_layout(x))
 
 
 def strip_max(t: torch.Tensor) -> torch.Tensor:
@@ -144,22 +197,23 @@ def spatial_mesh(device="cuda", group=None) -> DataParallelMesh:
     return data_parallel_mesh(device, group)
 
 
-def _check_width(canvas_w: int, size: int) -> int:
-    if canvas_w % (WIDTH_QUANTUM * size):
-        raise ValueError(
-            f"canvas width {canvas_w} is not a multiple of {WIDTH_QUANTUM} "
-            f"x {size} ranks: the width must divide evenly by the mesh "
-            f"size times {WIDTH_QUANTUM} so every pyramid level's strips "
-            "stay aligned (cvpce_tpu/parallel/spatial.py)")
-    return canvas_w // size
+def strip_width(canvas_w: int, size: int) -> int:
+    """Each rank's strip of a `canvas_w`-wide canvas on `size` ranks:
+    the whole canvas on one rank, else ceil(canvas_w / size) rounded up
+    to a multiple of 128."""
+    if size == 1:
+        return canvas_w
+    return -(-canvas_w // (WIDTH_QUANTUM * size)) * WIDTH_QUANTUM
 
 
 def _gather_width(outputs: Dict[str, torch.Tensor],
                   levels: Sequence[Tuple[int, int]], anchors_per_cell: int,
-                  mesh: DataParallelMesh) -> Dict[str, torch.Tensor]:
+                  mesh: DataParallelMesh, widths: Sequence[int]
+                  ) -> Dict[str, torch.Tensor]:
     """Every rank's strip outputs joined along the width, in one
     all-gather: each level's head outputs (B, h * w * A, K) as
-    (B, h, w, A * K), and gaussians (B, H/2, W/2, 1)."""
+    (B, h, w, A * K), and gaussians (B, H/2, W/2, 1), each cropped to
+    its unsharded width (`widths`: the levels', then the heatmap's)."""
     heads = ("cls_logits", "bbox_regression")
     b = outputs["cls_logits"].shape[0]
     pieces, start = [], 0
@@ -173,7 +227,10 @@ def _gather_width(outputs: Dict[str, torch.Tensor],
     every = all_gather(torch.cat([p.reshape(-1) for p in pieces]), mesh)
     splits = [torch.split(buf, [p.numel() for p in pieces])
               for buf in every]
-    whole = [torch.cat([parts[i].view(p.shape) for parts in splits], dim=2)
+    crop = [w for w in widths[:len(levels)] for _ in heads] + list(
+        widths[len(levels):])
+    whole = [torch.cat([parts[i].view(p.shape) for parts in splits],
+                       dim=2)[:, :, :crop[i]]
              for i, p in enumerate(pieces)]
     out = {k: torch.cat([whole[2 * lv + j].reshape(
                b, -1, outputs[k].shape[-1]) for lv in range(len(levels))], 1)
@@ -195,9 +252,9 @@ def make_spatial_forward(state_dict_or_gln, config,
 
     `state_dict_or_gln`: a GLN state_dict for `config`, or a GLN (put on
     the mesh's device), which an int8='static' config needs, with its
-    act scales loaded. The canvas width must divide evenly by the mesh
-    size times 128 so every level's strips stay aligned; `axis` names
-    the sharded axis and only "width" is one. int8='calibrate' is
+    act scales loaded. Any canvas width: the strips are `strip_width`
+    columns and the canvas is padded to them (module docstring); `axis`
+    names the sharded axis and only "width" is one. int8='calibrate' is
     refused, as JAX's apply of immutable variables refuses to record the
     scales (flax's ModifyScopeVariableError)."""
     # models/ imports parallel.mesh, so the model comes in at call time
@@ -209,7 +266,7 @@ def make_spatial_forward(state_dict_or_gln, config,
     if config.int8 == "calibrate":
         raise ValueError("int8='calibrate' cannot record act scales in a "
                          "spatial run; calibrate the unsharded GLN")
-    strip = _check_width(config.canvas_w, mesh.size)
+    strip = strip_width(config.canvas_w, mesh.size)
     if isinstance(state_dict_or_gln, nn.Module):
         model = state_dict_or_gln
     elif config.int8 == "static":
@@ -221,6 +278,7 @@ def make_spatial_forward(state_dict_or_gln, config,
     model.to(mesh.device).eval()
     levels = [(-(-config.canvas_h // 2 ** lv), strip // 2 ** lv)
               for lv in LEVELS]
+    widths = [-(-config.canvas_w // 2 ** lv) for lv in LEVELS + (1,)]
     canvas = (config.canvas_h, config.canvas_w)
     lo = mesh.rank * strip
 
@@ -231,12 +289,15 @@ def make_spatial_forward(state_dict_or_gln, config,
             raise ValueError(f"images of {tuple(x.shape[1:3])}, not the "
                              f"config's canvas {canvas}")
         x = x[:, :, lo:lo + strip].to(mesh.device)
+        if x.shape[2] < strip:  # the canvas's pad (module docstring)
+            x = torch.cat([x, x.new_zeros(x.shape[:2] + (
+                strip - x.shape[2],) + x.shape[3:])], dim=2)
         with torch.inference_mode():
-            with width_sharded(mesh):
+            with width_sharded(mesh, config.canvas_w):
                 local = model(x)
             with annotate("spatial.gather"):
                 return _gather_width(local, levels,
-                                     RetinaNetHead.NUM_ANCHORS, mesh)
+                                     RetinaNetHead.NUM_ANCHORS, mesh, widths)
 
     return forward
 

@@ -2,12 +2,13 @@
 loaders that read either layout; counterpart of
 cvpce_tpu/pipeline/serving.py.
 
-The training loops checkpoint the whole train state
-(train/checkpoint.py: one `torch.save` file of a state's `state_dict()`:
-for GLN the model, the SGD momentum buffers and the step; for DIHE the
-three players, their Adam states and the step). Serving needs only the
-model. An export is a directory in the JAX package's layout, which its
-serving loaders read:
+The training loops checkpoint the whole train state (train/checkpoint.py:
+an orbax directory in the JAX package's train-state layout, for GLN the
+model's variables, the SGD momentum and the step; for DIHE the three
+players, their Adam states and the step; the port's earlier runs wrote
+one `torch.save` file instead). Serving needs only the model. An export
+is a directory in the JAX package's layout, which its serving loaders
+read:
 
 - `serving_checkpoint`: an orbax checkpoint (OCDBT, zarr v2, zstd),
   written by the port's own writer (utils/orbax_write.py) with the trees
@@ -21,16 +22,17 @@ serving loaders read:
 
 The loaders take an export or a training-run directory (`checkpoint`,
 `embedder_checkpoint`, or a named node such as `epoch_3`) and return the
-model's state_dict, on the CPU. They read the JAX package's orbax
-directories as well, wherever the JAX loaders read them: a serving
-export whose `serving_checkpoint` is an orbax directory (artifacts/),
-or a JAX run's `checkpoint`, `epoch_N` or `embedder_checkpoint` node.
-Those go through the port's own orbax reader (utils/orbax_read.py) and
-the bridges of utils/weights.py (`gln_state_dict`, `macvgg_state_dict`).
-The loaders also read the exports that earlier versions of the port
-wrote: a `serving_checkpoint` file of `torch.save`, `{"model":
-state_dict}` for a GLN or `{"embedder": state_dict}` for a DIHE encoder.
-The exports read any of these and write the JAX package's layout.
+model's state_dict, on the CPU. An orbax node, of either package, goes
+through the port's own orbax reader (utils/orbax_read.py) and the
+bridges of utils/weights.py (`gln_state_dict`, `macvgg_state_dict`):
+a serving export whose `serving_checkpoint` is an orbax directory
+(artifacts/), or a run's `checkpoint`, `epoch_N` or
+`embedder_checkpoint` node. The loaders also read what earlier versions
+of the port wrote: a run's `torch.save` node (its `model` or
+`embedder`), and a `serving_checkpoint` file of `torch.save`,
+`{"model": state_dict}` for a GLN or `{"embedder": state_dict}` for a
+DIHE encoder. The exports read any of these and write the JAX
+package's layout.
 """
 from __future__ import annotations
 
@@ -42,15 +44,16 @@ from typing import Dict, Optional
 
 import torch
 
+from ..train.checkpoint import COUNTERS_FILE
 from ..utils import orbax_read, orbax_write
 from ..utils.weights import (gln_state_dict, gln_variables,
                              macvgg_state_dict, macvgg_variables)
 from .calibrate import CALIBRATION_FILE
 
 SERVING_NAME = "serving_checkpoint"
-# the part of a port training checkpoint that serving keeps: the GLN
-# loop's GLNTrainState (train/gln.py) its `model`, train_dihe's
-# DIHETrainState (train/dihe.py) its `embedder`
+# the part of a port training checkpoint of `torch.save` that serving
+# keeps: the GLN loop's GLNTrainState (train/gln.py) its `model`,
+# train_dihe's DIHETrainState (train/dihe.py) its `embedder`
 GLN_PART = "model"
 DIHE_PART = "embedder"
 
@@ -74,10 +77,26 @@ def _read(target: str, what: str) -> Dict:
     return obj
 
 
+def _with_counters(state_dict: Dict[str, torch.Tensor], target: str,
+                   module: str) -> Dict[str, torch.Tensor]:
+    """`state_dict` with the BatchNorm counters that a port run's orbax
+    node keeps beside its tree (train/checkpoint.py) for `module`, where
+    the node has them; the JAX tree holds none."""
+    counters = path.join(target, COUNTERS_FILE)
+    if not path.exists(counters):
+        return state_dict
+    with open(counters) as f:
+        counts = json.load(f)
+    for key in state_dict:
+        if f"{module}.{key}" in counts:
+            state_dict[key] = torch.tensor(counts[f"{module}.{key}"])
+    return state_dict
+
+
 def _gln_node(target: str, ckpt_dir: str) -> Dict[str, torch.Tensor]:
-    """The GLN state_dict of one checkpoint node: a JAX orbax directory
+    """The GLN state_dict of one checkpoint node: an orbax directory
     ({params, frozen, batch_stats}, cvpce_tpu/pipeline/serving.py
-    `load_gln_variables`) or a port file (its `model`)."""
+    `load_gln_variables`) or a port `torch.save` file (its `model`)."""
     if orbax_read.is_checkpoint(target):
         state = orbax_read.restore(target)
         missing = [k for k in ("params", "frozen", "batch_stats")
@@ -85,7 +104,7 @@ def _gln_node(target: str, ckpt_dir: str) -> Dict[str, torch.Tensor]:
         if missing:
             raise ValueError(
                 f"{ckpt_dir} is not a GLN checkpoint: missing {missing}")
-        return gln_state_dict(state)
+        return _with_counters(gln_state_dict(state), target, GLN_PART)
     state = _read(target, "GLN")
     if GLN_PART not in state:
         raise ValueError(f"{ckpt_dir} is not a GLN checkpoint: missing "
@@ -94,9 +113,10 @@ def _gln_node(target: str, ckpt_dir: str) -> Dict[str, torch.Tensor]:
 
 
 def _dihe_node(target: str, ckpt_dir: str) -> Dict[str, torch.Tensor]:
-    """The MACVGG state_dict of one checkpoint node: a JAX orbax
-    directory (a serving export's params / batch_stats, or a DIHE train
-    state's emb_params / emb_stats) or a port file (its `embedder`). A
+    """The MACVGG state_dict of one checkpoint node: an orbax directory
+    (a serving export's params / batch_stats, or a DIHE train state's
+    emb_params / emb_stats) or a port `torch.save` file (its
+    `embedder`). A
     GLN tree is refused, as the JAX loader refuses a tree with a
     'frozen' collection: loading foreign weights into the embedder would
     serve garbage."""
@@ -109,7 +129,8 @@ def _dihe_node(target: str, ckpt_dir: str) -> Dict[str, torch.Tensor]:
         if "params" in state:
             return macvgg_state_dict(state["params"], state["batch_stats"])
         if "emb_params" in state:
-            return macvgg_state_dict(state["emb_params"], state["emb_stats"])
+            return _with_counters(macvgg_state_dict(
+                state["emb_params"], state["emb_stats"]), target, DIHE_PART)
         raise ValueError(f"{ckpt_dir} is not a DIHE checkpoint "
                          f"(keys: {sorted(state)})")
     state = _read(target, "DIHE")

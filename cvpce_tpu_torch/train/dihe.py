@@ -29,6 +29,16 @@ torch.optim.Adam, one per player; the encoder's LR is
 number of steps taken before the update, as optax counts. A step works
 in place on the state it is given and returns it.
 
+Checkpoints: `to_tree` / `load_tree` of DIHETrainState and
+GANTrainState convert them to and from the JAX package's DIHETrainState
+and GAN pretraining dict (cvpce_tpu/train/dihe.py) as numpy, the trees
+its orbax checkpoints hold (train/checkpoint.py). Each Adam optimizer is
+optax's `(ScaleByAdamState(count, mu, nu), ...)`: `exp_avg` and
+`exp_avg_sq` are `mu` and `nu` in the parameters' tree and layout, and
+optax's one `count` is torch's per-parameter `step`, equal for every
+parameter (an optimizer whose parameters' steps differ cannot be
+written, and raises ValueError).
+
 Under parallel/mesh.py:make_dp_train_step every BatchNorm takes the
 global batch's statistics and each player's gradients are averaged over
 the ranks before its update; the losses are batch means over equal
@@ -52,6 +62,9 @@ from ..ops.knn import cosine_distance
 from ..ops.losses import hierarchical_triplet_loss, masked_zncc, zncc
 from ..parallel.mesh import average_gradients
 from ..utils import resolve_device
+from ..utils.weights import (gan_parameter_tree, gan_state_dict,
+                             gan_variables, macvgg_parameter_tree,
+                             macvgg_state_dict, macvgg_variables)
 
 # optax.adam's defaults (eps_root 0)
 ADAM_KW = dict(betas=(0.9, 0.999), eps=1e-8)
@@ -79,6 +92,54 @@ class GANPretrainConfig:
     gen_downs: int = 8  # U-Net depth; 8 for 256px (tests shrink it)
 
 
+def _adam_tree(module: torch.nn.Module, opt: torch.optim.Adam,
+               param_tree: Callable) -> Dict:
+    """optax's ScaleByAdamState of `opt` over `module`'s parameters:
+    {count, mu, nu}, zeros before the first step."""
+    steps, mu, nu = set(), {}, {}
+    for name, p in module.named_parameters():
+        st = opt.state.get(p)
+        if not st:
+            steps.add(0)
+            mu[name] = nu[name] = torch.zeros_like(p)
+            continue
+        steps.add(int(st["step"]))
+        mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
+    if len(steps) != 1:
+        raise ValueError(
+            f"the Adam steps of {type(module).__name__}'s parameters "
+            f"differ ({sorted(steps)}): optax keeps one count")
+    return {"count": np.asarray(steps.pop(), np.int32),
+            "mu": param_tree(module, mu), "nu": param_tree(module, nu)}
+
+
+def _load_adam(module: torch.nn.Module, opt: torch.optim.Adam,
+               tree: Mapping, to_state_dict: Callable) -> int:
+    """Load optax's {count, mu, nu} into `opt` in place; the count."""
+    mu, nu = to_state_dict(tree["mu"]), to_state_dict(tree["nu"])
+    count = int(tree["count"])
+    names = {n for n, _ in module.named_parameters()}
+    if set(mu) != names or set(nu) != names:
+        raise ValueError(f"the Adam moments do not match "
+                         f"{type(module).__name__}'s parameters")
+    # torch.optim.Adam's step dtype (_get_scalar_dtype)
+    dt = (torch.float64 if torch.get_default_dtype() == torch.float64
+          else torch.float32)
+    for name, p in module.named_parameters():
+        opt.state[p] = {"step": torch.tensor(float(count), dtype=dt),
+                        "exp_avg": mu[name].to(p.device, p.dtype),
+                        "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+    return count
+
+
+def _gan_sd(tree) -> Dict[str, torch.Tensor]:
+    return gan_state_dict(tree, {})
+
+
+def _macvgg_sd(tree) -> Dict[str, torch.Tensor]:
+    return macvgg_state_dict(tree, {})
+
+
 @dataclasses.dataclass
 class DIHETrainState:
     """The three players (updated in place), their Adam optimizers and
@@ -93,6 +154,8 @@ class DIHETrainState:
 
     _PARTS = ("embedder", "generator", "discriminator", "emb_opt",
               "gen_opt", "disc_opt")
+    # the modules whose BatchNorm counters train/checkpoint.py keeps
+    MODULES = ("embedder", "generator", "discriminator")
 
     def state_dict(self) -> Dict:
         out = {k: getattr(self, k).state_dict() for k in self._PARTS}
@@ -103,6 +166,50 @@ class DIHETrainState:
         for k in self._PARTS:
             getattr(self, k).load_state_dict(sd[k])
         self.step = int(sd["step"])
+
+    def to_tree(self) -> Dict:
+        """The JAX package's DIHETrainState, as numpy: `step`, each
+        player's params and stats (`emb_*`, `gen_*`, `disc_*`) and its
+        optax adam state: `emb_opt` (a schedule) `[adam, {count}]`,
+        `gen_opt` and `disc_opt` (a constant LR) `[adam, None]`."""
+        step = np.asarray(self.step, np.int32)
+        emb_params, emb_stats = macvgg_variables(self.embedder.state_dict())
+        gen_params, gen_stats = gan_variables(self.generator.state_dict())
+        disc_params, disc_stats = gan_variables(
+            self.discriminator.state_dict())
+        return {"step": step,
+                "emb_params": emb_params, "emb_stats": emb_stats,
+                "gen_params": gen_params, "gen_stats": gen_stats,
+                "disc_params": disc_params, "disc_stats": disc_stats,
+                "emb_opt": [_adam_tree(self.embedder, self.emb_opt,
+                                       macvgg_parameter_tree),
+                            {"count": step.copy()}],
+                "gen_opt": [_adam_tree(self.generator, self.gen_opt,
+                                       gan_parameter_tree), None],
+                "disc_opt": [_adam_tree(self.discriminator, self.disc_opt,
+                                        gan_parameter_tree), None]}
+
+    def load_tree(self, tree: Mapping) -> None:
+        """Load a tree in `to_tree`'s layout into this state, in place;
+        a count that is not the step raises ValueError."""
+        step = int(tree["step"])
+        self.embedder.load_state_dict(macvgg_state_dict(
+            tree["emb_params"], tree["emb_stats"]))
+        self.generator.load_state_dict(gan_state_dict(
+            tree["gen_params"], tree["gen_stats"]))
+        self.discriminator.load_state_dict(gan_state_dict(
+            tree["disc_params"], tree["disc_stats"]))
+        counts = [_load_adam(self.embedder, self.emb_opt,
+                             tree["emb_opt"][0], _macvgg_sd),
+                  int(tree["emb_opt"][1]["count"]),
+                  _load_adam(self.generator, self.gen_opt,
+                             tree["gen_opt"][0], _gan_sd),
+                  _load_adam(self.discriminator, self.disc_opt,
+                             tree["disc_opt"][0], _gan_sd)]
+        if any(c != step for c in counts):
+            raise ValueError(f"optimizer counts {counts} are not the "
+                             f"step {step}")
+        self.step = step
 
 
 @dataclasses.dataclass
@@ -115,6 +222,7 @@ class GANTrainState:
     disc_opt: torch.optim.Adam
 
     _PARTS = ("generator", "discriminator", "gen_opt", "disc_opt")
+    MODULES = ("generator", "discriminator")
 
     def state_dict(self) -> Dict:
         return {k: getattr(self, k).state_dict() for k in self._PARTS}
@@ -122,6 +230,32 @@ class GANTrainState:
     def load_state_dict(self, sd: Mapping) -> None:
         for k in self._PARTS:
             getattr(self, k).load_state_dict(sd[k])
+
+    def to_tree(self) -> Dict:
+        """The JAX package's GAN pretraining dict, as numpy:
+        `gen_params`, `gen_stats`, `disc_params`, `disc_stats`, and
+        `gen_opt` / `disc_opt` as optax adam's `[adam, None]`. It has no
+        step: each optimizer's count is its own."""
+        gen_params, gen_stats = gan_variables(self.generator.state_dict())
+        disc_params, disc_stats = gan_variables(
+            self.discriminator.state_dict())
+        return {"gen_params": gen_params, "gen_stats": gen_stats,
+                "disc_params": disc_params, "disc_stats": disc_stats,
+                "gen_opt": [_adam_tree(self.generator, self.gen_opt,
+                                       gan_parameter_tree), None],
+                "disc_opt": [_adam_tree(self.discriminator, self.disc_opt,
+                                        gan_parameter_tree), None]}
+
+    def load_tree(self, tree: Mapping) -> None:
+        """Load a tree in `to_tree`'s layout into this state, in place."""
+        self.generator.load_state_dict(gan_state_dict(
+            tree["gen_params"], tree["gen_stats"]))
+        self.discriminator.load_state_dict(gan_state_dict(
+            tree["disc_params"], tree["disc_stats"]))
+        _load_adam(self.generator, self.gen_opt, tree["gen_opt"][0],
+                   _gan_sd)
+        _load_adam(self.discriminator, self.disc_opt, tree["disc_opt"][0],
+                   _gan_sd)
 
 
 def hierarchy_similarity(positives: Sequence[Sequence[str]],

@@ -22,6 +22,9 @@ cvpce_tpu/train/gln.py.
 - the train step works in place: the model's parameters, its Gaussian
   BatchNorm statistics and the optimizer's momentum buffers are updated
   where they are, and the step returns the state it was given.
+- checkpoints: `GLNTrainState.to_tree` / `load_tree` convert the state
+  to and from the JAX package's GLNTrainState (cvpce_tpu/train/gln.py)
+  as numpy, the tree its orbax checkpoints hold (train/checkpoint.py).
 - data parallelism wraps the step in parallel/mesh.py:make_dp_train_step:
   the Gaussian branch's BatchNorms and the hard-negative mining then see
   the global batch, the per-image losses average over equal local
@@ -42,6 +45,8 @@ from ..ops.losses import gaussian_heatmap_loss, sigmoid_focal_loss
 from ..ops.matching import match_anchors
 from ..parallel.mesh import average_gradients
 from ..utils import resolve_device
+from ..utils.weights import (gln_parameter_tree, gln_state_dict,
+                             gln_variables)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +81,9 @@ class GLNTrainState:
     optimizer: torch.optim.SGD
     step: int = 0
 
+    # the modules whose BatchNorm counters train/checkpoint.py keeps
+    MODULES = ("model",)
+
     def state_dict(self) -> Dict:
         return {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
@@ -85,6 +93,78 @@ class GLNTrainState:
         self.model.load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
         self.step = int(sd["step"])
+
+    def _trained(self) -> Dict[str, torch.nn.Parameter]:
+        """The parameters the optimizer trains, by name: the trainable
+        mask of `_freeze_mask`, which JAX's optax mask matches."""
+        ids = {id(p) for g in self.optimizer.param_groups
+               for p in g["params"]}
+        return {n: p for n, p in self.model.named_parameters()
+                if id(p) in ids}
+
+    def to_tree(self) -> Dict:
+        """The JAX package's GLNTrainState of this state, as numpy
+        (`step`, `params`, `frozen`, `batch_stats`, `opt_state`), leaf
+        for leaf what its orbax checkpoint holds. `opt_state` is
+        make_optimizer's chain of two masked transforms:
+        `[{inner_state: [None, [{trace}, {count}]]}, {inner_state:
+        None}]`: add_decayed_weights' and set_to_zero's EmptyState as
+        None, SGD's momentum `trace` in the parameters' tree and layout
+        (None at each frozen parameter, optax's MaskedNode; zeros before
+        the first step, where torch has no buffer yet) and the
+        schedule's `count`, which is `step`."""
+        trained = self._trained()
+        trace = {}
+        for name, p in self.model.named_parameters():
+            buf = (self.optimizer.state.get(p, {}).get("momentum_buffer")
+                   if name in trained else None)
+            trace[name] = (buf if buf is not None or name not in trained
+                           else torch.zeros_like(p))
+        step = np.asarray(self.step, np.int32)
+        return {"step": step,
+                **gln_variables(self.model.state_dict()),
+                "opt_state": [
+                    {"inner_state": [None, [
+                        {"trace": gln_parameter_tree(self.model, trace)},
+                        {"count": step.copy()}]]},
+                    {"inner_state": None}]}
+
+    def load_tree(self, tree: Dict) -> None:
+        """Load a tree in `to_tree`'s layout (utils/orbax_read.py's
+        restore of either package's checkpoint) into this state, in
+        place. A tree whose momentum is masked otherwise than this
+        optimizer's parameters, or whose schedule count is not its
+        step, raises ValueError."""
+        try:
+            inner = tree["opt_state"][0]["inner_state"][1]
+            trace, count = inner[0]["trace"], inner[1]["count"]
+        except (KeyError, IndexError, TypeError):
+            raise ValueError("not a GLN train state: no opt_state[0]."
+                             "inner_state[1] = [{trace}, {count}]") from None
+        step = int(tree["step"])
+        if int(count) != step:
+            raise ValueError(f"schedule count {int(count)} is not the "
+                             f"step {step}")
+        momentum = gln_state_dict({"params": _present(trace)})
+        trained = self._trained()
+        if set(momentum) != set(trained):
+            raise ValueError(
+                "the checkpoint's momentum is masked otherwise than this "
+                "optimizer's parameters (another trainable_layers?): "
+                f"{sorted(set(momentum) ^ set(trained))[:4]}")
+        self.model.load_state_dict(gln_state_dict(tree))
+        for name, p in trained.items():
+            self.optimizer.state[p]["momentum_buffer"] = momentum[name].to(
+                p.device)
+        self.step = step
+
+
+def _present(tree):
+    """`tree` without its None leaves (optax's MaskedNode)."""
+    if isinstance(tree, dict):
+        return {k: _present(v) for k, v in tree.items()
+                if v is not None}
+    return tree
 
 
 def _freeze_mask(model: torch.nn.Module,

@@ -55,7 +55,7 @@ from ..parallel.multihost import host_shard_info
 from ..pipeline.serving import load_gln_variables
 from ..utils import resolve_device, viz
 from . import gln as gln_train
-from .checkpoint import BestKeeper, CheckpointManager
+from .checkpoint import BestKeeper, CheckpointManager, load_node
 from .dihe import (DIHETrainConfig, GANPretrainConfig, hierarchy_similarity,
                    init_dihe_state, make_dihe_train_step,
                    make_gan_pretrain_step)
@@ -108,9 +108,10 @@ def _host_sharding(use_mesh: bool, batch_size: int):
 
 
 def _resume_state(manager: CheckpointManager, state, mesh) -> Dict:
-    """Load the checkpoint to resume from into `state`; its meta, or {}
-    where there is none. Under a mesh rank 0 reads both and broadcasts
-    them."""
+    """Load the checkpoint to resume from into `state` (an orbax train
+    state of either package, or a `torch.save` file of the port's
+    earlier runs: train/checkpoint.py); its meta, or {} where there is
+    none. Under a mesh rank 0 reads both and broadcasts them."""
     if mesh is None:
         meta = manager.load_meta()
         if meta:
@@ -122,9 +123,9 @@ def _resume_state(manager: CheckpointManager, state, mesh) -> Dict:
         payload = [(meta, manager.read() if meta else None)]
     dist.broadcast_object_list(payload, src=0, group=mesh.group,
                                device=mesh.device)
-    meta, sd = payload[0]
+    meta, node = payload[0]
     if meta:
-        state.load_state_dict(sd)
+        load_node(state, node)
     return meta
 
 
@@ -511,8 +512,9 @@ def train_dihe(dataset, discriminatorset, evaldata, evalset,
     tanh scale; a loader batch of 2 x `batch_size` splits into positives
     and negatives (classification_training.py:474-477).
     `discriminatorset` items are [0, 1] target-domain crops, drawn from
-    (seed, 29, epoch, step). `gan_state`: a GANTrainState or its
-    state_dict (a `gan_checkpoint` file) whose generator and
+    (seed, 29, epoch, step). `gan_state`: a GANTrainState, or a dict
+    of its generator's and discriminator's state_dicts
+    (cli/dihe.py:load_gan_state), whose generator and
     discriminator replace the seeded ones (their optimizers start
     fresh). `init_embedder`: a partial MACVGG state_dict laid over the
     seeded embedder (utils/torch_import.py:import_vgg16_features).

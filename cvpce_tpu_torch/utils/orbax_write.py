@@ -21,9 +21,14 @@ merges it into the root; the root store alone is what a restore reads.
 
 Leaves: numpy arrays and numpy scalars of the dtypes the reader takes
 (bool, int, uint and float, little-endian or of one byte, and ml_dtypes'
-bfloat16, as JAX hands it over), in dicts with str keys and in lists.
-Any other leaf or dtype, and an array of size 0 (which orbax refuses
-too), raises ValueError naming the leaf; nothing falls back to another
+bfloat16, as JAX hands it over), in dicts with str keys and in lists;
+an int32 scalar such as a train state's `step` is a 0-d `<i4` array.
+The empty nodes of a train state are written as orbax writes them,
+with no array: None (optax's EmptyState and MaskedNode, which orbax
+saves as None) with value_type "None" and an empty dict (an empty
+`batch_stats`) with value_type "Dict", both `skip_deserialize`. Any
+other leaf or dtype, and an array of size 0 (which orbax refuses too),
+raises ValueError naming the leaf; nothing falls back to another
 format. The directory is written beside its target and moved into
 place; an existing checkpoint there (or the single `torch.save` file an
 earlier port export held) is renamed aside first and removed last, as
@@ -49,6 +54,8 @@ HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
            "StandardCheckpointHandler")
 _SEQUENCE, _DICT = 1, 2
 _ZSTD_META = {"id": "zstd", "level": 1}
+# the empty nodes orbax records without an array: value_type by leaf
+_EMPTY = {type(None): "None", dict: "Dict"}
 
 
 def _flatten(tree, keys=()) -> Iterator[Tuple[tuple, Any]]:
@@ -135,11 +142,14 @@ def save(directory: str, tree: Dict[str, Any]) -> Dict[str, Any]:
     tree_metadata, items, array_bytes = {}, [], 0
     for keys, leaf in _flatten(tree):
         name = _name(keys)
-        arr, zdtype = _array(name, leaf)
+        empty = _EMPTY.get(type(leaf))
         tree_metadata[str(tuple(k for k, _ in keys))] = {
             "key_metadata": [{"key": k, "key_type": t} for k, t in keys],
-            "value_metadata": {"value_type": "np.ndarray",
-                               "skip_deserialize": False}}
+            "value_metadata": {"value_type": empty or "np.ndarray",
+                               "skip_deserialize": empty is not None}}
+        if empty:
+            continue
+        arr, zdtype = _array(name, leaf)
         items += _zarr(name, arr, zdtype)
         array_bytes += arr.nbytes
     directory = os.path.abspath(directory)

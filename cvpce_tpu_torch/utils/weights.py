@@ -12,15 +12,20 @@ keep the JAX names (`body.layer2_0.conv1`), and the detector head needs
 no reordering: the port flattens its NCHW outputs in the same
 (y, x, anchor) order the JAX head uses.
 
-`gln_variables` and `macvgg_variables` go the other way, for the port's
-orbax exports (pipeline/serving.py): each undoes a step of `_convert`
+`gln_variables`, `macvgg_variables` and `gan_variables` go the other
+way, for the port's orbax exports (pipeline/serving.py) and training
+checkpoints (train/checkpoint.py): each undoes a step of `_convert`
 (OIHW -> HWIO, the `fbn` level put back, flax's leaf names, the counter
 dropped) and sorts the state_dict into flax's collections by the port's
 module types, read off the state_dict: a module with running statistics
 and a `num_batches_tracked` counter is a BatchNorm (its affine to
 `params`, its statistics to `batch_stats`), one without the counter a
 FrozenBatchNorm (all four to `frozen`), anything else a conv (`params`).
-Every leaf comes back as f32 numpy, as the JAX package stores it.
+Every leaf comes back as f32 numpy, as the JAX package stores it. The
+`*_parameter_tree` functions lay a per-parameter tensor (an optimizer's
+momentum or Adam moment, by parameter name) out as the model's flax
+`params` tree, each in its parameter's layout: optax keeps its states
+in that tree.
 
 The int8 path's `act_scales` collection is not part of a state_dict: the
 port keeps each scale in its Int8Conv's buffer, and `load_act_scales`
@@ -31,7 +36,7 @@ so int8 models take the same state_dicts.
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,48 +89,88 @@ _BN = {"weight": ("params", "scale"), "bias": ("params", "bias"),
 _CONV = {"weight": "kernel", "bias": "bias"}
 
 
-def _variables(state_dict: Mapping[str, torch.Tensor],
-               collections: Tuple[str, ...],
-               rename_module=lambda mods: mods) -> Dict[str, Dict]:
-    """`_convert`'s inverse: flax collections of numpy f32 trees."""
-    modules: Dict[str, Dict[str, torch.Tensor]] = {}
-    for key, value in state_dict.items():
+def _placement(state_dict: Mapping[str, torch.Tensor], rename_module,
+               transposed) -> Dict[str, Tuple[str, Tuple[str, ...], str]]:
+    """state_dict key -> (flax collection, path in it, layout): `conv`
+    for an OIHW kernel (to HWIO), `transposed` for a ConvTranspose
+    kernel ((in, out, kh, kw) flipped, to HWIO), else `same`. The
+    BatchNorm counters have no place and are left out."""
+    modules: Dict[str, list] = {}
+    for key in state_dict:
         name, _, leaf = key.rpartition(".")
-        modules.setdefault(name, {})[leaf] = value
-    out: Dict[str, Dict] = {c: {} for c in collections}
-
-    def put(coll: str, mods, leaf: str, arr: np.ndarray, key: str):
-        if coll not in out:
-            raise KeyError(f"{key}: a {coll} leaf, which this model's "
-                           "variables do not hold")
-        node = out[coll]
-        for m in mods:
-            node = node.setdefault(m, {})
-        node[leaf] = arr
-
+        modules.setdefault(name, []).append(leaf)
+    out = {}
     for name, leaves in modules.items():
         mods = rename_module(name.split("."))
         norm = "running_mean" in leaves
         bn = norm and "num_batches_tracked" in leaves
         table = _BN if bn else _FROZEN if norm else _CONV
-        for leaf, value in leaves.items():
+        for leaf in leaves:
             if bn and leaf == "num_batches_tracked":
                 continue
             if leaf not in table:
                 raise KeyError(f"unexpected state_dict entry {name}.{leaf}")
-            arr = value.detach().cpu().float().numpy()
-            if table is _CONV and leaf == "weight" and arr.ndim == 4:
-                arr = arr.transpose(2, 3, 1, 0)
-            arr = np.array(arr, np.float32, order="C")
+            layout = "same"
             if table is _BN:
                 coll, flax_leaf = _BN[leaf]
-                put(coll, mods, flax_leaf, arr, f"{name}.{leaf}")
+                where = (coll, tuple(mods) + (flax_leaf,))
             elif table is _FROZEN:
-                put("frozen", mods + ["fbn"], _FROZEN[leaf], arr,
-                    f"{name}.{leaf}")
+                where = ("frozen", tuple(mods) + ("fbn", _FROZEN[leaf]))
             else:
-                put("params", mods, _CONV[leaf], arr, f"{name}.{leaf}")
+                where = ("params", tuple(mods) + (_CONV[leaf],))
+                if leaf == "weight" and state_dict[f"{name}.{leaf}"].dim() == 4:
+                    layout = "transposed" if transposed(mods) else "conv"
+            out[f"{name}.{leaf}"] = where + (layout,)
     return out
+
+
+def _to_flax(value: torch.Tensor, layout: str) -> np.ndarray:
+    arr = value.detach().cpu().float().numpy()
+    if layout == "conv":
+        arr = arr.transpose(2, 3, 1, 0)
+    elif layout == "transposed":  # `_convert`'s flip undone
+        arr = arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    return np.array(arr, np.float32, order="C")
+
+
+def _put(tree: Dict, path: Tuple[str, ...], value) -> None:
+    for m in path[:-1]:
+        tree = tree.setdefault(m, {})
+    tree[path[-1]] = value
+
+
+def _variables(state_dict: Mapping[str, torch.Tensor],
+               collections: Tuple[str, ...],
+               rename_module=lambda mods: mods,
+               transposed=lambda mods: False) -> Dict[str, Dict]:
+    """`_convert`'s inverse: flax collections of numpy f32 trees."""
+    out: Dict[str, Dict] = {c: {} for c in collections}
+    for key, (coll, path, layout) in _placement(
+            state_dict, rename_module, transposed).items():
+        if coll not in out:
+            raise KeyError(f"{key}: a {coll} leaf, which this model's "
+                           "variables do not hold")
+        _put(out[coll], path, _to_flax(state_dict[key], layout))
+    return out
+
+
+def _parameter_tree(module: torch.nn.Module,
+                    values: Mapping[str, Optional[torch.Tensor]],
+                    rename_module=lambda mods: mods,
+                    transposed=lambda mods: False) -> Dict:
+    """A per-parameter tensor of `module` (an optimizer's momentum or
+    moment, named by its parameter) as a tree of its `params`
+    collection, each in its parameter's layout; None where the value is
+    None (a parameter optax masks out). Every parameter needs a value."""
+    placement = _placement(module.state_dict(), rename_module, transposed)
+    tree: Dict = {}
+    for name, _ in module.named_parameters():
+        if name not in values:
+            raise KeyError(f"no value for parameter {name}")
+        _, path, layout = placement[name]
+        v = values[name]
+        _put(tree, path, None if v is None else _to_flax(v, layout))
+    return tree
 
 
 def gln_variables(state_dict: Mapping[str, torch.Tensor]
@@ -135,17 +180,18 @@ def gln_variables(state_dict: Mapping[str, torch.Tensor]
     return _variables(state_dict, ("params", "frozen", "batch_stats"))
 
 
+def _macvgg_rename(mods):
+    if len(mods) != 2 or mods[0] != "features":
+        raise KeyError(f"not a MACVGG layer: {'.'.join(mods)}")
+    return [f"f{mods[1]}"]
+
+
 def macvgg_variables(state_dict: Mapping[str, torch.Tensor]
                      ) -> Tuple[Dict, Dict]:
     """models.embedders.MACVGG state_dict (features.{idx}.*) ->
     (params, batch_stats) with flax's names f{idx}
     (`macvgg_state_dict`'s inverse)."""
-    def rename(mods):
-        if len(mods) != 2 or mods[0] != "features":
-            raise KeyError(f"not a MACVGG layer: {'.'.join(mods)}")
-        return [f"f{mods[1]}"]
-
-    v = _variables(state_dict, ("params", "batch_stats"), rename)
+    v = _variables(state_dict, ("params", "batch_stats"), _macvgg_rename)
     return v["params"], v["batch_stats"]
 
 
@@ -183,6 +229,17 @@ def macresnet_state_dict(params: Mapping, batch_stats: Mapping
 _GAN_MODULE = re.compile(r"(down|down_bn|up|up_bn|conv|bn)_\d+")
 
 
+def _gan_rename(mods):
+    if not mods or not _GAN_MODULE.fullmatch(mods[-1]) or any(
+            m != "d" for m in mods[:-1]):
+        raise KeyError(f"not a GAN layer: {'/'.join(mods)}")
+    return mods
+
+
+def _gan_transposed(mods) -> bool:
+    return re.fullmatch(r"up_\d+", mods[-1]) is not None
+
+
 def gan_state_dict(params: Mapping, batch_stats: Mapping
                    ) -> Dict[str, torch.Tensor]:
     """UNetGenerator or AveragingPatchGAN (params, batch_stats) ->
@@ -190,15 +247,38 @@ def gan_state_dict(params: Mapping, batch_stats: Mapping
     `d.conv_3`). Conv kernels HWIO -> OIHW; the generator's
     ConvTranspose kernels (`up_{i}`) HWIO -> (in, out, kh, kw), flipped
     in both spatial axes."""
-    def rename(mods):
-        if not mods or not _GAN_MODULE.fullmatch(mods[-1]) or any(
-                m != "d" for m in mods[:-1]):
-            raise KeyError(f"not a GAN layer: {'/'.join(mods)}")
-        return mods
-
     return _convert([("params", params), ("batch_stats", batch_stats)],
-                    rename, lambda mods: re.fullmatch(r"up_\d+", mods[-1])
-                    is not None)
+                    _gan_rename, _gan_transposed)
+
+
+def gan_variables(state_dict: Mapping[str, torch.Tensor]
+                  ) -> Tuple[Dict, Dict]:
+    """models.gan UNetGenerator or AveragingPatchGAN state_dict ->
+    (params, batch_stats) with flax's names (`gan_state_dict`'s
+    inverse: the ConvTranspose kernels unflipped back to HWIO)."""
+    v = _variables(state_dict, ("params", "batch_stats"), _gan_rename,
+                   _gan_transposed)
+    return v["params"], v["batch_stats"]
+
+
+def gln_parameter_tree(model: torch.nn.Module,
+                       values: Mapping[str, Optional[torch.Tensor]]) -> Dict:
+    """Per-parameter tensors of a models.gln.GLN (by parameter name) as
+    a tree of its flax `params`, None where a value is None."""
+    return _parameter_tree(model, values)
+
+
+def macvgg_parameter_tree(model: torch.nn.Module,
+                          values: Mapping[str, torch.Tensor]) -> Dict:
+    """Per-parameter tensors of a MACVGG as a tree of its flax params."""
+    return _parameter_tree(model, values, _macvgg_rename)
+
+
+def gan_parameter_tree(model: torch.nn.Module,
+                       values: Mapping[str, torch.Tensor]) -> Dict:
+    """Per-parameter tensors of a UNetGenerator or AveragingPatchGAN as
+    a tree of its flax params."""
+    return _parameter_tree(model, values, _gan_rename, _gan_transposed)
 
 
 def dihe_state_dict(state) -> Dict[str, Dict[str, torch.Tensor]]:

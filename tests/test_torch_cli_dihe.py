@@ -391,7 +391,9 @@ def test_train_gan_and_imagenet(files, fake_data, monkeypatch, tmp_path):
               "--imagenet", files["vgg"]])
     _, kw = calls.pop()
     want = gan.state_dict()
-    assert set(kw["gan_state"]) == set(want)
+    # the players of the orbax gan_checkpoint (cli/dihe.py:load_gan_state;
+    # train_dihe starts their optimizers afresh)
+    assert set(kw["gan_state"]) == {"generator", "discriminator"}
     for player in ("generator", "discriminator"):
         for k, v in want[player].items():
             assert torch.equal(kw["gan_state"][player][k], v), k
@@ -451,10 +453,24 @@ def _same_tree(a, b, key=""):
         assert set(a) == set(b), key
         for k in b:
             _same_tree(a[k], b[k], f"{key}.{k}")
+    elif isinstance(b, list):
+        assert isinstance(a, list) and len(a) == len(b), key
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_tree(x, y, f"{key}.{i}")
     elif torch.is_tensor(b):
         assert torch.equal(a, b), key
+    elif isinstance(b, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        assert a.tobytes() == b.tobytes(), key
     else:
         assert a == b, key
+
+
+def _node(path):
+    """A run's orbax checkpoint node, as the port's reader gives it."""
+    from cvpce_tpu_torch.utils import orbax_read
+
+    return orbax_read.restore(str(path))
 
 
 def _library(fn) -> str:
@@ -502,16 +518,16 @@ def test_pretrain_gan_matches_the_library(gan_dir):
     for name in ("gan_checkpoint", "gan_checkpoint.meta.json"):
         assert sorted(os.listdir(root / "cli")) == \
             sorted(os.listdir(root / "lib"))
-    _same_tree(torch.load(root / "cli" / "gan_checkpoint"),
-               torch.load(root / "lib" / "gan_checkpoint"))
+    _same_tree(_node(root / "cli" / "gan_checkpoint"),
+               _node(root / "lib" / "gan_checkpoint"))
 
 
 def test_train_from_the_gan_matches_the_library(files, gan_dir, tmp_path):
     """`dihe train --gan <pretrain-gan out>`: the same printed lines,
-    checkpoint files and states as train_dihe given that gan_checkpoint's
-    state_dict."""
+    checkpoint nodes and states as train_dihe given that gan_checkpoint's
+    players (cli/dihe.py:load_gan_state)."""
+    from cvpce_tpu_torch.cli.dihe import load_gan_state
     from cvpce_tpu_torch.train import loops
-    from cvpce_tpu_torch.train.checkpoint import CheckpointManager
     from cvpce_tpu_torch.train.dihe import DIHETrainConfig
 
     gan = str(gan_dir[0] / "cli")
@@ -526,19 +542,19 @@ def test_train_from_the_gan_matches_the_library(files, gan_dir, tmp_path):
         cfg = DIHETrainConfig(gen_downs=GEN_DOWNS)
         want = _library(lambda: loops.train_dihe(
             dataset, discset, dataset, evalset, str(tmp_path / "lib"),
-            gan_state=CheckpointManager(gan, name="gan_checkpoint").read(),
+            gan_state=load_gan_state(gan),
             epochs=1, batch_size=2, train_cfg=cfg, device="cpu"))
     assert text == want and "epoch 0: top-1 accuracy" in text
     names = sorted(os.listdir(tmp_path / "cli"))
     assert names == sorted(os.listdir(tmp_path / "lib"))
     assert "epoch_0" in names and "embedder_checkpoint" in names
     for name in ("embedder_checkpoint", "epoch_0"):
-        _same_tree(torch.load(tmp_path / "cli" / name),
-                   torch.load(tmp_path / "lib" / name))
+        _same_tree(_node(tmp_path / "cli" / name),
+                   _node(tmp_path / "lib" / name))
     # the generator started from the GAN's
-    gan_gen = torch.load(Path(gan) / "gan_checkpoint")["generator"]
-    trained = torch.load(tmp_path / "cli" / "embedder_checkpoint")
-    assert set(trained["generator"]) == set(gan_gen)
+    gan_gen = _node(Path(gan) / "gan_checkpoint")["gen_params"]
+    trained = _node(tmp_path / "cli" / "embedder_checkpoint")
+    assert set(trained["gen_params"]) == set(gan_gen)
 
 
 def test_hyperopt_two_trials(files, tmp_path):
@@ -549,6 +565,7 @@ def test_hyperopt_two_trials(files, tmp_path):
     from cvpce_tpu_torch.eval.classification import eval_dihe
     from cvpce_tpu_torch.models.embedders import EmbedFn, MACVGG
     from cvpce_tpu_torch.train.hyperopt import DIHE_SPACE
+    from cvpce_tpu_torch.utils.weights import macvgg_state_dict
 
     out = tmp_path / "search"
     with at_64():
@@ -569,7 +586,9 @@ def test_hyperopt_two_trials(files, tmp_path):
             assert set(t["config"]) == set(DIHE_SPACE)
             weights = out / f"trial_{t['trial_id'] + 1:03d}" / "epoch_0"
             model = MACVGG(batch_norm=t["config"]["batchnorm"])
-            model.load_state_dict(torch.load(weights)["embedder"])
+            node = _node(weights)
+            model.load_state_dict(macvgg_state_dict(node["emb_params"],
+                                                    node["emb_stats"]))
             acc = eval_dihe(EmbedFn(model, device="cpu"),
                             MACVGG.embedding_size, dataset, evalset,
                             batch_size=2, k=(1,), verbose=False,

@@ -223,7 +223,7 @@ def test_written_layout_is_orbax_s(tmp_path):
 
 @pytest.mark.parametrize("leaf", ["complex", "object", "str", "size_0",
                                   "torch", "int_key", "big_endian",
-                                  "python_int", "tuple", "empty_dict"])
+                                  "python_int", "tuple", "empty_list"])
 def test_unwritable_leaves_raise_naming_them(leaf, tmp_path):
     value = {"complex": np.ones(2, np.complex64),
              "object": np.array([None, 1], object),
@@ -231,7 +231,7 @@ def test_unwritable_leaves_raise_naming_them(leaf, tmp_path):
              "torch": torch.ones(2),
              "int_key": {1: np.ones(2)},
              "big_endian": np.arange(3, dtype=">f4"),
-             "python_int": 3, "tuple": (np.ones(2),), "empty_dict": {}}[leaf]
+             "python_int": 3, "tuple": (np.ones(2),), "empty_list": []}[leaf]
     target = str(tmp_path / "ckpt")
     with pytest.raises(ValueError, match="params.bad" if leaf != "int_key"
                        else "params.bad: dict key 1"):

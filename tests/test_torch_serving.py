@@ -231,8 +231,10 @@ def test_refusals(gln_run, dihe_run, tmp_path):
         with pytest.raises(ValueError, match="looks like a GLN"):
             load_dihe_encoder(d, name=name)
     drun, _ = dihe_run
+    # the DIHE run's node is an orbax DIHETrainState: no GLN variables
     with pytest.raises(ValueError, match=r"not a GLN checkpoint: missing "
-                                         r"\['model'\]"):
+                                         r"\['params', 'frozen', "
+                                         r"'batch_stats'\]"):
         load_gln_variables(drun, name="embedder_checkpoint")
     with pytest.raises(ValueError, match="no checkpoint file"):
         load_gln_variables(str(tmp_path))

@@ -31,6 +31,7 @@ from cvpce_tpu_torch import testing
 from cvpce_tpu_torch.data.loader import PrefetchLoader
 from cvpce_tpu_torch.train import dihe as pdihe
 from cvpce_tpu_torch.train import loops
+from cvpce_tpu_torch.utils import orbax_read
 from cvpce_tpu_torch.utils.torch_import import import_vgg16_features
 from cvpce_tpu_torch.utils.weights import gan_state_dict, macvgg_state_dict
 
@@ -354,13 +355,13 @@ def test_resume_from_epoch_boundary_bit_identical(run_dir, uninterrupted,
     whole = uninterrupted[loop]
     run(run_dir / "split", epochs=1)
     name = "gan_checkpoint" if loop == "gan" else "embedder_checkpoint"
-    saved = torch.load(run_dir / "split" / name, weights_only=True)
+    # an orbax node in the JAX package's layout: optax's one Adam count
+    saved = orbax_read.restore(str(run_dir / "split" / name))
     resumed = run(run_dir / "split", epochs=1, resume=True)["state"]
     _same_state(whole, resumed)
     opt = "gen_opt" if loop == "gan" else "emb_opt"
-    assert len(saved[opt]["state"]) > 10
-    assert all(int(s["step"]) == 4 // (1 if loop == "gan" else 2)
-               for s in saved[opt]["state"].values())
+    assert len(list(testing.tree_leaves(saved[opt][0]["mu"]))) > 10
+    assert int(saved[opt][0]["count"]) == 4 // (1 if loop == "gan" else 2)
 
 
 @pytest.mark.parametrize("loop", ["gan", "dihe"])
@@ -390,9 +391,8 @@ def test_overlays_and_refusals(run_dir, monkeypatch):
     gan = gan_init(seed=9, device="cpu")
     got = _dihe(run_dir / "a", epochs=1, init_embedder=vgg, gan_state=gan,
                 checkpoint_interval=100)["state"]
-    sd = torch.load(run_dir / "a" / "embedder_checkpoint",
-                    weights_only=True)
-    assert sd["step"] == got.step == 2
+    sd = orbax_read.restore(str(run_dir / "a" / "embedder_checkpoint"))
+    assert int(sd["step"]) == got.step == 2
     first = vgg["features.0.weight"]
     assert (got.embedder.features[0].weight - first).abs().max() <= 2.1e-6
     assert not torch.equal(got.embedder.features[0].weight, first)

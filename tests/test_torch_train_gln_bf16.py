@@ -42,6 +42,7 @@ from cvpce_tpu_torch.pipeline.serving import (export_gln_serving,
                                               load_gln_variables)
 from cvpce_tpu_torch.train import gln as ptrain
 from cvpce_tpu_torch.train import loops
+from cvpce_tpu_torch.utils import orbax_read
 from cvpce_tpu_torch.utils.weights import gln_state_dict
 from test_torch_train_gln import (LOOP_CFG, LOOP_TRAIN, TRAIN_KW,
                                   DetectionSet, H, W, _assert_same_state,
@@ -279,12 +280,15 @@ def test_training_loop_matches_jax(run_dir, reference_checkpoint):
     assert got["state"].step == 3
 
     for name in ("checkpoint", "epoch_0"):
-        sd = torch.load(os.path.join(pout, name), weights_only=True)
-        floats = [v for v in sd["model"].values() if v.is_floating_point()]
-        assert floats and all(v.dtype == torch.float32 for v in floats)
-        moments = [s["momentum_buffer"]
-                   for s in sd["optimizer"]["state"].values()]
-        assert moments and all(m.dtype == torch.float32 for m in moments)
+        # orbax nodes in the JAX package's GLNTrainState layout
+        tree = orbax_read.restore(os.path.join(pout, name))
+        floats = [v for c in ("params", "frozen", "batch_stats")
+                  for _, v in testing.tree_leaves(tree[c])]
+        assert floats and all(v.dtype == np.float32 for v in floats)
+        moments = [v for _, v in testing.tree_leaves(
+            tree["opt_state"][0]["inner_state"][1][0]["trace"])
+            if v is not None]
+        assert moments and all(m.dtype == np.float32 for m in moments)
     export = export_gln_serving(pout, str(run_dir / "export"))
     floats = [v for v in load_gln_variables(export).values()
               if v.is_floating_point()]
